@@ -17,7 +17,17 @@ Phases, each printing one JSON line:
 4. q6 on the one-hot path, 5. q6 on the slot-table hash engine,
 6. q95 (dense joins + one-hot group-by) and q95 through the hash join:
    each driven once with every launch count at 0 just before and read
-   just after, checked against the numpy oracle, then timed.
+   just after, checked against the numpy oracle, then timed;
+7. the plan layer: ``plan.execute`` of q6 (one-hot and hash engines),
+   q95 (both ``groupby_engine`` settings) and q9 (dim1 shuffled through
+   the dense join, dim2 broadcast through a prebuilt slot table), each
+   held against the hand-fused ``pipelines`` step and the numpy oracle,
+   a second call checked to be a plan-cache hit with no new compile,
+   then timed;
+8. the streaming exchange: the q95 plan's first stage,
+   ``Exchange(Scan("fact"), "k")`` over a ``MorselSource`` of 8 shards
+   with ``shuffle_stream`` on, checked lossless, routed, order-keeping
+   and with one partition-scatter launch per (morsel, round) scatter.
 
 It then prints one ``kernels`` line and, last, ``{"ok": true, "device":
 ...}``.  Any mismatch or exception exits nonzero without that line, as
@@ -45,12 +55,17 @@ REPLACES = {
         "spark_rapids_jni_tpu/ops/pallas_kernels.py:318",
     "slot_table_probe":
         "spark_rapids_jni_tpu/ops/pallas_kernels.py:414",
+    "partition_scatter":
+        "spark_rapids_jni_tpu/ops/pallas_kernels.py:478",
 }
 SOURCES = {
     "onehot_groupby": "spark_rapids_jni_tpu_torch/csrc/onehot_groupby.cu",
     "slot_table_build": "spark_rapids_jni_tpu_torch/csrc/slot_table.cu",
     "slot_table_probe": "spark_rapids_jni_tpu_torch/csrc/slot_table.cu",
+    "partition_scatter":
+        "spark_rapids_jni_tpu_torch/csrc/partition_scatter.cu",
 }
+P_SHARDS = 8                # the stream's shards (the reference's mesh)
 
 
 def emit(obj) -> None:
@@ -203,16 +218,84 @@ def k3_case(name, owner, bwords, pwords, live, rounds):
             "bound_by": by, "library_ms": None}
 
 
+def k4_morsel(fact, j, invalid_tail):
+    """Morsel ``j`` of the streamed fact table, mapped as the service maps
+    it; the last ``invalid_tail`` rows of every shard made invalid (they
+    become padding past sum(cnts))."""
+    from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
+    from spark_rapids_jni_tpu_torch.shuffle import service as SVC
+    from spark_rapids_jni_tpu_torch.shuffle.morsel import MorselSource
+
+    src = MorselSource.from_batch(fact, ShardMesh(P_SHARDS))
+    mb, rv = list(src)[j]()
+    if invalid_tail:
+        rv = rv.clone().reshape(P_SHARDS, -1)
+        rv[:, rv.shape[1] - invalid_tail:] = False
+        rv = rv.reshape(-1)
+    regrouped, counts, _ = SVC._map_keys(mb, ["k"], rv, P_SHARDS)
+    return SVC._leaves(regrouped), counts.to(torch.int32).contiguous()
+
+
+def k4_case(name, leaves, cnts, C, rounds):
+    """The partition scatter at the stream's shape: each bucket's base
+    sits half its count below the round boundary, so round 0 and round
+    1 both receive rows."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+
+    P = cnts.shape[1]
+    S = cnts.shape[0]
+    M = leaves[0].shape[0] // S
+    base = (C - cnts // 2).to(torch.int32).contiguous()
+
+    def fresh():
+        return ([torch.zeros((S * P * C,) + tuple(x.shape[1:]),
+                             dtype=x.dtype, device=x.device)
+                 for x in leaves],
+                torch.zeros((S * P * C,), dtype=torch.bool,
+                            device=cnts.device))
+
+    written = 0
+    for r in rounds:
+        gc, go = fresh()
+        KER.partition_scatter(gc, go, leaves, cnts, base, r, P, C)
+        rc, ro = fresh()
+        KER.partition_scatter_plain(rc, ro, leaves, cnts, base, r, P, C)
+        torch.cuda.synchronize()
+        check(torch.equal(go, ro), f"partition_scatter[{name}] r{r}: occ")
+        for a, b in zip(gc, rc):
+            check(torch.equal(a, b),
+                  f"partition_scatter[{name}] r{r}: chunk leaf differs")
+        if r == rounds[0]:
+            written = int(go.sum().item())
+    gc, go = fresh()
+    r0 = rounds[0]
+    ms = time_ms(lambda: KER.partition_scatter(gc, go, leaves, cnts, base,
+                                               r0, P, C), reps=20)
+    plain = time_ms(lambda: KER.partition_scatter_plain(
+        gc, go, leaves, cnts, base, r0, P, C), reps=5)
+    row_bytes = sum(x.element_size() * x.shape[1:].numel() for x in leaves)
+    # every morsel row's leaves + cnts and base read once; the rows of
+    # round r0 written once with their occ byte
+    nbytes = S * M * row_bytes + 2 * S * P * 4 + written * (row_bytes + 1)
+    b, by = bound_ms(nbytes)
+    return {"shape": name, "S": S, "P": P, "M": M, "C": C,
+            "leaves": len(leaves), "row_bytes": row_bytes,
+            "rows_written": written, "max_abs_err": 0, "ms": ms,
+            "plain_ms": plain, "bound_ms": b, "bound_by": by,
+            "library_ms": None}
+
+
 def phase_kernels(q6b, fact, dim1, dim2):
     """Every kernel case; returns ``{kernel: [case, ...]}`` (main shape
     first).  A case that raises is recorded and left out."""
+    from spark_rapids_jni_tpu_torch import config
     from spark_rapids_jni_tpu_torch import pipelines as PL
     from spark_rapids_jni_tpu_torch.plan import adaptive as AD
     from spark_rapids_jni_tpu_torch.relational import hashtable as H
     from spark_rapids_jni_tpu_torch.relational import keys as RK
 
     cases = {"onehot_groupby": [], "slot_table_build": [],
-             "slot_table_probe": []}
+             "slot_table_probe": [], "partition_scatter": []}
 
     def run(kernel, label, fn, *args):
         out = guarded(f"kernel {kernel}[{label}]", fn, *args)
@@ -250,6 +333,18 @@ def phase_kernels(q6b, fact, dim1, dim2):
         plive = torch.ones(fact.num_rows, dtype=torch.bool, device=dev)
         run("slot_table_probe", "fact_into_dim1", k3_case, "fact_into_dim1",
             owner1, rk1, pk, plive, H.chain_bound(owner1, dim1.num_rows))
+
+    # the stream's scatter: a fact morsel (8 shards x 4096 rows, C 2^16)
+    # across a round boundary, one whose shards end in padding, and one
+    # with no live row
+    C = int(config.get("shuffle_round_rows"))
+    M = int(config.get("scan_morsel_rows"))
+    for label, j, tail in (("fact_morsel_round_boundary", 0, 0),
+                           ("fact_morsel_padding_tail", 1, M // 4),
+                           ("fact_morsel_empty", 2, M)):
+        leaves, cnts = k4_morsel(fact, j, tail)
+        run("partition_scatter", label, k4_case, label, leaves, cnts, C,
+            (0, 1))
     return cases
 
 
@@ -333,6 +428,169 @@ def phase_path(name, fn, args, rows, verify, needs, stages=None):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the plan layer and the streaming exchange
+# ---------------------------------------------------------------------------
+
+def same_groups(got, ng, want, wng, key, floats, label):
+    """A plan's result against the hand-fused step's: the same groups,
+    ints and counts exact, floats rel ``FLOAT_RTOL``."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
+    a = PL.result_groups(got, ng, key)
+    b = PL.result_groups(want, wng, key)
+    check(sorted(a, key=str) == sorted(b, key=str),
+          f"{label}: groups differ from the pipelines step")
+    for k in set(a) & set(b):
+        for col, v in b[k].items():
+            g = a[k].get(col)
+            if col in floats and v is not None and g is not None:
+                check(abs(g - v) <= FLOAT_RTOL * abs(v),
+                      f"{label}: {col} of {k}: {g} vs {v}")
+            else:
+                check(g == v, f"{label}: {col} of {k}: {g} vs {v}")
+
+
+def check_q9(res, ng, arrays, label):
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
+    net, orders = PL.q9_oracle(arrays)
+    got = PL.result_groups(res, ng, "seg")
+    check(int(ng) == PL.Q95_SEG, f"{label}: {int(ng)} groups")
+    worst = 0.0
+    for s in range(PL.Q95_SEG):
+        check(got[s]["net_hi"] == int(net[s]), f"{label}: net_hi[{s}]")
+        check(got[s]["orders_hi"] == int(orders[s]),
+              f"{label}: orders_hi[{s}]")
+        want = net[s] / orders[s]
+        worst = max(worst, abs(got[s]["avg_hi"] - want) / abs(want))
+    check(worst <= FLOAT_RTOL, f"{label}: avg_hi rel err {worst}")
+    return worst
+
+
+def phase_plan(name, make_plan, inputs, verify, needs):
+    """``plan.execute`` once from an empty plan cache (counts at 0 just
+    before), verified; then a second call that must hit the cache with no
+    new compile; then timed."""
+    from spark_rapids_jni_tpu_torch import plan as PLAN
+
+    PLAN.reset_plan_cache()
+    (res, ng), counts, first_s = driven(
+        lambda: PLAN.execute(make_plan(), inputs))
+    extra = verify(res, ng)
+    for k in needs:
+        check(counts[k] > 0, f"{name}: kernel {k} was not launched")
+    t0 = PLAN.trace_count()
+    cp = PLAN.compile_plan(make_plan(), inputs)
+    again = cp(inputs)
+    check(cp.last_lookup == "hit", f"{name}: second call missed the cache")
+    check(PLAN.trace_count() == t0, f"{name}: second call compiled")
+    check(int(again[1]) == int(ng), f"{name}: second call differs")
+    ms = time_ms(lambda: PLAN.execute(make_plan(), inputs), reps=3)
+    rows = inputs["fact"].num_rows if "fact" in inputs else \
+        inputs["batch"].num_rows
+    line = {"phase": name, "rows": rows, "groups": int(ng),
+            "launches": counts, "first_run_s": first_s,
+            "decisions": cp.decisions, "ms": ms,
+            "mrows_per_s": rows / (ms * 1e-3) / 1e6}
+    if extra is not None:
+        line["float_max_rel_err"] = extra
+    emit(line)
+    return counts
+
+
+def phase_stream(fact, k4_ms):
+    """The q95 plan's first stage as a streaming stage over 8 shards:
+    lossless, every occupied row on the shard its pid names, each
+    (sender, destination) bucket in the sender's order, one
+    partition-scatter launch per (morsel, round) scatter."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch import plan as PLAN
+    from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
+    from spark_rapids_jni_tpu_torch.parallel.partition import \
+        spark_partition_id
+    from spark_rapids_jni_tpu_torch.plan.ir import Exchange, Scan
+    from spark_rapids_jni_tpu_torch.relational.keys import lexsort
+    from spark_rapids_jni_tpu_torch.shuffle import MorselSource, \
+        get_registry
+
+    P = P_SHARDS
+    n = fact.num_rows
+    src = MorselSource.from_batch(fact, ShardMesh(P))
+    plan = Exchange(Scan("fact"), "k")
+    config.set("shuffle_stream", True)
+    try:
+        (out, occ), counts, first_s = driven(
+            lambda: PLAN.execute(plan, {"fact": src}))
+        reg = get_registry()
+        info = reg.shuffles()[max(reg.shuffles())]
+        ms = time_ms(lambda: PLAN.execute(plan, {"fact": src}), reps=2)
+    finally:
+        config.reset("shuffle_stream")
+    cols = ("k", "wh", "seg", "v")
+    check(info.rows_moved == n, f"stream: rows_moved {info.rows_moved}")
+    check(int(occ.sum().item()) == n, "stream: occupied rows != input rows")
+    check(counts["partition_scatter"] == info.scatters,
+          f"stream: {counts['partition_scatter']} scatter launches for "
+          f"{info.scatters} scatters")
+    check(counts["partition_scatter"] > 0, "stream: K4 was not launched")
+    total = occ.shape[0]
+    dev = occ.device
+    shard = torch.arange(total, device=dev) // (total // P)
+    pid = spark_partition_id([out["k"]], P).to(torch.int64)
+    check(bool((pid[occ] == shard[occ]).all().item()),
+          "stream: an occupied row sits on a shard its pid does not name")
+    check(bool(torch.stack([out[c].validity for c in cols])[:, occ]
+               .all().item()), "stream: an occupied row is null")
+    # the delivered rows per (destination, sender) in slot order must be
+    # the input's rows of that bucket in the sender's order: lossless,
+    # routed and order-keeping at once
+    C, rounds = info.capacity, info.rounds
+    order = torch.arange(total, device=dev).reshape(
+        P, rounds, P, C).transpose(1, 2).reshape(-1)
+    got_rows = order[occ[order]]
+    sender = torch.arange(n, device=dev) // (n // P)
+    in_pid = spark_partition_id([fact["k"]], P).to(torch.int64)
+    want_rows = torch.sort(in_pid * P + sender, stable=True).indices
+    for c in cols:
+        check(torch.equal(out[c].data[got_rows], fact[c].data[want_rows]),
+              f"stream: column {c} differs from the input's buckets")
+    # and the multiset, explicitly
+    a = [out[c].data[occ].to(torch.int64) for c in cols]
+    b = [fact[c].data.to(torch.int64) for c in cols]
+    pa, pb = lexsort(a), lexsort(b)
+    check(all(torch.equal(x[pa], y[pb]) for x, y in zip(a, b)),
+          "stream: delivered multiset differs from the input's")
+    # where one morsel's time goes: its slice (replay), the map step
+    # (murmur3 pid, one regroup sort, counts, gathers of every leaf) and
+    # the host read of its counts
+    from spark_rapids_jni_tpu_torch.shuffle import service as SVC
+
+    replay = list(src)[0]
+    mb, rv = replay()
+    _, m_counts, m_oob = SVC._map_keys(mb, ["k"], rv, P)
+    per_morsel = {
+        "replay_ms": time_ms(replay, reps=20),
+        "map_ms": time_ms(lambda: SVC._map_keys(mb, ["k"], rv, P),
+                          reps=20),
+        "host_read_ms": time_ms(lambda: SVC._host_counts(m_counts, m_oob,
+                                                         P), reps=20),
+        "scatter_ms": k4_ms}
+    k4_total = (k4_ms or 0.0) * info.scatters
+    emit({"phase": "stream_exchange", "rows": n, "shards": P,
+          "morsels": info.morsels, "rounds": info.rounds,
+          "capacity": info.capacity, "scatters": info.scatters,
+          "rounds_overlapped": info.rounds_overlapped,
+          "bytes_moved": info.bytes_moved, "launches": counts,
+          "first_run_s": first_s, "ms": ms,
+          "mrows_per_s": n / (ms * 1e-3) / 1e6,
+          "decode_ms": info.decode_ms, "sync_ms": info.sync_ms,
+          "drain_ms": info.drain_ms,
+          "k4_ms_est": k4_total, "k4_share": k4_total / ms,
+          "per_morsel_ms": per_morsel})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an "
@@ -385,6 +643,52 @@ def main() -> int:
     path("q95_hashjoin", "onehot", PL.q95_hashjoin_step, (fact, dim1, dim2),
          N_FACT, lambda r, g: check_q95(r, g, q95_arrays, "q95_hashjoin"),
          ("slot_table_build", "slot_table_probe"))
+
+    from spark_rapids_jni_tpu_torch.plan import queries as Q
+
+    def plan_path(name, knobs, make_plan, inputs, verify, needs):
+        for k, v in knobs.items():
+            config.set(k, v)
+        try:
+            counts = guarded(name, phase_plan, name, make_plan, inputs,
+                             verify, needs)
+        finally:
+            for k in knobs:
+                config.reset(k)
+        for k in total:
+            total[k] += (counts or {}).get(k, 0)
+
+    def vs_step(step, args, key, floats, oracle):
+        def verify(res, ng):
+            want, wng = step(*args)
+            same_groups(res, ng, want, wng, key, floats, "plan vs step")
+            return oracle(res, ng)
+        return verify
+
+    q6_in = {"batch": q6b}
+    q95_in = {"fact": fact, "dim1": dim1, "dim2": dim2}
+    for label, group_path in (("onehot", "onehot"), ("hash", "sort")):
+        name = f"plan_q6_{label}"
+        plan_path(name, {"q6_group_path": group_path}, Q.q6_plan, q6_in,
+                  vs_step(PL.q6_step, (q6b,), "k", ("avg_price",),
+                          lambda r, g, n=name: check_q6(r, g, q6_arrays, n)),
+                  ("onehot_groupby",) if label == "onehot"
+                  else ("slot_table_build",))
+    for engine in ("auto", "sort"):
+        name = f"plan_q95_{engine}"
+        plan_path(name, {"groupby_engine": engine}, Q.q95_plan, q95_in,
+                  vs_step(PL.q95_step, (fact, dim1, dim2), "seg", (),
+                          lambda r, g, n=name: check_q95(r, g, q95_arrays,
+                                                         n)),
+                  ("onehot_groupby",) if engine == "auto" else ())
+    plan_path("plan_q9", {}, Q.q9_plan, q95_in,
+              lambda r, g: check_q9(r, g, q95_arrays, "plan_q9"),
+              ("slot_table_build", "slot_table_probe", "onehot_groupby"))
+
+    k4_main = (cases.get("partition_scatter") or [{}])[0].get("ms")
+    counts = guarded("stream_exchange", phase_stream, fact, k4_main)
+    for k in total:
+        total[k] += (counts or {}).get(k, 0)
 
     kernels = []
     for name, lst in cases.items():

@@ -3,10 +3,12 @@
 from __future__ import annotations
 
 _ITEMS = {
-    8: "plan layer",
-    9: "shuffle service",
     10: "relational breadth",
+    11: "multi-GPU",
     12: "encoded and compressed columns",
+    13: "memory and spill",
+    14: "I/O",
+    17: "tooling edges",
 }
 
 

@@ -65,9 +65,59 @@ _register("join_engine", "auto", str,
           "hash_join engine: 'kernel' (slot-table build and probe "
           "kernels) or 'auto' (= 'kernel').")
 _register("adaptive_execution", True, _parse_bool,
-          "Adaptive round bounds for the slot table: the build bound "
-          "follows the load factor and the probe bound is the table's "
-          "exact chain_bound.  Off = the historical constants.")
+          "Plan-time adaptive decisions (plan/adaptive.py): broadcast vs "
+          "shuffled joins from observed build sizes, group-by engine from "
+          "skewed counts passes, per-exchange round capacity from "
+          "ShuffleMetrics, and the slot table's round bounds (build bound "
+          "from the load factor, probe bound = the table's exact "
+          "chain_bound).  Off = the static defaults everywhere.")
+_register("broadcast_threshold_rows", 1 << 16, int,
+          "Adaptive-join build-side row cutoff: a strategy='auto' join "
+          "whose observed build side is at or under this goes broadcast "
+          "(a resident prebuilt build table probed by hash_join), over it "
+          "shuffled — Spark's autoBroadcastJoinThreshold, in rows.")
+_register("plan_cache_size", 64, int,
+          "Max compiled plans the plan cache (plan/cache.py) holds; LRU "
+          "past it.  Keys are (canonical IR shape, input schema, knob "
+          "fingerprint, adaptive decisions).")
+_register("shuffle_round_rows", 1 << 16, int,
+          "Per-(sender, destination) slot rows one ShuffleService round "
+          "may carry (shuffle/planner.py); bigger buckets drain over "
+          "several rounds instead of inflating the slot grid.")
+_register("shuffle_capacity_bucket", 256, int,
+          "Rounding bucket for planned exchange capacities.")
+_register("shuffle_max_rounds", 64, int,
+          "Cap on materialized ShuffleService rounds per exchange; a plan "
+          "that would exceed it raises the per-round capacity (never "
+          "drops rows).")
+_register("shuffle_strict_pids", False, _parse_bool,
+          "Raise ShuffleError on out-of-range partition ids (< 0 or > P) "
+          "instead of routing them to the null partition and counting "
+          "them in oob_rows.")
+_register("scan_morsel_rows", 4096, int,
+          "Per-shard rows in one scan morsel (shuffle/morsel.py): the "
+          "streaming exchange maps and scatters one morsel at a time and "
+          "drains a round as soon as no later morsel can touch it.")
+_register("shuffle_stream", False, _parse_bool,
+          "Lower a root Exchange(Scan) bound to a MorselSource through "
+          "ShuffleService.exchange_stream (plan/compile.py) instead of "
+          "materializing the scan first.")
+_register("shuffle_compress", "auto", str,
+          "Wire compression of exchange rounds: 'auto' and 'off' ship raw "
+          "words (what the reference's stream ships for either); 'pack' "
+          "is ROADMAP.md queue 1, item 12.")
+_register("shuffle_scatter_engine", "auto", str,
+          "Morsel -> round-chunk scatter of the streaming exchange: "
+          "'kernel' (the partition-scatter kernel, csrc/"
+          "partition_scatter.cu; its plain version on CPU tensors) or "
+          "'auto' (= 'kernel').")
+
+
+def knob_fingerprint() -> tuple:
+    """Every registered knob's resolved value, by key: a flip of any knob
+    changes it (the reference's ``serve/result_cache.py``
+    ``knob_fingerprint``, which the plan cache keys on)."""
+    return tuple((k, repr(get(k))) for k in sorted(_REGISTRY))
 
 
 def get(key: str):

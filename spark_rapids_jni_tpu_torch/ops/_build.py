@@ -28,7 +28,7 @@ from typing import Dict, Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_kernels_build")
-SOURCES = ("onehot_groupby", "slot_table")
+SOURCES = ("onehot_groupby", "slot_table", "partition_scatter")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,13 +1,16 @@
 """The port's hand-written kernels, each beside its plain PyTorch version.
 
-Counterpart of ``spark_rapids_jni_tpu/ops/pallas_kernels.py`` for the three
-kernels on the ported path:
+Counterpart of ``spark_rapids_jni_tpu/ops/pallas_kernels.py``, all four
+kernels:
 
 * :func:`onehot_groupby_parts` — per-bucket column sums (the one-hot
   group-by, ``csrc/onehot_groupby.cu``);
 * :func:`slot_table_build` — open-addressing insert in synchronous rounds
   (``csrc/slot_table.cu``);
-* :func:`slot_table_probe` — read-only chain walk (``csrc/slot_table.cu``).
+* :func:`slot_table_probe` — read-only chain walk (``csrc/slot_table.cu``);
+* :func:`partition_scatter` — one mapped morsel into one round's send
+  chunk of the streaming exchange, every shard in one launch
+  (``csrc/partition_scatter.cu``).
 
 Each wrapper checks device, dtype, shape and contiguity.  Given CPU
 tensors it runs the plain version in this module — the only reason a
@@ -34,7 +37,7 @@ from . import _build
 # launches of each kernel since the last reset_launches(): one per
 # wrapper call that went to the CUDA kernel
 launches: Dict[str, int] = {"onehot_groupby": 0, "slot_table_build": 0,
-                            "slot_table_probe": 0}
+                            "slot_table_probe": 0, "partition_scatter": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +57,14 @@ _SIGNATURES = {
         "srj_slot_probe": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _P]),
         "srj_slot_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "partition_scatter": {
+        "srj_partition_scatter": (_I, [ctypes.POINTER(_LL),
+                                       ctypes.POINTER(_LL),
+                                       ctypes.POINTER(_LL),
+                                       ctypes.POINTER(_I), _I, _P, _P, _P,
+                                       _I, _I, _LL, _I, _LL, _P]),
+        "srj_partition_scatter_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 _bound: Dict[str, ctypes.CDLL] = {}
@@ -386,7 +397,117 @@ def slot_table_probe(owner: torch.Tensor, build_words, probe_words,
     return found.to(torch.bool), slot
 
 
+# ---------------------------------------------------------------------------
+# K4: partition scatter
+# ---------------------------------------------------------------------------
+
+_SCATTER_MAX_LEAVES = 64
+_SCATTER_MAX_PARTITIONS = 2048
+
+
+def partition_scatter_plain(chunk_leaves, occ, morsel_leaves, cnts, base,
+                            rnd: int, P: int, C: int):
+    """Plain version of :func:`partition_scatter`: the reference's lax
+    formulation (searchsorted for the destination, then an index_put that
+    drops rows outside round ``rnd``), over all shards at once."""
+    S = cnts.shape[0]
+    M = morsel_leaves[0].shape[0] // S if S and morsel_leaves else 0
+    if M == 0:
+        return chunk_leaves, occ
+    dev = occ.device
+    c64 = cnts.to(torch.int64)
+    ends = torch.cumsum(c64, 1)
+    offs = ends - c64
+    i = torch.arange(M, dtype=torch.int64, device=dev)
+    d = torch.searchsorted(ends, i.expand(S, M).contiguous(), right=True)
+    d_c = d.clamp(max=P - 1)
+    k = base.to(torch.int64).gather(1, d_c) + i - offs.gather(1, d_c)
+    r0 = int(rnd) * C
+    keep = (d < P) & (k >= r0) & (k < r0 + C)
+    s_idx = torch.arange(S, dtype=torch.int64, device=dev)[:, None]
+    t = ((s_idx * P + d_c) * C + (k - r0))[keep]
+    src = (s_idx * M + i)[keep]
+    for ch, mo in zip(chunk_leaves, morsel_leaves):
+        ch[t] = mo[src]
+    occ[t] = True
+    return chunk_leaves, occ
+
+
+def partition_scatter(chunk_leaves, occ, morsel_leaves, cnts, base,
+                      rnd: int, P: int, C: int):
+    """Scatter one mapped morsel into round ``rnd``'s send chunk, IN PLACE,
+    for all S shards at once.
+
+    ``morsel_leaves``: S * M rows each (shard-major; each shard's rows
+    regrouped destination-major); ``cnts`` / ``base`` int32[S, P]: each
+    shard's per-destination counts in this morsel and the cumulative
+    counts before it; ``chunk_leaves``: S * P * C rows each (shard, then
+    destination, then slot), dtypes and row shapes as the morsel's;
+    ``occ`` bool[S * P * C].  Row ``i`` of shard ``s`` goes to partition
+    ``d = #{cumsum(cnts[s]) <= i}`` at slot ``k = base[s, d] + i -
+    offs[d]``, and is written when ``d < P`` and ``rnd*C <= k <
+    (rnd+1)*C``.  Returns ``(chunk_leaves, occ)``, bit-identical to the
+    reference's ``partition_scatter`` per shard.
+    """
+    what = "partition_scatter"
+    P, C, rnd = int(P), int(C), int(rnd)
+    _require(P >= 1 and C >= 1 and rnd >= 0,
+             f"{what}: need P >= 1, C >= 1, rnd >= 0")
+    _require(cnts.dtype == torch.int32 and cnts.dim() == 2
+             and cnts.shape[1] == P,
+             f"{what}: cnts must be int32[S, P]")
+    _require(base.dtype == torch.int32 and base.shape == cnts.shape,
+             f"{what}: base must be int32[S, P] like cnts")
+    S = cnts.shape[0]
+    _require(S >= 1, f"{what}: need at least one shard")
+    _require(len(chunk_leaves) == len(morsel_leaves),
+             f"{what}: chunk and morsel leaf counts differ")
+    _require(occ.dtype == torch.bool and occ.shape == (S * P * C,),
+             f"{what}: occ must be bool[S * P * C]")
+    rows = morsel_leaves[0].shape[0] if morsel_leaves else 0
+    _require(rows % S == 0, f"{what}: morsel rows {rows} not divisible "
+             f"by {S} shards")
+    for ch, mo in zip(chunk_leaves, morsel_leaves):
+        _require(ch.dtype == mo.dtype and ch.shape[1:] == mo.shape[1:]
+                 and ch.shape[0] == S * P * C and mo.shape[0] == rows,
+                 f"{what}: leaf shapes/dtypes do not line up "
+                 f"(chunk {tuple(ch.shape)} {ch.dtype}, morsel "
+                 f"{tuple(mo.shape)} {mo.dtype})")
+    tensors = [occ, cnts, base] + list(chunk_leaves) + list(morsel_leaves)
+    if not _on_cuda(tensors, what):
+        return partition_scatter_plain(chunk_leaves, occ, morsel_leaves,
+                                       cnts, base, rnd, P, C)
+    _require(all(t.is_contiguous() for t in tensors),
+             f"{what}: inputs must be contiguous")
+    n = len(chunk_leaves)
+    _require(n <= _SCATTER_MAX_LEAVES,
+             f"{what}: {n} leaves exceed the kernel's {_SCATTER_MAX_LEAVES}")
+    _require(P <= _SCATTER_MAX_PARTITIONS,
+             f"{what}: P {P} exceeds the kernel's {_SCATTER_MAX_PARTITIONS}")
+    M = rows // S
+    _require(S <= 65535 and M < (1 << 31),
+             f"{what}: S {S} or M {M} too large for one launch")
+    if M == 0:
+        return chunk_leaves, occ
+    arr = _LL * max(n, 1)
+    chunk_p = arr(*[t.data_ptr() for t in chunk_leaves])
+    morsel_p = arr(*[t.data_ptr() for t in morsel_leaves])
+    row_b = arr(*[t.element_size() * t.shape[1:].numel()
+                  for t in morsel_leaves])
+    elem_b = (_I * max(n, 1))(*[t.element_size() for t in morsel_leaves])
+    lib = _lib("partition_scatter")
+    with torch.cuda.device(occ.device):
+        rc = lib.srj_partition_scatter(
+            chunk_p, morsel_p, row_b, elem_b, n, occ.data_ptr(),
+            cnts.data_ptr(), base.data_ptr(), S, P, C, M, rnd,
+            _stream(occ))
+    _check(rc, lib, "srj_partition_scatter_error_string", what)
+    launches["partition_scatter"] += 1
+    return chunk_leaves, occ
+
+
 __all__ = ["launches", "reset_launches", "fold_hash",
            "onehot_groupby_parts", "onehot_groupby_parts_plain",
            "slot_table_build", "slot_table_build_plain",
-           "slot_table_probe", "slot_table_probe_plain"]
+           "slot_table_probe", "slot_table_probe_plain",
+           "partition_scatter", "partition_scatter_plain"]

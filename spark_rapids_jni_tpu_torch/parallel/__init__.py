@@ -1,1 +1,2 @@
-"""Spark-exact partition ids and the local regroup of an exchange."""
+"""Spark-exact partition ids, the local regroup of an exchange, the
+out-of-range pid routing and the one-card shard mesh."""

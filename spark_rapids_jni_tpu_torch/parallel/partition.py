@@ -11,7 +11,9 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..columnar.column import ColumnBatch
 from ..ops.hashing import murmur_hash3_32
+from ..relational.gather import gather_column
 from ..relational.keys import lexsort
 
 
@@ -49,3 +51,16 @@ def regroup_order(pid: torch.Tensor, num_slots: int,
     if secondary:
         return lexsort([pid] + list(secondary))
     return torch.sort(pid, stable=True).indices
+
+
+def exchange_local(b: ColumnBatch, key: str, live: torch.Tensor,
+                   partitions: int, secondary=None) -> ColumnBatch:
+    """The local leg of a shuffle (the reference's ``_exchange_local`` in
+    ``__graft_entry__.py`` and ``plan/compile.py``): Spark-exact
+    partition ids, then a stable regroup by pid.  Dead rows get the
+    pseudo-partition P and go last, so live rows stay compacted in front
+    and an ``arange < count`` mask stays valid after the regroup."""
+    pid = spark_partition_id([b[key]], partitions, live)
+    order = regroup_order(pid, partitions + 1, secondary=secondary)
+    return ColumnBatch({name: gather_column(col, order)
+                        for name, col in zip(b.names, b.columns)})

@@ -16,6 +16,9 @@ Counterparts of the single-chip steps in the reference's
   same stages through the general ``hash_join`` and ``group_by`` — the
   slot-table build and probe kernels.
 
+q9 exists only as IR (:func:`plan.queries.q9_plan`); :func:`q9_oracle`
+is its numpy oracle.
+
 The data recipes draw the same numbers as the reference's from the same
 seed (numpy's generator, in the same order), and the numpy oracles are
 those of the reference's ``bench.py``.  Batches go to the GPU unless the
@@ -29,7 +32,7 @@ import torch
 
 from . import config
 from .columnar.column import ColumnBatch, batch_from_numpy
-from .parallel.partition import regroup_order, spark_partition_id
+from .parallel.partition import exchange_local
 from .relational import keys as _rk
 from .relational.aggregate import (
     AggSpec,
@@ -37,7 +40,6 @@ from .relational.aggregate import (
     group_by_domain_or_sort,
     group_by_onehot,
 )
-from .relational.gather import gather_column
 from .relational.join import hash_join, join_dense_or_hash
 
 # the q95 workload spec (reference __graft_entry__.py Q95_*): fact keys
@@ -48,6 +50,8 @@ Q95_WH = 25
 Q95_SEG = 10
 Q95_V_LO, Q95_V_HI = 1, 500
 Q95_D_HI = 9  # dim payload domain
+# the q9 conditional (plan/queries.py q9_plan): orders with v >= this
+Q9_V_THRESHOLD = 250
 P = 8  # logical partitions of the local exchanges
 
 
@@ -139,17 +143,6 @@ def entry(device=None):
 # q95
 # ---------------------------------------------------------------------------
 
-def _exchange_local(b: ColumnBatch, key: str, live: torch.Tensor,
-                    secondary=None) -> ColumnBatch:
-    """The local leg of a shuffle: Spark-exact partition ids, then a stable
-    regroup by pid.  Dead rows get pseudo-partition P and go last, so live
-    rows stay compacted in front."""
-    pid = spark_partition_id([b[key]], P, live)
-    order = regroup_order(pid, P + 1, secondary=secondary)
-    return ColumnBatch({name: gather_column(col, order)
-                        for name, col in zip(b.names, b.columns)})
-
-
 def _live_prefix(n: int, count: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, device=count.device) < count
 
@@ -168,14 +161,14 @@ def _q95_prefix(fact, dim1, dim2, upto: str = "full"):
     ``('exch1', 'join1', 'join2', 'full')``)."""
     all_live = torch.ones((fact.num_rows,), dtype=torch.bool,
                           device=fact["k"].data.device)
-    staged = _exchange_local(fact, "k", all_live)
+    staged = exchange_local(fact, "k", all_live, P)
     if upto == "exch1":
         return staged
     j1, c1 = join_dense_or_hash(staged, dim1, "k", "k", dim1.num_rows)
     if upto == "join1":
         return j1, c1
     j1_live = _live_prefix(j1.num_rows, c1)
-    staged2 = _exchange_local(j1, "wh", j1_live)
+    staged2 = exchange_local(j1, "wh", j1_live, P)
     # the exchange kept the live count and compacted live rows to the
     # front, so the same prefix mask applies in the new order
     j2, c2 = join_dense_or_hash(staged2, dim2, "wh", "wh", dim2.num_rows,
@@ -189,7 +182,7 @@ def _q95_prefix(fact, dim1, dim2, upto: str = "full"):
         # so the sort engine's group_by runs on already-grouped rows
         segkeys = _rk.batch_radix_keys([j2["seg"]], equality=True,
                                        nulls_first=True)
-        staged3 = _exchange_local(j2, "seg", live, secondary=segkeys)
+        staged3 = exchange_local(j2, "seg", live, P, secondary=segkeys)
         return group_by(staged3, ["seg"], aggs, row_valid=live,
                         assume_grouped=True)
     return group_by_domain_or_sort(j2, "seg", aggs, Q95_SEG, row_valid=live)
@@ -201,10 +194,10 @@ def q95_hashjoin_step(fact: ColumnBatch, dim1: ColumnBatch,
     (the reference's ``_q95_encoded_step`` on plain batches)."""
     all_live = torch.ones((fact.num_rows,), dtype=torch.bool,
                           device=fact["k"].data.device)
-    staged = _exchange_local(fact, "k", all_live)
+    staged = exchange_local(fact, "k", all_live, P)
     j1, c1 = hash_join(staged, dim1, ["k"], ["k"], "inner")
     j1_live = _live_prefix(j1.num_rows, c1)
-    staged2 = _exchange_local(j1, "wh", j1_live)
+    staged2 = exchange_local(j1, "wh", j1_live, P)
     j2, c2 = hash_join(staged2, dim2, ["wh"], ["wh"], "inner",
                        left_valid=j1_live)
     live = _live_prefix(j2.num_rows, c2)
@@ -235,6 +228,20 @@ def q95_oracle(arrs: dict):
     orders = np.bincount(seg, minlength=Q95_SEG)
     net = np.bincount(seg, weights=v.astype(np.float64), minlength=Q95_SEG)
     return orders, net
+
+
+def q9_oracle(arrs: dict):
+    """``(net_hi, orders_hi)`` per seg in ``[0, Q95_SEG)`` for q9: the
+    unique-key joins reduce to key lookups, the conditional aggregate to
+    bincounts over rows with ``v >= Q9_V_THRESHOLD``.  ``avg_hi`` is
+    ``net_hi / orders_hi`` where ``orders_hi > 0``."""
+    fact, dim1, dim2 = arrs["fact"], arrs["dim1"], arrs["dim2"]
+    hit = (np.isin(fact["k"], dim1["k"]) & np.isin(fact["wh"], dim2["wh"])
+           & (fact["v"] >= Q9_V_THRESHOLD))
+    seg, v = fact["seg"][hit], fact["v"][hit]
+    orders = np.bincount(seg, minlength=Q95_SEG)
+    net = np.bincount(seg, weights=v.astype(np.float64), minlength=Q95_SEG)
+    return net, orders
 
 
 def result_groups(res: ColumnBatch, ng, key: str) -> dict:

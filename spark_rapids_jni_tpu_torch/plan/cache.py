@@ -1,0 +1,160 @@
+"""Plan cache: canonical IR shape + input schema + knob fingerprint +
+adaptive decisions -> compiled plan, with LRU eviction, pins and
+hit/miss counters.
+
+Counterpart of ``spark_rapids_jni_tpu/plan/cache.py`` (copied).  A hit
+returns the SAME :class:`~spark_rapids_jni_tpu_torch.plan.compile.
+CompiledPlan` object, so a repeated shape compiles nothing
+(:func:`~spark_rapids_jni_tpu_torch.plan.compile.trace_count` counts
+compiles).  Any knob flip changes the fingerprint and any shape or dtype
+change the schema, so both are misses by construction.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+
+from .. import config
+
+
+class PlanCache:
+    """LRU cache with explicit hit/miss/eviction counters.
+
+    ``maxsize`` defaults to the ``plan_cache_size`` knob, re-read at
+    every insert so a live knob change takes effect without rebuilding
+    the cache (shrinking evicts immediately).
+    """
+
+    def __init__(self, maxsize=None):
+        self._maxsize = maxsize
+        self._lock = threading.Lock()
+        self._entries: OrderedDict = OrderedDict()
+        # key -> set of owners holding the entry resident (serving
+        # tenants pin plans they are executing; pinned entries are
+        # skipped by LRU eviction so one tenant's compile storm cannot
+        # evict a plan another tenant is mid-flight on)
+        self._pins: dict = {}
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def _capacity(self) -> int:
+        if self._maxsize is not None:
+            return int(self._maxsize)
+        return int(config.get("plan_cache_size"))
+
+    def get(self, key):
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                self.misses += 1
+                return None
+            self._entries.move_to_end(key)
+            self.hits += 1
+            return entry
+
+    def put(self, key, value) -> None:
+        with self._lock:
+            self._entries[key] = value
+            self._entries.move_to_end(key)
+            cap = max(self._capacity(), 1)
+            while len(self._entries) > cap:
+                victim = next((k for k in self._entries
+                               if k not in self._pins), None)
+                if victim is None:
+                    break  # everything pinned: overflow beats breaking a tenant
+                del self._entries[victim]
+                self.evictions += 1
+
+    def pin(self, key, owner) -> None:
+        """Hold ``key`` resident on behalf of ``owner`` (any hashable —
+        the serving runtime uses its session id).  Pinning a key not in
+        the cache is allowed: the pin applies when the plan lands."""
+        with self._lock:
+            self._pins.setdefault(key, set()).add(owner)
+
+    def unpin(self, key, owner) -> None:
+        with self._lock:
+            owners = self._pins.get(key)
+            if owners is None:
+                return
+            owners.discard(owner)
+            if not owners:
+                del self._pins[key]
+
+    def release_owner(self, owner) -> None:
+        """Drop every pin ``owner`` holds — the kill-safe unwind path: a
+        cancelled tenant must not leave plans unevictable."""
+        with self._lock:
+            for key in list(self._pins):
+                owners = self._pins[key]
+                owners.discard(owner)
+                if not owners:
+                    del self._pins[key]
+
+    def pinned(self, key) -> bool:
+        with self._lock:
+            return key in self._pins
+
+    def invalidate_snapshot(self, snapshot_id) -> int:
+        """Drop every cached plan whose key embeds ``snapshot_id``.
+
+        Plan signatures may carry Scan snapshot ids (plan/ir.py): a
+        long-lived serving process that learns an input mutated can
+        drop the dead generation's compiled plans instead of waiting
+        for LRU churn.  Pinned plans are dropped too — a mutated input
+        makes them unservable regardless of in-flight interest.
+        """
+        def embeds(obj) -> bool:
+            if obj == snapshot_id:
+                return True
+            if isinstance(obj, tuple):
+                return any(embeds(v) for v in obj)
+            return False
+
+        with self._lock:
+            victims = [k for k in self._entries if embeds(k)]
+            for k in victims:
+                del self._entries[k]
+                self._pins.pop(k, None)
+                self.evictions += 1
+            return len(victims)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def metrics(self) -> dict:
+        with self._lock:
+            return {
+                "hits": self.hits,
+                "misses": self.misses,
+                "evictions": self.evictions,
+                "size": len(self._entries),
+                "capacity": self._capacity(),
+                "pinned": len(self._pins),
+            }
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._pins.clear()
+
+
+_cache = PlanCache()
+
+
+def get_plan_cache() -> PlanCache:
+    return _cache
+
+
+def plan_cache_metrics() -> dict:
+    """Snapshot of the global plan cache's counters (zeros-safe)."""
+    return _cache.metrics()
+
+
+def reset_plan_cache() -> None:
+    """Drop every cached plan AND zero the counters (test isolation)."""
+    global _cache
+    _cache = PlanCache()

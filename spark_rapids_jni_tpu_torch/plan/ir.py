@@ -1,0 +1,237 @@
+"""Logical plan IR: frozen, hashable nodes over ``ColumnBatch`` inputs.
+
+Copied from ``spark_rapids_jni_tpu/plan/ir.py`` (pure Python; the port
+does not import the reference).
+
+Nodes are LOGICAL — they say what, not how.  Physical choices (which
+join/group-by engine, whether an exchange fuses into the downstream
+aggregation, broadcast vs shuffled build) belong to the compiler and
+the adaptive layer, so the same plan object lowers differently per
+platform/knobs while its identity — :meth:`PlanNode.signature` — stays
+stable.  The signature is a nested tuple of primitives (node kind +
+canonicalized fields, children inline), which makes a plan shape usable
+as a dict key for the plan cache without hashing any device data.
+
+Every field that reaches a signature must be hashable; list-ish inputs
+are canonicalized to tuples at construction (``__post_init__``), so two
+plans built from lists and tuples compare equal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+FILTER_OPS = ("<", "<=", ">", ">=", "==", "!=")
+JOIN_STRATEGIES = ("shuffled", "broadcast", "auto")
+
+
+class PlanNode:
+    """Base for IR nodes; subclasses are frozen dataclasses."""
+
+    def children(self) -> tuple:
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self)
+                     if isinstance(getattr(self, f.name), PlanNode))
+
+    def signature(self) -> tuple:
+        """Canonical nested-tuple identity of this plan shape."""
+        out = [type(self).__name__]
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            out.append(v.signature() if isinstance(v, PlanNode) else v)
+        return tuple(out)
+
+    def walk(self):
+        """Depth-first (children before self) node iterator."""
+        for c in self.children():
+            yield from c.walk()
+        yield self
+
+
+def _tup(v):
+    return tuple(v) if v is not None else None
+
+
+@dataclass(frozen=True)
+class Scan(PlanNode):
+    """Read one named input batch (the leaf; bindings come at execute).
+
+    ``snapshot`` (optional, hashable) is the CONTENT snapshot id of the
+    bound input — a content hash for in-memory batches
+    (:func:`..shuffle.morsel.snapshot_for_batch`).  It participates
+    in :meth:`PlanNode.signature`, so two plans over the same shape but
+    different input *contents* have different identities — the exactness
+    the fleet-wide result cache keys on.  ``None`` means "contents
+    unknown": such a plan still compiles and runs, but result caching
+    refuses it (no snapshot id, no caching, never a guess).
+    """
+
+    name: str
+    snapshot: object = None
+
+
+@dataclass(frozen=True)
+class Filter(PlanNode):
+    """Keep rows where ``column <op> value``.
+
+    Lowered as a row mask carried to the next mask consumer (group-by
+    ``row_valid`` / join ``left_valid``) — never as a compaction pass.
+    (The reference's pushdown onto dictionary codes comes with the
+    encoded columns, ROADMAP.md queue 1, item 12.)
+    """
+
+    child: PlanNode
+    column: str
+    op: str
+    value: object  # hashable scalar literal
+
+    def __post_init__(self):
+        if self.op not in FILTER_OPS:
+            raise ValueError(f"unknown filter op {self.op!r}; "
+                             f"known: {FILTER_OPS}")
+
+
+@dataclass(frozen=True)
+class Project(PlanNode):
+    """Keep only the named columns (order defines output order)."""
+
+    child: PlanNode
+    columns: Tuple[str, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "columns", _tup(self.columns))
+
+
+@dataclass(frozen=True)
+class Join(PlanNode):
+    """Equality join; ``right`` is the BUILD side (usually a dim Scan).
+
+    ``dense_domain`` asserts the build keys are unique ints in
+    ``[0, domain)`` so the shuffled lowering may take the rowid-table
+    path (``join_dense_or_hash``): an int domain, or the sentinel
+    ``"build"`` meaning "the build side's row count" (the TPC-DS dim
+    shape, where keys are an arange over the dim's rows — a property of
+    the DATA, resolved when the plan meets its inputs).  ``strategy``
+    picks the physical form: ``'shuffled'`` (the hand-q95 lowering),
+    ``'broadcast'`` (a resident prebuilt build table +
+    ``hash_join(prebuilt=)``), or ``'auto'`` (the adaptive layer
+    decides from the observed build row count at plan time).
+    """
+
+    child: PlanNode
+    right: PlanNode
+    left_on: str
+    right_on: str
+    how: str = "inner"
+    dense_domain: object = None  # None | int | "build"
+    strategy: str = "shuffled"
+
+    def __post_init__(self):
+        if self.strategy not in JOIN_STRATEGIES:
+            raise ValueError(f"unknown join strategy {self.strategy!r}; "
+                             f"known: {JOIN_STRATEGIES}")
+
+
+@dataclass(frozen=True)
+class Agg(PlanNode):
+    """One aggregation: ``op`` in sum/count/min/max/mean, ``column``
+    None only for count(*)."""
+
+    op: str
+    column: Optional[str]
+    out_name: str
+
+
+@dataclass(frozen=True)
+class Aggregate(PlanNode):
+    """Group by ``keys`` computing ``aggs``.
+
+    ``domain`` (optional) asserts a single int key lives in
+    ``[0, domain)`` so the compiler may pick the adaptive domain engine
+    (``group_by_domain_or_sort``); ``onehot=True`` additionally routes
+    through the q6 one-hot path (``group_by_onehot`` under the
+    ``q6_group_path``/``q6_onehot_engine`` knobs).  Both are HINTS: a
+    string or encoded key column ignores them and runs the general
+    engine-selectable ``group_by``, which is exactly what the
+    hand-fused paths do.
+    """
+
+    child: PlanNode
+    keys: Tuple[str, ...]
+    aggs: Tuple[Agg, ...]
+    domain: Optional[int] = None
+    onehot: bool = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "keys", _tup(self.keys))
+        aggs = tuple(a if isinstance(a, Agg) else Agg(*a)
+                     for a in self.aggs)
+        object.__setattr__(self, "aggs", aggs)
+
+    def signature(self) -> tuple:
+        return ("Aggregate", self.child.signature(), self.keys,
+                tuple(a.signature() for a in self.aggs), self.domain,
+                self.onehot)
+
+
+@dataclass(frozen=True)
+class Exchange(PlanNode):
+    """Shuffle rows by the Spark-exact hash of ``key`` over
+    ``partitions`` slots — on one device, the LOCAL leg (murmur3 pid +
+    stable regroup) every multi-device stage pays around its all-to-all.
+    The compiler fuses an Exchange directly under an Aggregate on the
+    same key into the aggregation (secondary sort operands or outright
+    elision), mirroring the hand-fused q95 paths.
+    """
+
+    child: PlanNode
+    key: str
+    partitions: int = 8
+
+
+@dataclass(frozen=True)
+class Sort(PlanNode):
+    """Order rows by ``keys`` (ascending, nulls first)."""
+
+    child: PlanNode
+    keys: Tuple[str, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "keys", _tup(self.keys))
+
+
+def scan_names(plan: PlanNode) -> tuple:
+    """All Scan names in the plan, first-appearance order."""
+    seen = []
+    for node in plan.walk():
+        if isinstance(node, Scan) and node.name not in seen:
+            seen.append(node.name)
+    return tuple(seen)
+
+
+def bind_snapshots(plan: PlanNode, snapshots: dict) -> PlanNode:
+    """Rebuild ``plan`` with each :class:`Scan` carrying the snapshot id
+    from ``snapshots`` (scan name -> snapshot id).
+
+    Nodes are frozen, so the tree is rebuilt bottom-up with
+    ``dataclasses.replace``; scans absent from ``snapshots`` keep their
+    existing ``snapshot`` (usually ``None``).  The rebound plan's
+    :meth:`PlanNode.signature` then pins the exact input contents —
+    the form the result cache keys on.
+    """
+    if isinstance(plan, Scan):
+        if plan.name in snapshots:
+            return dataclasses.replace(plan, snapshot=snapshots[plan.name])
+        return plan
+    kwargs = {}
+    changed = False
+    for f in dataclasses.fields(plan):
+        v = getattr(plan, f.name)
+        if isinstance(v, PlanNode):
+            nv = bind_snapshots(v, snapshots)
+            changed = changed or nv is not v
+            kwargs[f.name] = nv
+    if not changed:
+        return plan
+    return dataclasses.replace(plan, **kwargs)

@@ -10,6 +10,8 @@ path:
   offsets/searchsorted expansion, padded to a static ``capacity``.
   Matches enumerate in original right-row order, bit-identical to the
   reference's engines.
+* :func:`build_table`: a resident prebuilt build table for
+  ``hash_join(prebuilt=)`` (the plan compiler's broadcast joins).
 * :func:`join_dense_or_hash`: when the build side's keys are unique ints
   in ``[0, domain)`` (dense surrogate keys, every TPC-DS dimension) the
   join is a rowid table plus gathers; otherwise the general
@@ -52,8 +54,9 @@ def _resolve_join_engine(engine):
 
 
 def _hash_build(rkeys, nr: int):
-    """Hash-engine build product over the build side's radix words:
-    ``(owner, rslot, rperm, counts_slot, off_slot)``.
+    """Hash-engine build product over the build side's radix words: the
+    flat tuple ``(owner, rslot, rperm, counts_slot, off_slot, *rkeys)``
+    that :func:`hash_join` takes as ``prebuilt``.
 
     S is 2x the build rows rounded up to a power of two (load <= 1/2, so
     insertion always terminates); ``rperm`` groups build rows by slot in
@@ -71,7 +74,7 @@ def _hash_build(rkeys, nr: int):
     counts_slot.index_add_(0, rslot64, torch.ones_like(rslot64))
     off_slot = torch.cumsum(counts_slot, 0) - counts_slot
     rperm = torch.sort(rslot64, stable=True).indices
-    return owner, rslot, rperm, counts_slot, off_slot
+    return (owner, rslot, rperm, counts_slot, off_slot) + tuple(rkeys)
 
 
 def _one_null_row_like(batch: ColumnBatch) -> ColumnBatch:
@@ -96,7 +99,7 @@ def hash_join(left: ColumnBatch, right: ColumnBatch,
               left_on: Sequence[str], right_on: Sequence[str],
               how: str = "inner", capacity: Optional[int] = None,
               suffixes: tuple = ("", "_r"), left_valid=None,
-              right_valid=None, engine=None) -> tuple:
+              right_valid=None, prebuilt=None, engine=None) -> tuple:
     """Inner equality join; returns ``(result_batch, count)``.
 
     ``capacity`` is the static output row budget (default
@@ -104,6 +107,11 @@ def hash_join(left: ColumnBatch, right: ColumnBatch,
     the true match total, and ``count > capacity`` signals truncation.
     ``left_valid`` / ``right_valid`` mark live rows.  The output keeps
     the left columns, then the right side's non-key columns.
+
+    ``prebuilt`` skips the build: a :class:`BuildTable` from
+    :func:`build_table`, or its raw product (:func:`_hash_build`'s
+    tuple).  It must have been built from the same ``right`` /
+    ``right_on`` / ``right_valid``; nothing re-validates that.
     """
     if how not in _HOWS:
         raise ValueError(f"unknown join type {how!r}")
@@ -111,8 +119,15 @@ def hash_join(left: ColumnBatch, right: ColumnBatch,
         raise not_ported(f"how={how!r} joins", 10)
     if len(left_on) != len(right_on):
         raise ValueError("left_on/right_on length mismatch")
+    if isinstance(prebuilt, BuildTable):
+        return hash_join(left, right, left_on, right_on, how,
+                         capacity=capacity, suffixes=suffixes,
+                         left_valid=left_valid, right_valid=right_valid,
+                         prebuilt=prebuilt.get(), engine=prebuilt.engine)
     _resolve_join_engine(engine)
     nl, nr = left.num_rows, right.num_rows
+    if nr == 0 and prebuilt is not None:
+        raise ValueError("prebuilt build table for an empty build side")
     if nr == 0:
         # one unmatchable null row keeps every gather in bounds
         right = _one_null_row_like(right)
@@ -142,8 +157,11 @@ def hash_join(left: ColumnBatch, right: ColumnBatch,
 
     # null build keys sit in their own slot, which no valid probe's words
     # equal; null and dead probe rows are masked
-    rkeys = K.batch_radix_keys(rcols, equality=True, nulls_first=False)
-    owner, _rslot, rperm, counts_slot, off_slot = _hash_build(rkeys, nr)
+    if prebuilt is None:
+        rkeys = K.batch_radix_keys(rcols, equality=True, nulls_first=False)
+        prebuilt = _hash_build(rkeys, nr)
+    owner, _rslot, rperm, counts_slot, off_slot = prebuilt[:5]
+    rkeys = list(prebuilt[5:])
     found, lslot = H.probe_slot_table(
         owner, rkeys, lkeys, ~l_null & l_live,
         max_rounds=_adaptive.bound_probe_rounds(owner, nr))
@@ -247,3 +265,71 @@ def _merge_parts(lpart: ColumnBatch, rpart: ColumnBatch,
                                  f"(suffixes={suffixes!r})")
             merged[out] = col
     return ColumnBatch(merged)
+
+
+# ---------------------------------------------------------------------------
+# resident build tables (the broadcast join's prebuilt side)
+# ---------------------------------------------------------------------------
+
+class BuildTable:
+    """A join build table over ``right[right_on]``, resident on the
+    device until closed: the counterpart of the reference's
+    ``SpillableBuildTable`` without spill (a spill-registered table that
+    is dropped under pressure and rebuilt on read is ROADMAP.md queue 1,
+    item 13).  ``engine`` is pinned at construction.
+
+    ``source`` is the batch the table was built from;
+    :meth:`for_batch` rebuilds it when handed a different batch, so a
+    plan reused over new build-side data never probes a stale table.
+    """
+
+    def __init__(self, right: ColumnBatch, right_on: Sequence[str],
+                 right_valid=None, name: Optional[str] = None,
+                 engine=None):
+        if right.num_rows == 0:
+            raise ValueError("cannot pre-build an empty build side")
+        self.name = name
+        self.right_on = tuple(right_on)
+        self.engine = _resolve_join_engine(engine)
+        self._right_valid = right_valid
+        self._tree = None
+        self.for_batch(right)
+
+    def for_batch(self, right: ColumnBatch) -> "BuildTable":
+        """The table for ``right``: this one when it was built from
+        ``right``, else rebuilt from it."""
+        if self._tree is not None and right is self.source:
+            return self
+        if right.num_rows == 0:
+            raise ValueError("cannot pre-build an empty build side")
+        rcols = [right[k] for k in self.right_on]
+        _require_plain(rcols, "build table keys")
+        if self._right_valid is not None:
+            rcols = [Column(c.data, c.validity & self._right_valid, c.dtype)
+                     for c in rcols]
+        rkeys = K.batch_radix_keys(rcols, equality=True, nulls_first=False)
+        self._tree = _hash_build(rkeys, right.num_rows)
+        self.source = right
+        return self
+
+    def get(self) -> tuple:
+        if self._tree is None:
+            raise RuntimeError(f"build table {self.name!r} is closed")
+        return self._tree
+
+    def close(self) -> None:
+        self._tree = None
+        self.source = None
+
+
+def build_table(right: ColumnBatch, right_on: Sequence[str],
+                right_valid=None, ctx=None, name: Optional[str] = None,
+                engine=None) -> BuildTable:
+    """Build a :class:`BuildTable` to pass as ``hash_join(prebuilt=)``
+    (the reference's ``spillable_build_table``); ``ctx`` charging is
+    ROADMAP.md queue 1, item 13."""
+    if ctx is not None:
+        raise not_ported("charging a build table to a task context (ctx=)",
+                         13)
+    return BuildTable(right, right_on, right_valid=right_valid, name=name,
+                      engine=engine)

@@ -1,0 +1,160 @@
+"""Shuffle id assignment and per-shuffle bookkeeping (the ShuffleManager
+registry role).
+
+Counterpart of ``spark_rapids_jni_tpu/shuffle/registry.py``, copied (pure
+Python): :class:`ShuffleRegistry` hands out increasing shuffle ids,
+records one :class:`ShuffleInfo` per completed exchange, and aggregates
+:class:`ShuffleMetrics` for the process.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+
+@dataclass(frozen=True)
+class ShuffleInfo:
+    """One completed exchange, exactly accounted."""
+
+    shuffle_id: int
+    rounds: int
+    capacity: int          # per-(sender,destination) slot rows per round
+    rows_moved: int        # rows delivered (== rows sent; the invariant)
+    bytes_moved: int       # grid bytes the all_to_all rounds transported
+    spilled_bytes: int     # device->host + host->disk bytes during it
+    skew_ratio: float      # max bucket / mean bucket from the plan
+    oob_rows: int          # out-of-range pids routed to the null partition
+    recovered_partitions: int = 0  # buffers rebuilt via map lineage
+    streamed: bool = False         # went through exchange_stream
+    morsels: int = 0               # morsels mapped (streamed only)
+    rounds_overlapped: int = 0     # rounds drained before end-of-stream
+    decode_ms: float = 0.0         # cumulative morsel decode+map time
+    drain_ms: float = 0.0          # cumulative round drain time
+    compressed_bytes_saved: int = 0  # wire bytes the pack plan saved
+    #   (bytes_moved already reflects the packed size; this is the delta
+    #   vs the raw grid the same rounds would have shipped)
+    blocks_skipped: int = 0        # zone blocks the morsel check excluded
+    blocks_scanned: int = 0        # zone blocks consulted and kept
+    scatters: int = 0              # (morsel, round) scatters (streamed)
+    sync_ms: float = 0.0           # host waits on per-morsel counts
+
+
+class ShuffleMetrics:
+    """Process-wide shuffle counters (int fields + the float skew peak).
+
+    ``dropped_rows`` exists to make the lossless invariant observable:
+    the service RAISES when accounting finds a deficit, recording the
+    deficit here first — a nonzero value means a shuffle failed loudly,
+    never that rows vanished silently.
+    """
+
+    FIELDS = (
+        "shuffles", "rounds", "rows_moved", "bytes_moved",
+        "spilled_bytes", "oob_rows", "dropped_rows", "io_failures",
+        "recovered_partitions", "adopted_shards", "lineage_rebuilds",
+        "compressed_bytes_saved", "blocks_skipped", "blocks_scanned",
+    )
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._c = dict.fromkeys(self.FIELDS, 0)
+        self._max_skew = 0.0
+
+    def record_shuffle(self, info: ShuffleInfo):
+        with self._lock:
+            self._c["shuffles"] += 1
+            self._c["rounds"] += info.rounds
+            self._c["rows_moved"] += info.rows_moved
+            self._c["bytes_moved"] += info.bytes_moved
+            self._c["spilled_bytes"] += info.spilled_bytes
+            self._c["oob_rows"] += info.oob_rows
+            self._c["compressed_bytes_saved"] += info.compressed_bytes_saved
+            self._c["blocks_skipped"] += info.blocks_skipped
+            self._c["blocks_scanned"] += info.blocks_scanned
+            self._max_skew = max(self._max_skew, info.skew_ratio)
+
+    def record_dropped(self, n: int):
+        with self._lock:
+            self._c["dropped_rows"] += int(n)
+
+    def record_io_failure(self):
+        with self._lock:
+            self._c["io_failures"] += 1
+
+    def record_recovered(self):
+        """One lost/corrupt partition buffer rebuilt from map lineage.
+
+        Recorded LIVE at recovery time (not summed from ShuffleInfo at
+        exchange completion) so a recovery is visible even when the
+        exchange later fails for an unrelated reason."""
+        with self._lock:
+            self._c["recovered_partitions"] += 1
+
+    def record_adopted(self):
+        """One shard ADOPTED from the persistent store instead of
+        computed — either pre-map (a prior attempt's committed output
+        found at exchange start) or during lineage recovery (the store
+        answered before the rebuild closure ran)."""
+        with self._lock:
+            self._c["adopted_shards"] += 1
+
+    def record_lineage_rebuild(self):
+        """One shard actually RE-RUN through its lineage closure after
+        the store could not answer (no committed attempt, or every
+        attempt quarantined as corrupt) — the complement of
+        ``adopted_shards``; together they decompose recovery cost."""
+        with self._lock:
+            self._c["lineage_rebuilds"] += 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            out = dict(self._c)
+            out["max_skew_ratio"] = self._max_skew
+            return out
+
+    def reset(self):
+        with self._lock:
+            self._c = dict.fromkeys(self.FIELDS, 0)
+            self._max_skew = 0.0
+
+
+class ShuffleRegistry:
+    """Thread-safe shuffle id counter + completed-shuffle records."""
+
+    def __init__(self):
+        self._ids = itertools.count(1)
+        self._lock = threading.Lock()
+        self._info: Dict[int, ShuffleInfo] = {}
+        self.metrics = ShuffleMetrics()
+
+    def begin_shuffle(self) -> int:
+        return next(self._ids)
+
+    def record(self, info: ShuffleInfo):
+        with self._lock:
+            self._info[info.shuffle_id] = info
+        self.metrics.record_shuffle(info)
+
+    def info(self, shuffle_id: int) -> Optional[ShuffleInfo]:
+        with self._lock:
+            return self._info.get(shuffle_id)
+
+    def shuffles(self) -> Dict[int, ShuffleInfo]:
+        with self._lock:
+            return dict(self._info)
+
+    def reset(self):
+        with self._lock:
+            self._info.clear()
+        self.metrics.reset()
+
+
+_registry = ShuffleRegistry()
+
+
+def get_registry() -> ShuffleRegistry:
+    """The process-wide registry every :class:`ShuffleService` shares."""
+    return _registry

@@ -132,3 +132,65 @@ def test_slot_table_probe_empty_build_and_probe_sides(dev):
     pw, pl = _words(np.zeros(0, np.int64), dev)
     found, slot = KER.slot_table_probe(owner, words, pw, pl)
     assert found.shape == (0,) and slot.shape == (0,)
+
+
+def _scatter_inputs(dev, S, P, C, M, rng, pad_tail=0, empty=False):
+    """S shards' destination-major morsels with bases that straddle a
+    round boundary; the last ``pad_tail`` rows of each shard are padding
+    (beyond sum(cnts)); ``empty`` makes every row padding."""
+    cnts = np.zeros((S, P), np.int64)
+    for s in range(S):
+        if not empty:
+            d = np.sort(rng.integers(0, P, M - pad_tail))
+            cnts[s] = np.bincount(d, minlength=P)
+    base = rng.integers(C - 300, C + 50, (S, P))
+    leaves = [rng.integers(0, 1 << 20, S * M).astype(np.int32),
+              rng.integers(-(1 << 40), 1 << 40, S * M),
+              rng.random(S * M) < 0.5,
+              rng.random(S * M)]
+    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return (to(cnts.astype(np.int32)), to(base.astype(np.int32)),
+            [to(a) for a in leaves])
+
+
+@pytest.mark.parametrize("case", ["stream_shape", "padding_tail", "empty",
+                                  "wide_leaf"])
+def test_partition_scatter_matches_plain(dev, case):
+    rng = np.random.default_rng(4)
+    S = P = 8
+    C, M = 1 << 16, 4096
+    cnts, base, mleaves = _scatter_inputs(
+        dev, S, P, C, M, rng, pad_tail=1000 if case == "padding_tail" else 0,
+        empty=case == "empty")
+    if case == "wide_leaf":
+        mleaves.append(torch.as_tensor(
+            rng.integers(-9, 9, (S * M, 2)), device=dev))
+    for rnd in (0, 1):
+        outs = []
+        for fn in (KER.partition_scatter, KER.partition_scatter_plain):
+            chunk = [torch.zeros((S * P * C,) + tuple(m.shape[1:]),
+                                 dtype=m.dtype, device=dev) for m in mleaves]
+            occ = torch.zeros(S * P * C, dtype=torch.bool, device=dev)
+            KER.reset_launches()
+            outs.append(fn(chunk, occ, mleaves, cnts, base, rnd, P, C))
+        assert KER.launches["partition_scatter"] == 0  # plain ran last
+        (gc, go), (rc, ro) = outs
+        assert torch.equal(go, ro)
+        _same(gc, rc)
+        if case == "empty":
+            assert not go.any()
+
+
+def test_partition_scatter_counts_its_launches(dev):
+    rng = np.random.default_rng(5)
+    cnts, base, mleaves = _scatter_inputs(dev, 2, 4, 64, 100, rng)
+    chunk = [torch.zeros(2 * 4 * 64, dtype=m.dtype, device=dev)
+             for m in mleaves]
+    occ = torch.zeros(2 * 4 * 64, dtype=torch.bool, device=dev)
+    KER.reset_launches()
+    KER.partition_scatter(chunk, occ, mleaves, cnts, base, 0, 4, 64)
+    assert KER.launches["partition_scatter"] == 1
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.stack([mleaves[1], mleaves[1]], dim=1)[:, 0]
+        KER.partition_scatter(chunk, occ, [mleaves[0], strided]
+                              + mleaves[2:], cnts, base, 0, 4, 64)

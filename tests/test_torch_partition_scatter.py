@@ -1,0 +1,158 @@
+"""PyTorch port: the partition scatter (K4) against the JAX package.
+
+Reference counterparts: ``spark_rapids_jni_tpu/ops/pallas_kernels.py``
+``partition_scatter`` (run as the reference's own tests run it on the
+CPU, in Pallas interpret mode) and its lax formulation
+(``tests/test_pallas_kernels.py`` ``TestPartitionScatter._lax_ref``,
+repeated here as ``_lax_ref``).  The port's wrapper on CPU tensors runs
+its plain version; the CUDA kernel is held against that plain version in
+``test_torch_kernels_cuda.py``.  Chunks and occupancy must be
+bit-identical.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spark_rapids_jni_tpu.ops import pallas_kernels as PK
+
+from spark_rapids_jni_tpu_torch.ops import kernels as KER
+
+
+def _lax_ref(chunk, occv, morsel, cnts, base, r, P, C):
+    M = morsel[0].shape[0]
+    ends = jnp.cumsum(cnts)
+    offs = ends - cnts
+    i = jnp.arange(M, dtype=jnp.int32)
+    d = jnp.searchsorted(ends, i, side="right").astype(jnp.int32)
+    d_c = jnp.minimum(d, P - 1)
+    k = jnp.take(base, d_c) + (i - jnp.take(offs, d_c))
+    in_round = (d < P) & (k >= r * C) & (k < (r + 1) * C)
+    t = jnp.where(in_round, d_c * C + (k - r * C), P * C)
+    new_chunk = tuple(acc.at[t].set(x, mode="drop")
+                      for acc, x in zip(chunk, morsel))
+    return new_chunk, occv.at[t].set(True, mode="drop")
+
+
+def _case(rng, P, C, M, parts=None):
+    """One shard's inputs as numpy: counts from a destination per row
+    (P = null-partition rows, which the map sorts last), a base, zero
+    chunks and int64/float32/bool morsel leaves."""
+    if parts is None:
+        parts = rng.integers(0, P + 1, M)
+    cnts = np.bincount(parts[parts < P], minlength=P).astype(np.int32)
+    base = rng.integers(0, 24, P).astype(np.int32)
+    morsel = (rng.integers(0, 1 << 30, M).astype(np.int64),
+              rng.random(M).astype(np.float32),
+              rng.random(M) < 0.7)
+    chunk = (np.zeros(P * C, np.int64), np.zeros(P * C, np.float32),
+             np.zeros(P * C, np.bool_))
+    return cnts, base, morsel, chunk
+
+
+def _port(cnts, base, morsel, chunk, r, P, C):
+    t = [torch.from_numpy(np.array(a)) for a in chunk]
+    occ = torch.zeros(P * C, dtype=torch.bool)
+    KER.reset_launches()
+    out, occ = KER.partition_scatter(
+        t, occ, [torch.from_numpy(np.array(a)) for a in morsel],
+        torch.from_numpy(cnts)[None], torch.from_numpy(base)[None], r, P,
+        C)
+    assert KER.launches["partition_scatter"] == 0  # CPU: plain version
+    return [x.numpy() for x in out], occ.numpy()
+
+
+def _assert_same(port, ref):
+    (pc, po), (rc, ro) = port, ref
+    np.testing.assert_array_equal(po, np.asarray(ro))
+    for a, b in zip(pc, rc):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("rnd", [0, 1, 3])
+def test_matches_pallas_and_lax_reference(rnd):
+    rng = np.random.default_rng(7 + rnd)
+    P, C, M = 8, 16, 96
+    cnts, base, morsel, chunk = _case(rng, P, C, M)
+    args = ([jnp.asarray(a) for a in chunk], jnp.zeros(P * C, jnp.bool_),
+            [jnp.asarray(a) for a in morsel], jnp.asarray(cnts),
+            jnp.asarray(base), jnp.int32(rnd), P, C)
+    port = _port(cnts, base, morsel, chunk, rnd, P, C)
+    _assert_same(port, _lax_ref(*args))
+    ref_c, ref_o = PK.partition_scatter(*args)
+    _assert_same(port, (ref_c, ref_o))
+
+
+@pytest.mark.parametrize("case", ["all_to_one", "empty_morsel",
+                                  "all_padding_tail"])
+def test_skew_and_empty_morsels(case):
+    rng = np.random.default_rng(11)
+    P, C, M = 8, 16, 96
+    if case == "all_to_one":
+        parts = np.full(M, 5)
+    elif case == "empty_morsel":
+        parts = np.full(M, P)  # every row in the null partition
+    else:
+        parts = np.sort(rng.integers(0, P, M))
+        parts[-40:] = P
+    cnts, base, morsel, chunk = _case(rng, P, C, M, parts)
+    for rnd in (0, 1, 2):
+        args = ([jnp.asarray(a) for a in chunk],
+                jnp.zeros(P * C, jnp.bool_),
+                [jnp.asarray(a) for a in morsel], jnp.asarray(cnts),
+                jnp.asarray(base), jnp.int32(rnd), P, C)
+        port = _port(cnts, base, morsel, chunk, rnd, P, C)
+        _assert_same(port, _lax_ref(*args))
+        if case == "empty_morsel":
+            assert not port[1].any()
+
+
+def test_all_shards_in_one_call_equal_per_shard_reference():
+    """S shards in one call equal S reference calls, each on its own
+    [P * C] region of the chunk; a 2-D leaf moves whole rows."""
+    rng = np.random.default_rng(3)
+    S, P, C, M, rnd = 3, 8, 16, 64, 1
+    cases = [_case(rng, P, C, M) for _ in range(S)]
+    cnts = np.stack([c[0] for c in cases])
+    base = np.stack([c[1] for c in cases])
+    m_leaves = [np.concatenate([c[2][j] for c in cases]) for j in range(3)]
+    wide = rng.integers(-9, 9, (S * M, 2)).astype(np.int64)
+    chunk = [torch.zeros(S * P * C, dtype=torch.int64),
+             torch.zeros(S * P * C, dtype=torch.float32),
+             torch.zeros(S * P * C, dtype=torch.bool),
+             torch.zeros((S * P * C, 2), dtype=torch.int64)]
+    occ = torch.zeros(S * P * C, dtype=torch.bool)
+    KER.partition_scatter(chunk, occ,
+                          [torch.from_numpy(a) for a in m_leaves]
+                          + [torch.from_numpy(wide)],
+                          torch.from_numpy(cnts), torch.from_numpy(base),
+                          rnd, P, C)
+    for s, (c, b, morsel, zeros) in enumerate(cases):
+        ref_c, ref_o = _lax_ref(
+            [jnp.asarray(a) for a in zeros] + [jnp.zeros((P * C, 2),
+                                                         jnp.int64)],
+            jnp.zeros(P * C, jnp.bool_),
+            [jnp.asarray(a) for a in morsel]
+            + [jnp.asarray(wide[s * M:(s + 1) * M])],
+            jnp.asarray(c), jnp.asarray(b), jnp.int32(rnd), P, C)
+        region = slice(s * P * C, (s + 1) * P * C)
+        np.testing.assert_array_equal(occ[region].numpy(),
+                                      np.asarray(ref_o))
+        for got, want in zip(chunk, ref_c):
+            np.testing.assert_array_equal(got[region].numpy(),
+                                          np.asarray(want))
+
+
+def test_rejects_what_the_kernel_cannot_take():
+    P, C = 4, 8
+    occ = torch.zeros(P * C, dtype=torch.bool)
+    leaf = [torch.zeros(P * C, dtype=torch.int64)]
+    mo = [torch.zeros(16, dtype=torch.int64)]
+    c32 = torch.zeros((1, P), dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        KER.partition_scatter(leaf, occ, mo, c32.long(), c32, 0, P, C)
+    with pytest.raises(ValueError, match="line up"):
+        KER.partition_scatter(leaf, occ, [mo[0].int()], c32, c32, 0, P, C)
+    with pytest.raises(ValueError, match="occ"):
+        KER.partition_scatter(leaf, occ[:-1], mo, c32, c32, 0, P, C)

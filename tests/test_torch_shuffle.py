@@ -1,0 +1,296 @@
+"""PyTorch port: the exchange on one card against the JAX package's
+``ShuffleService`` on its 8-device CPU mesh.
+
+Reference counterparts: ``spark_rapids_jni_tpu/shuffle/planner.py``
+(``plan_rounds``, ``plan_stream_capacity``), ``shuffle/service.py``
+(``ShuffleService.exchange`` and ``exchange_stream``), ``shuffle/
+morsel.py`` (``MorselSource.from_batch``) and the streaming cases of
+``tests/test_shuffle_service.py`` ``TestStreamingExchange``.  The port's
+:class:`ShardMesh` of 8 row shards stands in for the 8 devices, so the
+WHOLE global ``(batch, occupancy)`` arrays — delivered rows, padding slots
+and their order — must be bit-identical to the reference's.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import NamedSharding, PartitionSpec
+
+from spark_rapids_jni_tpu import config as jconfig
+from spark_rapids_jni_tpu.columnar import types as JT
+from spark_rapids_jni_tpu.columnar.column import Column as JColumn
+from spark_rapids_jni_tpu.columnar.column import ColumnBatch as JBatch
+from spark_rapids_jni_tpu.parallel import data_mesh, shard_batch
+from spark_rapids_jni_tpu.shuffle import MorselSource as JMorselSource
+from spark_rapids_jni_tpu.shuffle import ShuffleError as JShuffleError
+from spark_rapids_jni_tpu.shuffle import ShuffleRegistry as JRegistry
+from spark_rapids_jni_tpu.shuffle import ShuffleService as JService
+from spark_rapids_jni_tpu.shuffle import planner as JPlanner
+
+from spark_rapids_jni_tpu_torch import config as tconfig
+from spark_rapids_jni_tpu_torch.columnar.column import (Column,
+                                                        ColumnBatch,
+                                                        batch_from_numpy)
+from spark_rapids_jni_tpu_torch.ops import kernels as KER
+from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
+from spark_rapids_jni_tpu_torch.shuffle import (MorselSource, ShuffleError,
+                                                ShuffleRegistry,
+                                                ShuffleService, planner)
+
+P8 = 8
+
+
+@pytest.fixture(autouse=True)
+def _reset_config():
+    yield
+    jconfig.reset("shuffle_capacity_bucket")
+    jconfig.reset("shuffle_strict_pids")
+    tconfig.reset()
+
+
+@pytest.fixture
+def small_buckets():
+    """Capacity bucket small enough that modest tests go multi-round."""
+    jconfig.set("shuffle_capacity_bucket", 16)
+    tconfig.set("shuffle_capacity_bucket", 16)
+
+
+def _kv(keys, vals, valid=None):
+    k = np.asarray(keys, np.int64)
+    v = np.asarray(vals, np.int64)
+    ok = np.ones(len(k), bool) if valid is None else np.asarray(valid)
+    jb = JBatch({"k": JColumn(jnp.asarray(k), jnp.asarray(ok), JT.INT64),
+                 "v": JColumn(jnp.asarray(v), jnp.ones(len(v), jnp.bool_),
+                              JT.INT64)})
+    tb = batch_from_numpy({"k": (k, ok, "int64"),
+                           "v": (v, np.ones(len(v), bool), "int64")},
+                          device="cpu")
+    return jb, tb
+
+
+def _meshes(eight_devices):
+    return data_mesh(P8), ShardMesh(P8, device="cpu")
+
+
+def assert_same_result(jres, tres):
+    """Whole global arrays bit-identical, plus the accounting."""
+    np.testing.assert_array_equal(tres.occupancy.numpy(),
+                                  np.asarray(jres.occupancy))
+    for name in jres.batch.names:
+        for part in ("data", "validity"):
+            np.testing.assert_array_equal(
+                getattr(tres.batch[name], part).numpy(),
+                np.asarray(getattr(jres.batch[name], part)),
+                err_msg=f"{name}.{part}")
+    for f in ("rounds", "capacity", "rows_moved", "bytes_moved",
+              "oob_rows", "streamed", "morsels", "rounds_overlapped"):
+        assert getattr(tres, f) == getattr(jres, f), f
+    assert tres.skew_ratio == pytest.approx(jres.skew_ratio)
+
+
+# ---------------------------------------------------------------------------
+# planner
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", range(6))
+def test_plan_rounds_matches_reference(seed):
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, 400, (P8, P8))
+    if seed % 2:
+        c[rng.integers(0, P8), rng.integers(0, P8)] = 5000  # skew
+    if seed == 4:
+        c[:] = 0
+    for kw in ({}, {"round_rows": 100, "bucket": 16},
+               {"round_rows": 10, "bucket": 1, "max_rounds": 4}):
+        got = planner.plan_rounds(c, **kw)
+        want = JPlanner.plan_rounds(c, **kw)
+        assert dataclasses.astuple(got) == dataclasses.astuple(want)
+        assert got.lossless
+
+
+def test_plan_stream_capacity_matches_reference():
+    for kw in ({}, {"round_rows": 100, "bucket": 16},
+               {"round_rows": 3, "bucket": 8}):
+        assert (planner.plan_stream_capacity(**kw)
+                == JPlanner.plan_stream_capacity(**kw))
+    with pytest.raises(ValueError):
+        planner.plan_stream_capacity(round_rows=0)
+
+
+# ---------------------------------------------------------------------------
+# materialized exchange
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["uniform", "all_to_one", "dead_rows"])
+def test_exchange_matches_reference(eight_devices, small_buckets, case):
+    jm, tm = _meshes(eight_devices)
+    n = P8 * 128
+    rng = np.random.default_rng(3)
+    keys = (np.full(n, 7) if case == "all_to_one"
+            else rng.integers(0, 1 << 20, n))
+    valid = rng.random(n) > 0.25 if case == "dead_rows" else None
+    jb, tb = _kv(keys, np.arange(n), valid)
+    rv = None if valid is None else valid
+    jres = JService(jm, registry=JRegistry()).exchange(
+        shard_batch(jb, jm), key_names=["k"], round_rows=16,
+        row_valid=None if rv is None else jax.device_put(
+            jnp.asarray(rv), NamedSharding(jm, PartitionSpec("data"))))
+    tres = ShuffleService(tm, registry=ShuffleRegistry()).exchange(
+        tb, key_names=["k"], round_rows=16,
+        row_valid=None if rv is None else torch.from_numpy(rv))
+    assert tres.rounds >= 2
+    assert_same_result(jres, tres)
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_out_of_range_pids_both_strict_modes(eight_devices, strict):
+    jm, tm = _meshes(eight_devices)
+    n = P8 * 16
+    vals = np.arange(n, dtype=np.int64)
+    pid = (vals % P8).astype(np.int32)
+    pid[::7] = -3
+    pid[3::11] = P8 + 4
+    jb, tb = _kv(vals, vals)
+    jconfig.set("shuffle_strict_pids", strict)
+    tconfig.set("shuffle_strict_pids", strict)
+    jpid = jax.device_put(jnp.asarray(pid),
+                          NamedSharding(jm, PartitionSpec("data")))
+    if strict:
+        with pytest.raises(JShuffleError):
+            JService(jm, registry=JRegistry()).exchange(
+                shard_batch(jb, jm), pid=jpid)
+        with pytest.raises(ShuffleError, match="out-of-range"):
+            ShuffleService(tm, registry=ShuffleRegistry()).exchange(
+                tb, pid=torch.from_numpy(pid))
+        return
+    jres = JService(jm, registry=JRegistry()).exchange(shard_batch(jb, jm),
+                                                       pid=jpid)
+    tres = ShuffleService(tm, registry=ShuffleRegistry()).exchange(
+        tb, pid=torch.from_numpy(pid))
+    bad = int(((pid < 0) | (pid > P8)).sum())
+    assert tres.oob_rows == jres.oob_rows == bad
+    assert_same_result(jres, tres)
+
+
+# ---------------------------------------------------------------------------
+# streaming exchange (mirrors TestStreamingExchange)
+# ---------------------------------------------------------------------------
+
+def _stream_both(eight_devices, keys, vals, round_rows, morsel_rows,
+                 extra=None):
+    """Reference and port: materialized and streamed over the same rows.
+    ``extra``: ``(at, valid_rows_per_shard)`` inserts an all-invalid
+    morsel at position ``at`` of both streams."""
+    jm, tm = _meshes(eight_devices)
+    jb, tb = _kv(keys, vals)
+    jb = shard_batch(jb, jm)
+    jsvc = JService(jm, registry=JRegistry())
+    tsvc = ShuffleService(tm, registry=ShuffleRegistry())
+    jmat = jsvc.exchange(jb, key_names=["k"], round_rows=round_rows)
+    tmat = tsvc.exchange(tb, key_names=["k"], round_rows=round_rows)
+    assert_same_result(jmat, tmat)
+    jmor = list(JMorselSource.from_batch(jb, jm, morsel_rows=morsel_rows))
+    tmor = list(MorselSource.from_batch(tb, tm, morsel_rows=morsel_rows))
+    if extra is not None:
+        at, M = extra
+        sh = NamedSharding(jm, PartitionSpec("data"))
+        z = jax.device_put(jnp.zeros((P8 * M,), jnp.int64), sh)
+        o = jax.device_put(jnp.ones((P8 * M,), jnp.bool_), sh)
+        jempty = (JBatch({"k": JColumn(z, o, JT.INT64),
+                          "v": JColumn(z, o, JT.INT64)}),
+                  jax.device_put(jnp.zeros((P8 * M,), jnp.bool_), sh))
+        tz = torch.zeros(P8 * M, dtype=torch.int64)
+        to = torch.ones(P8 * M, dtype=torch.bool)
+        tempty = (ColumnBatch({"k": Column(tz, to, tb["k"].dtype),
+                               "v": Column(tz, to, tb["v"].dtype)}),
+                  torch.zeros(P8 * M, dtype=torch.bool))
+        jmor.insert(at, lambda: jempty)
+        tmor.insert(at, lambda: tempty)
+    jres = jsvc.exchange_stream(jmor, key_names=["k"], round_rows=round_rows)
+    KER.reset_launches()
+    tres = tsvc.exchange_stream(tmor, key_names=["k"], round_rows=round_rows)
+    assert KER.launches["partition_scatter"] == 0  # CPU: plain version
+    assert_same_result(jres, tres)
+    return tmat, tres
+
+
+def test_stream_uniform_multiround_overlaps(eight_devices, small_buckets):
+    n = P8 * 512
+    keys = np.random.default_rng(5).integers(0, 1 << 20, n)
+    mat, res = _stream_both(eight_devices, keys, np.arange(n), 16, 64)
+    assert res.streamed and res.morsels == 8
+    assert res.rows_moved == n and res.rounds >= 2
+    assert res.rounds_overlapped >= 2
+    assert res.rounds == mat.rounds and res.capacity == mat.capacity
+    assert res.scatters >= res.morsels
+
+
+def test_stream_all_to_one_skew(eight_devices, small_buckets):
+    n = P8 * 256
+    mat, res = _stream_both(eight_devices, np.full(n, 7), np.arange(n),
+                            64, 64)
+    assert res.rows_moved == n and res.rounds >= 2
+    assert res.rounds_overlapped == 0  # empty buckets never clear a round
+
+
+def test_stream_zipf_empty_partitions_and_empty_morsel(eight_devices,
+                                                       small_buckets):
+    n = P8 * 128
+    rng = np.random.default_rng(11)
+    keys = (np.minimum(rng.zipf(1.5, n), 1 << 20) % 5).astype(np.int64)
+    _, res = _stream_both(eight_devices, keys, np.arange(n), 32, 32,
+                          extra=(2, 32))
+    assert res.rows_moved == n
+    assert res.morsels == 5  # the empty one still counts as mapped
+    occ = res.occupancy.numpy().reshape(P8, -1)
+    assert (occ.sum(axis=1) == 0).any()  # some shard receives nothing
+
+
+def test_stream_padded_shards(eight_devices, small_buckets):
+    """Shards that are not a whole number of morsels pad with invalid
+    rows, which route nowhere."""
+    n = P8 * 100
+    keys = np.random.default_rng(2).integers(0, 50, n)
+    _, res = _stream_both(eight_devices, keys, np.arange(n) * 3, 16, 64)
+    assert res.rows_moved == n and res.morsels == 2
+
+
+def test_snapshot_id_matches_reference(eight_devices):
+    jm, tm = _meshes(eight_devices)
+    n = P8 * 32
+    rng = np.random.default_rng(4)
+    valid = rng.random(n) > 0.2
+    jb, tb = _kv(rng.integers(0, 99, n), np.arange(n), valid)
+    jsrc = JMorselSource.from_batch(shard_batch(jb, jm), jm, morsel_rows=8)
+    tsrc = MorselSource.from_batch(tb, tm, morsel_rows=8)
+    assert tsrc.snapshot_id == jsrc.snapshot_id
+    assert len(tsrc) == len(jsrc) == 4
+
+
+def test_unported_options_raise(eight_devices):
+    _, tm = _meshes(eight_devices)
+    _, tb = _kv(np.arange(P8 * 4), np.arange(P8 * 4))
+    svc = ShuffleService(tm, registry=ShuffleRegistry())
+    with pytest.raises(NotImplementedError, match="item 13"):
+        svc.exchange(tb, key_names=["k"], ctx=object())
+    with pytest.raises(NotImplementedError, match="item 13"):
+        svc.exchange_stream(MorselSource.from_batch(tb, tm, morsel_rows=4),
+                            key_names=["k"], store_key="q")
+    tconfig.set("shuffle_compress", "pack")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        svc.exchange(tb, key_names=["k"])
+    tconfig.reset("shuffle_compress")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        MorselSource.from_batch(tb, tm, predicate=("k", "<", 3))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        MorselSource.from_parquet("x.parquet", tm)
+    with pytest.raises(ValueError, match="at least one morsel"):
+        svc.exchange_stream([], key_names=["k"])
+    with pytest.raises(ValueError, match="divisible"):
+        svc.exchange(batch_from_numpy(
+            {"k": (np.arange(5), np.ones(5, bool), "int64")}, "cpu"),
+            key_names=["k"])
