@@ -26,8 +26,9 @@ Phases, each printing one JSON line:
    then timed;
 8. the streaming exchange: the q95 plan's first stage,
    ``Exchange(Scan("fact"), "k")`` over a ``MorselSource`` of 8 shards
-   with ``shuffle_stream`` on, checked lossless, routed, order-keeping
-   and with one partition-scatter launch per (morsel, round) scatter.
+   with ``shuffle_stream`` on, checked lossless, routed, order-keeping,
+   with one partition-scatter launch per morsel and no sort or gather in
+   its per-morsel path, and the map step's time split.
 
 It then prints one ``kernels`` line and, last, ``{"ok": true, "device":
 ...}``.  Any mismatch or exception exits nonzero without that line, as
@@ -179,7 +180,11 @@ def k2_case(name, words, live, S, max_rounds):
     from spark_rapids_jni_tpu_torch.ops import kernels as KER
 
     n, W = live.shape[0], len(words)
+    KER.reset_launches()
     got = KER.slot_table_build(words, live, S, max_rounds)
+    check(KER.launches["slot_table_build"] == 1,
+          f"slot_table_build[{name}]: {KER.launches['slot_table_build']} "
+          "launches for one build")
     ref = KER.slot_table_build_plain(words, live, S,
                                      S if max_rounds is None else max_rounds)
     torch.cuda.synchronize()
@@ -188,8 +193,9 @@ def k2_case(name, words, live, S, max_rounds):
     ms = time_ms(lambda: KER.slot_table_build(words, live, S, max_rounds))
     plain = time_ms(lambda: KER.slot_table_build_plain(
         words, live, S, S if max_rounds is None else max_rounds), reps=2)
-    # words as u32 (4 B each), live 1 B; owner S x 4 B, slot n x 4 B
-    b, by = bound_ms(n * (4 * W + 1) + S * 4 + n * 4)
+    # words as carried (int64, 8 B each), live 1 B; owner S x 4 B, slot
+    # n x 4 B
+    b, by = bound_ms(n * (8 * W + 1) + S * 4 + n * 4)
     return {"shape": name, "n": n, "S": S, "W": W,
             "overflow": bool(got[2].item()), "max_abs_err": 0,
             "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
@@ -218,12 +224,10 @@ def k3_case(name, owner, bwords, pwords, live, rounds):
             "bound_by": by, "library_ms": None}
 
 
-def k4_morsel(fact, j, invalid_tail):
-    """Morsel ``j`` of the streamed fact table, mapped as the service maps
-    it; the last ``invalid_tail`` rows of every shard made invalid (they
-    become padding past sum(cnts))."""
+def fact_morsel(fact, j, invalid_tail=0):
+    """Morsel ``j`` of the streamed fact table and its row validity; the
+    last ``invalid_tail`` rows of every shard made invalid."""
     from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
-    from spark_rapids_jni_tpu_torch.shuffle import service as SVC
     from spark_rapids_jni_tpu_torch.shuffle.morsel import MorselSource
 
     src = MorselSource.from_batch(fact, ShardMesh(P_SHARDS))
@@ -232,14 +236,129 @@ def k4_morsel(fact, j, invalid_tail):
         rv = rv.clone().reshape(P_SHARDS, -1)
         rv[:, rv.shape[1] - invalid_tail:] = False
         rv = rv.reshape(-1)
+    return mb, rv
+
+
+def k4_morsel(fact, j, invalid_tail):
+    """Morsel ``j`` regrouped as the materialized exchange maps it (the
+    reference's form of the scatter's input)."""
+    from spark_rapids_jni_tpu_torch.shuffle import service as SVC
+
+    mb, rv = fact_morsel(fact, j, invalid_tail)
     regrouped, counts, _ = SVC._map_keys(mb, ["k"], rv, P_SHARDS)
     return SVC._leaves(regrouped), counts.to(torch.int32).contiguous()
 
 
+def device_ms(fn, kernel_substr, reps=20):
+    """Device time of one launch of the kernel whose name contains
+    ``kernel_substr``, from ``torch.profiler`` over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if kernel_substr in e.key and e.count:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            return us / e.count / 1e3
+    return None
+
+
+def host_call_ms(fn, reps=20):
+    """Host time of one call, no synchronise inside the timed loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / reps
+
+
+def k4_mapped_case(name, fact, j, invalid_tail, C, base_of):
+    """The map-order scatter as the stream calls it: morsel ``j`` in map
+    order, its pids, ``base = base_of(counts)``, every round it touches
+    in one launch — against the plain version on the same rounds."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+    from spark_rapids_jni_tpu_torch.shuffle import service as SVC
+
+    P = S = P_SHARDS
+    mb, rv = fact_morsel(fact, j, invalid_tail)
+    pid, counts, _, _ = SVC._route_count(SVC._key_pid(mb, ["k"], rv, P),
+                                         P)
+    leaves = [x.contiguous() for x in SVC._leaves(mb)]
+    base = base_of(counts).to(torch.int64).contiguous()
+    M = leaves[0].shape[0] // S
+    nz = counts > 0
+    r_lo = int((base[nz] // C).min().item()) if nz.any() else 0
+    r_hi = int(((base + counts - 1)[nz] // C).max().item()) \
+        if nz.any() else 0
+
+    def fresh():
+        return {r: ([torch.zeros((S * P * C,) + tuple(x.shape[1:]),
+                                 dtype=x.dtype, device=x.device)
+                     for x in leaves],
+                    torch.zeros((S * P * C,), dtype=torch.bool,
+                                device=pid.device))
+                for r in range(r_lo, r_hi + 1)}
+
+    KER.reset_launches()
+    got = KER.partition_scatter_mapped(fresh(), leaves, pid, base, P, C)
+    check(KER.launches["partition_scatter"] == 1,
+          f"partition_scatter[{name}]: not one launch for "
+          f"{r_hi - r_lo + 1} rounds")
+    ref = KER.partition_scatter_mapped_plain(fresh(), leaves, pid, base, P,
+                                             C)
+    torch.cuda.synchronize()
+    written = 0
+    for r in got:
+        check(torch.equal(got[r][1], ref[r][1]),
+              f"partition_scatter[{name}] r{r}: occ")
+        for a, b in zip(got[r][0], ref[r][0]):
+            check(torch.equal(a, b),
+                  f"partition_scatter[{name}] r{r}: chunk leaf differs")
+        written += int(got[r][1].sum().item())
+    check(written == int(counts.sum().item()),
+          f"partition_scatter[{name}]: {written} rows placed of "
+          f"{int(counts.sum().item())}")
+    # the stream's form: the per-stream state built once, then one call
+    # per morsel
+    rounds = fresh()
+    sc = KER.PartitionScatter(leaves, S, P, C)
+    for r, (lv, oc) in rounds.items():
+        sc.open_round(r, lv, oc)
+
+    def call():
+        sc(leaves, pid, base, r_lo, r_hi)
+
+    ms = time_ms(call, reps=20)
+    host = host_call_ms(call)
+    dev_ms = device_ms(call, "part_scatter")
+    plain = time_ms(lambda: KER.partition_scatter_mapped_plain(
+        rounds, leaves, pid, base, P, C), reps=5)
+    row_bytes = sum(x.element_size() * x.shape[1:].numel() for x in leaves)
+    # the morsel's leaves, pids and base read once; the placed rows and
+    # their occ bytes written once
+    nbytes = S * M * (row_bytes + 4) + S * P * 8 + written * (row_bytes + 1)
+    b, by = bound_ms(nbytes)
+    return {"shape": name, "form": "map_order", "S": S, "P": P, "M": M,
+            "C": C, "rounds": r_hi - r_lo + 1, "leaves": len(leaves),
+            "row_bytes": row_bytes, "rows_written": written,
+            "max_abs_err": 0, "ms": ms, "host_call_ms": host,
+            "device_ms": dev_ms, "plain_ms": plain, "bound_ms": b,
+            "bound_by": by, "library_ms": None}
+
+
 def k4_case(name, leaves, cnts, C, rounds):
-    """The partition scatter at the stream's shape: each bucket's base
-    sits half its count below the round boundary, so round 0 and round
-    1 both receive rows."""
+    """The reference's regrouped form (one round a call), on the same
+    kernel: each bucket's base sits half its count below the round
+    boundary, so round 0 and round 1 both receive rows."""
     from spark_rapids_jni_tpu_torch.ops import kernels as KER
 
     P = cnts.shape[1]
@@ -278,8 +397,8 @@ def k4_case(name, leaves, cnts, C, rounds):
     # round r0 written once with their occ byte
     nbytes = S * M * row_bytes + 2 * S * P * 4 + written * (row_bytes + 1)
     b, by = bound_ms(nbytes)
-    return {"shape": name, "S": S, "P": P, "M": M, "C": C,
-            "leaves": len(leaves), "row_bytes": row_bytes,
+    return {"shape": name, "form": "regrouped", "S": S, "P": P, "M": M,
+            "C": C, "leaves": len(leaves), "row_bytes": row_bytes,
             "rows_written": written, "max_abs_err": 0, "ms": ms,
             "plain_ms": plain, "bound_ms": b, "bound_by": by,
             "library_ms": None}
@@ -324,6 +443,10 @@ def phase_kernels(q6b, fact, dim1, dim2):
     gk = RK.batch_radix_keys([q6b["k"]], equality=True, nulls_first=True)
     run("slot_table_build", "groupby_q6", k2_case, "groupby_q6", gk, mask,
         4096, AD.bound_build_rounds(q6b.num_rows, 4096))
+    # the hot spot alone: every one of 2^24 rows live on 100 keys
+    run("slot_table_build", "hot_spot_100_keys", k2_case,
+        "hot_spot_100_keys", gk, torch.ones_like(mask), 4096,
+        AD.bound_build_rounds(q6b.num_rows, 4096))
 
     # the probe of the fact keys into the dim1 table
     if out is not None:
@@ -334,14 +457,24 @@ def phase_kernels(q6b, fact, dim1, dim2):
         run("slot_table_probe", "fact_into_dim1", k3_case, "fact_into_dim1",
             owner1, rk1, pk, plive, H.chain_bound(owner1, dim1.num_rows))
 
-    # the stream's scatter: a fact morsel (8 shards x 4096 rows, C 2^16)
-    # across a round boundary, one whose shards end in padding, and one
-    # with no live row
+    # the stream's scatter, map order: a fact morsel (8 shards x 4096
+    # rows, C 2^16) across a round boundary; one whose shards end in
+    # invalid rows; one spanning three rounds (C 256)
     C = int(config.get("shuffle_round_rows"))
     M = int(config.get("scan_morsel_rows"))
-    for label, j, tail in (("fact_morsel_round_boundary", 0, 0),
-                           ("fact_morsel_padding_tail", 1, M // 4),
-                           ("fact_morsel_empty", 2, M)):
+    run("partition_scatter", "fact_morsel_round_boundary", k4_mapped_case,
+        "fact_morsel_round_boundary", fact, 0, 0, C,
+        lambda cnt: C - cnt // 2)
+    run("partition_scatter", "fact_morsel_padding_tail", k4_mapped_case,
+        "fact_morsel_padding_tail", fact, 1, M // 4, C,
+        lambda cnt: C - cnt // 2)
+    run("partition_scatter", "fact_morsel_three_rounds", k4_mapped_case,
+        "fact_morsel_three_rounds", fact, 3, 0, 256,
+        lambda cnt: torch.full_like(cnt, 128))
+    # the reference's regrouped one-round form, kept as an entry
+    for label, j, tail in (("regrouped_round_boundary", 0, 0),
+                           ("regrouped_padding_tail", 1, M // 4),
+                           ("regrouped_empty", 2, M)):
         leaves, cnts = k4_morsel(fact, j, tail)
         run("partition_scatter", label, k4_case, label, leaves, cnts, C,
             (0, 1))
@@ -499,11 +632,13 @@ def phase_plan(name, make_plan, inputs, verify, needs):
     return counts
 
 
-def phase_stream(fact, k4_ms):
+def phase_stream(fact, k4):
     """The q95 plan's first stage as a streaming stage over 8 shards:
     lossless, every occupied row on the shard its pid names, each
     (sender, destination) bucket in the sender's order, one
-    partition-scatter launch per (morsel, round) scatter."""
+    partition-scatter launch per morsel, and no sort or gather in the
+    per-morsel map (profiled over a few morsels).  Reports ``decode_ms``,
+    ``sync_ms`` and one morsel's map step split."""
     from spark_rapids_jni_tpu_torch import config
     from spark_rapids_jni_tpu_torch import plan as PLAN
     from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
@@ -512,7 +647,7 @@ def phase_stream(fact, k4_ms):
     from spark_rapids_jni_tpu_torch.plan.ir import Exchange, Scan
     from spark_rapids_jni_tpu_torch.relational.keys import lexsort
     from spark_rapids_jni_tpu_torch.shuffle import MorselSource, \
-        get_registry
+        ShuffleRegistry, ShuffleService, get_registry
 
     P = P_SHARDS
     n = fact.num_rows
@@ -530,9 +665,9 @@ def phase_stream(fact, k4_ms):
     cols = ("k", "wh", "seg", "v")
     check(info.rows_moved == n, f"stream: rows_moved {info.rows_moved}")
     check(int(occ.sum().item()) == n, "stream: occupied rows != input rows")
-    check(counts["partition_scatter"] == info.scatters,
+    check(counts["partition_scatter"] == info.morsels,
           f"stream: {counts['partition_scatter']} scatter launches for "
-          f"{info.scatters} scatters")
+          f"{info.morsels} morsels")
     check(counts["partition_scatter"] > 0, "stream: K4 was not launched")
     total = occ.shape[0]
     dev = occ.device
@@ -562,21 +697,43 @@ def phase_stream(fact, k4_ms):
     check(all(torch.equal(x[pa], y[pb]) for x, y in zip(a, b)),
           "stream: delivered multiset differs from the input's")
     # where one morsel's time goes: its slice (replay), the map step
-    # (murmur3 pid, one regroup sort, counts, gathers of every leaf) and
-    # the host read of its counts
+    # (murmur3 pid, then out-of-range routing and the bincount of the
+    # counts) and the host read of its counts; then the scatter call
+    from torch.profiler import ProfilerActivity, profile
+
     from spark_rapids_jni_tpu_torch.shuffle import service as SVC
 
     replay = list(src)[0]
     mb, rv = replay()
-    _, m_counts, m_oob = SVC._map_keys(mb, ["k"], rv, P)
+    pid = SVC._key_pid(mb, ["k"], rv, P)
+    _, m_counts, m_oob, _ = SVC._route_count(pid, P)
     per_morsel = {
         "replay_ms": time_ms(replay, reps=20),
-        "map_ms": time_ms(lambda: SVC._map_keys(mb, ["k"], rv, P),
-                          reps=20),
+        "murmur3_pid_ms": time_ms(lambda: SVC._key_pid(mb, ["k"], rv, P),
+                                  reps=20),
+        "route_and_count_ms": time_ms(lambda: SVC._route_count(pid, P),
+                                      reps=20),
         "host_read_ms": time_ms(lambda: SVC._host_counts(m_counts, m_oob,
                                                          P), reps=20),
-        "scatter_ms": k4_ms}
-    k4_total = (k4_ms or 0.0) * info.scatters
+        "scatter_ms": (k4 or {}).get("ms"),
+        "scatter_host_call_ms": (k4 or {}).get("host_call_ms"),
+        "scatter_device_ms": (k4 or {}).get("device_ms")}
+    # no sort and no gather in the per-morsel path
+    few = list(src)[:8]
+    svc = ShuffleService(ShardMesh(P), registry=ShuffleRegistry())
+    svc.exchange_stream(few, key_names=["k"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        svc.exchange_stream(few, key_names=["k"])
+        torch.cuda.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages()}
+    regroup_ops = {k: ops.get(k, 0) for k in ("aten::sort", "aten::index",
+                                               "aten::index_select")}
+    check(not any(regroup_ops.values()),
+          f"stream: the per-morsel path sorted or gathered {regroup_ops}")
+    scat_ms = (k4 or {}).get("ms") or 0.0
+    k4_total = scat_ms * counts["partition_scatter"]
     emit({"phase": "stream_exchange", "rows": n, "shards": P,
           "morsels": info.morsels, "rounds": info.rounds,
           "capacity": info.capacity, "scatters": info.scatters,
@@ -587,7 +744,8 @@ def phase_stream(fact, k4_ms):
           "decode_ms": info.decode_ms, "sync_ms": info.sync_ms,
           "drain_ms": info.drain_ms,
           "k4_ms_est": k4_total, "k4_share": k4_total / ms,
-          "per_morsel_ms": per_morsel})
+          "per_morsel_ms": per_morsel,
+          "regroup_ops_in_8_morsels": regroup_ops})
     return counts
 
 
@@ -685,7 +843,7 @@ def main() -> int:
               lambda r, g: check_q9(r, g, q95_arrays, "plan_q9"),
               ("slot_table_build", "slot_table_probe", "onehot_groupby"))
 
-    k4_main = (cases.get("partition_scatter") or [{}])[0].get("ms")
+    k4_main = (cases.get("partition_scatter") or [None])[0]
     counts = guarded("stream_exchange", phase_stream, fact, k4_main)
     for k in total:
         total[k] += (counts or {}).get(k, 0)

@@ -12,6 +12,11 @@ sources (listed in ``.gitignore``).  A library's file name carries a hash
 of its source and flags, so an edited source rebuilds and a stale
 library is never loaded.  A build that fails raises, with ``nvcc``'s
 output in the message.
+
+The slot-table build's grid-wide barrier (``cooperative_groups`` grid
+sync, launched with ``cudaLaunchCooperativeKernel``) and the partition
+scatter's thread-block clusters need no ``-rdc=true`` and no
+device-runtime link: the flags below build both (CUDA 12.8's ``nvcc``).
 """
 
 from __future__ import annotations

@@ -5,12 +5,14 @@ kernels:
 
 * :func:`onehot_groupby_parts` — per-bucket column sums (the one-hot
   group-by, ``csrc/onehot_groupby.cu``);
-* :func:`slot_table_build` — open-addressing insert in synchronous rounds
-  (``csrc/slot_table.cu``);
+* :func:`slot_table_build` — open-addressing insert in synchronous rounds,
+  all of them in one cooperative launch (``csrc/slot_table.cu``);
 * :func:`slot_table_probe` — read-only chain walk (``csrc/slot_table.cu``);
-* :func:`partition_scatter` — one mapped morsel into one round's send
-  chunk of the streaming exchange, every shard in one launch
-  (``csrc/partition_scatter.cu``).
+* :class:`PartitionScatter` — one morsel of the streaming exchange, in
+  map order, into the send chunks of every round it touches, every shard
+  in one launch (``csrc/partition_scatter.cu``); :func:`partition_scatter`
+  is the reference's one-round form over a regrouped morsel, on the same
+  kernel.
 
 Each wrapper checks device, dtype, shape and contiguity.  Given CPU
 tensors it runs the plain version in this module — the only reason a
@@ -51,9 +53,8 @@ _SIGNATURES = {
         "srj_onehot_error_string": (ctypes.c_char_p, [_I]),
     },
     "slot_table": {
-        "srj_slot_init": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
-        "srj_slot_round": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _P]),
+        "srj_slot_build": (_I, [ctypes.POINTER(_LL), _I, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _I, _I, _I, _I, _P]),
         "srj_slot_probe": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _P]),
         "srj_slot_error_string": (ctypes.c_char_p, [_I]),
@@ -61,9 +62,8 @@ _SIGNATURES = {
     "partition_scatter": {
         "srj_partition_scatter": (_I, [ctypes.POINTER(_LL),
                                        ctypes.POINTER(_LL),
-                                       ctypes.POINTER(_LL),
                                        ctypes.POINTER(_I), _I, _P, _P, _P,
-                                       _I, _I, _LL, _I, _LL, _P]),
+                                       _I, _I, _LL, _I, _I, _I, _I, _P]),
         "srj_partition_scatter_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -95,6 +95,11 @@ def _check(rc: int, lib: ctypes.CDLL, errfn: str, what: str) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _dev_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else \
+        torch.cuda.current_device()
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -188,6 +193,8 @@ def onehot_groupby_parts(bucket, int_payload, float_payload, domain: int):
 # K2 / K3: slot table
 # ---------------------------------------------------------------------------
 
+_BUILD_MAX_WORDS = 32
+_INT32_MAX = (1 << 31) - 1
 _FNV_OFFSET = 2166136261
 _FNV_PRIME = 16777619
 _MIX1 = 0x7FEB352D
@@ -268,45 +275,36 @@ def slot_table_build(words: Sequence[torch.Tensor], live: torch.Tensor,
     if not _on_cuda(list(words) + [live], what):
         return slot_table_build_plain(words, live, S, mr)
     dev = live.device
-    owner = torch.full((S,), n, dtype=torch.int32, device=dev)
-    slot = torch.full((n,), S, dtype=torch.int32, device=dev)
-    if n == 0:
-        return owner, slot, torch.zeros((), dtype=torch.bool, device=dev)
-    if mr <= 0:
-        return owner, slot, live.any()
+    if n == 0 or mr <= 0:  # nothing to place: no launch
+        return (torch.full((S,), n, dtype=torch.int32, device=dev),
+                torch.full((n,), S, dtype=torch.int32, device=dev),
+                live.any())
     W = len(words)
-    wstack = to_i32(torch.stack(list(words), dim=1)).contiguous()
-    live_u8 = live.to(torch.uint8).contiguous()
+    _require(W <= _BUILD_MAX_WORDS,
+             f"{what}: {W} key words exceed the kernel's {_BUILD_MAX_WORDS}")
+    _require(S <= 1 << 30 and n < 1 << 31,
+             f"{what}: S {S} or n {n} too large for one launch")
+    words = [w.contiguous() for w in words]
+    live = live.contiguous()
+    owner = torch.empty((S,), dtype=torch.int32, device=dev)
+    slot = torch.empty((n,), dtype=torch.int32, device=dev)
     cand0 = torch.empty((n,), dtype=torch.int32, device=dev)
-    active = torch.empty((n,), dtype=torch.uint8, device=dev)
-    prop = torch.full((S,), n, dtype=torch.int32, device=dev)
+    worklists = torch.empty((2 * n,), dtype=torch.int32, device=dev)
+    table = torch.empty((S,), dtype=torch.int64, device=dev)
+    cnt = torch.empty((3,), dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    ptrs = (_LL * W)(*[w.data_ptr() for w in words])
     lib = _lib("slot_table")
-    stream = _stream(live)
-    with torch.cuda.device(dev):
-        rc = lib.srj_slot_init(wstack.data_ptr(), live_u8.data_ptr(),
-                               cand0.data_ptr(), active.data_ptr(),
-                               slot.data_ptr(), n, W, S, stream)
-        _check(rc, lib, "srj_slot_error_string", what)
-        # rounds go out in growing chunks; the host reads the still-active
-        # count after each chunk and stops once it is zero (a round with
-        # no active row changes nothing: the overshoot is result-identical)
-        r, chunk, left = 0, 2, 1
-        while r < mr:
-            k = min(chunk, mr - r)
-            remaining = torch.zeros((k,), dtype=torch.int32, device=dev)
-            for j in range(k):
-                rc = lib.srj_slot_round(
-                    wstack.data_ptr(), cand0.data_ptr(), active.data_ptr(),
-                    slot.data_ptr(), owner.data_ptr(), prop.data_ptr(),
-                    remaining.data_ptr() + 4 * j, n, W, S, r + j, stream)
-                _check(rc, lib, "srj_slot_error_string", what)
-            r += k
-            left = int(remaining[k - 1].item())
-            if left == 0:
-                break
-            chunk = min(2 * chunk, 32)
+    # one cooperative launch runs every round and stops on the device
+    rc = lib.srj_slot_build(ptrs, W, live.data_ptr(), cand0.data_ptr(),
+                            worklists.data_ptr(), slot.data_ptr(),
+                            owner.data_ptr(), table.data_ptr(),
+                            cnt.data_ptr(), overflow.data_ptr(), n, S,
+                            min(mr, _INT32_MAX), _dev_index(dev),
+                            _stream(live))
+    _check(rc, lib, "srj_slot_error_string", what)
     launches["slot_table_build"] += 1
-    return owner, slot, torch.tensor(left > 0, device=dev)
+    return owner, slot, overflow
 
 
 def slot_table_probe_plain(owner, build_words, probe_words, live,
@@ -433,10 +431,193 @@ def partition_scatter_plain(chunk_leaves, occ, morsel_leaves, cnts, base,
     return chunk_leaves, occ
 
 
+def partition_scatter_mapped_plain(rounds, morsel_leaves, pid, base,
+                                   P: int, C: int):
+    """Plain version of :class:`PartitionScatter`: a stable sort on
+    ``(shard, pid)`` ranks each row within its bucket, then an index_put
+    per round.  ``rounds`` maps a round to its ``(chunk_leaves, occ)``;
+    rows whose round is not in it are not written."""
+    S = base.shape[0]
+    rows = pid.shape[0]
+    M = rows // S
+    if M == 0 or not rounds:
+        return rounds
+    dev = pid.device
+    p = pid.to(torch.int64).reshape(S, M)
+    live = (p >= 0) & (p < P)
+    d = torch.where(live, p, torch.full_like(p, P))
+    s_idx = torch.arange(S, dtype=torch.int64, device=dev)[:, None]
+    key = (s_idx * (P + 1) + d).reshape(-1)
+    perm = torch.sort(key, stable=True).indices
+    sk = key[perm]
+    rank = torch.empty_like(key)
+    rank[perm] = torch.arange(rows, dtype=torch.int64, device=dev) - \
+        torch.searchsorted(sk, sk)
+    d_c = d.clamp(max=P - 1)
+    k = base.to(torch.int64).gather(1, d_c) + rank.reshape(S, M)
+    src = s_idx * M + torch.arange(M, dtype=torch.int64, device=dev)
+    for r, (leaves, occ) in rounds.items():
+        keep = live & (k // C == r)
+        t = ((s_idx * P + d_c) * C + (k - r * C))[keep]
+        for ch, mo in zip(leaves, morsel_leaves):
+            ch[t] = mo[src[keep]]
+        occ[t] = True
+    return rounds
+
+
+class PartitionScatter:
+    """The map-order partition scatter of one stream: each morsel, as the
+    map step leaves it, goes into the send chunks of every round it
+    touches in ONE launch (``csrc/partition_scatter.cu``), for all S
+    shards.
+
+    Built once per stream from the first morsel's leaves (``S * M`` rows
+    each, shard-major): the leaves' dtypes, row shapes, row and element
+    sizes, the device and its current stream are fixed here.
+    :meth:`open_round` registers a round's chunk (``S * P * C`` rows per
+    leaf plus ``occ``) and, on the card, writes its pointers once into a
+    device table the kernel reads; a call then passes only the morsel's
+    pointers, its ``pid`` and ``base``.
+
+    Row ``i`` of shard ``s`` with ``d = pid[s*M + i]`` in ``[0, P)`` goes
+    to ``k = base[s, d] + rank``, ``rank`` its stable position among the
+    shard's rows of destination ``d``: round ``k // C``, slot ``(s*P +
+    d)*C + k % C``, ``occ`` set.  ``d == P`` rows (dead, padding, out of
+    range) drop.  The chunks are bit-identical to regrouping each shard
+    destination-major and running the reference's ``partition_scatter``
+    once per round.
+    """
+
+    def __init__(self, like_leaves: Sequence[torch.Tensor], S: int, P: int,
+                 C: int):
+        what = "partition_scatter"
+        self.S, self.P, self.C = int(S), int(P), int(C)
+        _require(self.S >= 1 and self.P >= 1 and self.C >= 1,
+                 f"{what}: need S >= 1, P >= 1, C >= 1")
+        n = len(like_leaves)
+        _require(1 <= n <= _SCATTER_MAX_LEAVES,
+                 f"{what}: {n} leaves; the kernel takes 1 to "
+                 f"{_SCATTER_MAX_LEAVES}")
+        _require(self.P <= _SCATTER_MAX_PARTITIONS,
+                 f"{what}: P {self.P} exceeds the kernel's "
+                 f"{_SCATTER_MAX_PARTITIONS}")
+        self._kinds = [(t.dtype, tuple(t.shape[1:])) for t in like_leaves]
+        self.device = like_leaves[0].device
+        self.rounds: Dict[int, tuple] = {}
+        self._cuda = _on_cuda(list(like_leaves), what)
+        if self._cuda:
+            self._row_b = (_LL * n)(*[t.element_size() * t.shape[1:].numel()
+                                      for t in like_leaves])
+            self._elem_b = (_I * n)(*[t.element_size() for t in like_leaves])
+            self._leaf_p = (_LL * n)()
+            # per round: every leaf's chunk pointer, then occ's
+            self._dir = torch.zeros((8, n + 1), dtype=torch.int64,
+                                    device=self.device)
+            self._dev = _dev_index(self.device)
+            self._stream = _stream(like_leaves[0])
+            self._lib = _lib("partition_scatter")
+
+    def open_round(self, rr: int, chunk_leaves, occ) -> None:
+        what = "partition_scatter"
+        rows = self.S * self.P * self.C
+        _require(len(chunk_leaves) == len(self._kinds),
+                 f"{what}: chunk and morsel leaf counts differ")
+        _require(occ.dtype == torch.bool and occ.shape == (rows,),
+                 f"{what}: occ must be bool[S * P * C]")
+        for ch, (dt, shp) in zip(chunk_leaves, self._kinds):
+            _require(ch.dtype == dt and tuple(ch.shape[1:]) == shp
+                     and ch.shape[0] == rows,
+                     f"{what}: leaf shapes/dtypes do not line up (chunk "
+                     f"{tuple(ch.shape)} {ch.dtype}, morsel rows {shp} "
+                     f"{dt})")
+        tensors = list(chunk_leaves) + [occ]
+        _require(all(t.device == self.device for t in tensors),
+                 f"{what}: a chunk is not on {self.device}")
+        self.rounds[int(rr)] = (list(chunk_leaves), occ)
+        if self._cuda:
+            _require(all(t.is_contiguous() for t in tensors),
+                     f"{what}: chunks must be contiguous")
+            cap = self._dir.shape[0]
+            if rr >= cap:
+                grown = torch.zeros((max(2 * cap, rr + 1),
+                                     self._dir.shape[1]), dtype=torch.int64,
+                                    device=self.device)
+                grown[:cap] = self._dir
+                self._dir = grown
+            self._dir[rr] = torch.tensor([t.data_ptr() for t in tensors],
+                                         dtype=torch.int64)
+
+    def close_round(self, rr: int) -> None:
+        """Forget a drained round (no later morsel can reach it)."""
+        self.rounds.pop(int(rr), None)
+
+    def __call__(self, morsel_leaves, pid: torch.Tensor, base: torch.Tensor,
+                 r_lo: int, r_hi: int) -> None:
+        """Scatter one morsel in map order into rounds ``r_lo..r_hi``
+        (each open), IN PLACE.  ``pid`` int32[S*M] in ``[0, P]``;
+        ``base`` int64[S, P], each bucket's rows before this morsel."""
+        what = "partition_scatter"
+        S, P = self.S, self.P
+        rows = pid.shape[0]
+        _require(pid.dtype == torch.int32 and pid.dim() == 1
+                 and rows % S == 0,
+                 f"{what}: pid must be int32[S * M]")
+        _require(base.dtype == torch.int64 and base.shape == (S, P),
+                 f"{what}: base must be int64[S, P]")
+        _require(len(morsel_leaves) == len(self._kinds)
+                 and all(t.shape[0] == rows and t.dtype == dt
+                         and tuple(t.shape[1:]) == shp
+                         for t, (dt, shp) in zip(morsel_leaves,
+                                                 self._kinds)),
+                 f"{what}: morsel leaves do not match the stream's")
+        r_lo, r_hi = int(r_lo), int(r_hi)
+        _require(0 <= r_lo <= r_hi
+                 and all(r in self.rounds for r in range(r_lo, r_hi + 1)),
+                 f"{what}: rounds {r_lo}..{r_hi} are not all open")
+        tensors = list(morsel_leaves) + [pid, base]
+        _require(all(t.device == self.device for t in tensors),
+                 f"{what}: a tensor is not on {self.device}")
+        if not self._cuda:
+            partition_scatter_mapped_plain(
+                {r: self.rounds[r] for r in range(r_lo, r_hi + 1)},
+                morsel_leaves, pid, base, P, self.C)
+            return
+        _require(all(t.is_contiguous() for t in tensors),
+                 f"{what}: inputs must be contiguous")
+        M = rows // S
+        _require(M < (1 << 31) and r_hi < (1 << 31),
+                 f"{what}: M {M} or round {r_hi} too large for one launch")
+        if M == 0:
+            return
+        for j, t in enumerate(morsel_leaves):
+            self._leaf_p[j] = t.data_ptr()
+        rc = self._lib.srj_partition_scatter(
+            self._leaf_p, self._row_b, self._elem_b, len(self._kinds),
+            pid.data_ptr(), base.data_ptr(), self._dir.data_ptr(), S, P,
+            self.C, M, r_lo, r_hi, self._dev, self._stream)
+        _check(rc, self._lib, "srj_partition_scatter_error_string", what)
+        launches["partition_scatter"] += 1
+
+
+def partition_scatter_mapped(rounds, morsel_leaves, pid, base, P: int,
+                             C: int):
+    """One-shot :class:`PartitionScatter`: ``rounds`` maps each round of
+    a contiguous range to its ``(chunk_leaves, occ)``; the morsel's rows
+    of those rounds are written IN PLACE.  Returns ``rounds``."""
+    keys = sorted(rounds)
+    _require(keys and keys == list(range(keys[0], keys[-1] + 1)),
+             "partition_scatter: rounds must be a contiguous range")
+    sc = PartitionScatter(morsel_leaves, base.shape[0], P, C)
+    for r in keys:
+        sc.open_round(r, *rounds[r])
+    sc(morsel_leaves, pid, base, keys[0], keys[-1])
+    return rounds
+
+
 def partition_scatter(chunk_leaves, occ, morsel_leaves, cnts, base,
                       rnd: int, P: int, C: int):
-    """Scatter one mapped morsel into round ``rnd``'s send chunk, IN PLACE,
-    for all S shards at once.
+    """Scatter one REGROUPED morsel into round ``rnd``'s send chunk, IN
+    PLACE, for all S shards at once — the reference's form.
 
     ``morsel_leaves``: S * M rows each (shard-major; each shard's rows
     regrouped destination-major); ``cnts`` / ``base`` int32[S, P]: each
@@ -447,7 +628,9 @@ def partition_scatter(chunk_leaves, occ, morsel_leaves, cnts, base,
     ``d = #{cumsum(cnts[s]) <= i}`` at slot ``k = base[s, d] + i -
     offs[d]``, and is written when ``d < P`` and ``rnd*C <= k <
     (rnd+1)*C``.  Returns ``(chunk_leaves, occ)``, bit-identical to the
-    reference's ``partition_scatter`` per shard.
+    reference's ``partition_scatter`` per shard.  On the card it runs the
+    map-order kernel: ``d`` is the row's destination and ``i - offs[d]``
+    its stable rank in the bucket.
     """
     what = "partition_scatter"
     P, C, rnd = int(P), int(C), int(rnd)
@@ -477,32 +660,16 @@ def partition_scatter(chunk_leaves, occ, morsel_leaves, cnts, base,
     if not _on_cuda(tensors, what):
         return partition_scatter_plain(chunk_leaves, occ, morsel_leaves,
                                        cnts, base, rnd, P, C)
-    _require(all(t.is_contiguous() for t in tensors),
-             f"{what}: inputs must be contiguous")
-    n = len(chunk_leaves)
-    _require(n <= _SCATTER_MAX_LEAVES,
-             f"{what}: {n} leaves exceed the kernel's {_SCATTER_MAX_LEAVES}")
-    _require(P <= _SCATTER_MAX_PARTITIONS,
-             f"{what}: P {P} exceeds the kernel's {_SCATTER_MAX_PARTITIONS}")
     M = rows // S
-    _require(S <= 65535 and M < (1 << 31),
-             f"{what}: S {S} or M {M} too large for one launch")
     if M == 0:
         return chunk_leaves, occ
-    arr = _LL * max(n, 1)
-    chunk_p = arr(*[t.data_ptr() for t in chunk_leaves])
-    morsel_p = arr(*[t.data_ptr() for t in morsel_leaves])
-    row_b = arr(*[t.element_size() * t.shape[1:].numel()
-                  for t in morsel_leaves])
-    elem_b = (_I * max(n, 1))(*[t.element_size() for t in morsel_leaves])
-    lib = _lib("partition_scatter")
-    with torch.cuda.device(occ.device):
-        rc = lib.srj_partition_scatter(
-            chunk_p, morsel_p, row_b, elem_b, n, occ.data_ptr(),
-            cnts.data_ptr(), base.data_ptr(), S, P, C, M, rnd,
-            _stream(occ))
-    _check(rc, lib, "srj_partition_scatter_error_string", what)
-    launches["partition_scatter"] += 1
+    ends = torch.cumsum(cnts.to(torch.int64), 1)
+    i = torch.arange(M, dtype=torch.int64, device=occ.device)
+    pid = torch.searchsorted(ends, i.expand(S, M).contiguous(), right=True)
+    partition_scatter_mapped({rnd: (list(chunk_leaves), occ)},
+                             list(morsel_leaves),
+                             pid.to(torch.int32).reshape(-1),
+                             base.to(torch.int64), P, C)
     return chunk_leaves, occ
 
 
@@ -510,4 +677,6 @@ __all__ = ["launches", "reset_launches", "fold_hash",
            "onehot_groupby_parts", "onehot_groupby_parts_plain",
            "slot_table_build", "slot_table_build_plain",
            "slot_table_probe", "slot_table_probe_plain",
-           "partition_scatter", "partition_scatter_plain"]
+           "partition_scatter", "partition_scatter_plain",
+           "PartitionScatter", "partition_scatter_mapped",
+           "partition_scatter_mapped_plain"]

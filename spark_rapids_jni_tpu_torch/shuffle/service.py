@@ -8,18 +8,20 @@ at once, and the reference's ``lax.all_to_all`` is a transpose of
 bit-identical, in global order, to the reference's on its P-device mesh.
 
 * **map**: route rows to Spark-exact partition ids (or caller-supplied
-  ids; out-of-range ones go to the null partition and are counted),
-  regroup each shard destination-major with ONE stable sort on
-  ``shard * (P + 1) + pid``, and count the ``[P, P]`` (sender,
-  destination) matrix.
+  ids; out-of-range ones go to the null partition and are counted) and
+  count the ``[P, P]`` (sender, destination) matrix with one bincount;
+  the materialized :meth:`ShuffleService.exchange` then regroups each
+  shard destination-major with ONE stable sort on ``shard * (P + 1) +
+  pid``, while the stream leaves its morsels in map order.
 * **plan** (host): :func:`~.planner.plan_rounds` turns the counts into a
   static ``(rounds, capacity)`` shape (:meth:`ShuffleService.exchange`);
   the stream fixes its capacity up front
   (:func:`~.planner.plan_stream_capacity`) and re-plans its round
   schedule as morsel counts arrive (:meth:`ShuffleService.exchange_stream`).
-* **scatter** (stream): each mapped morsel lands in its round chunks
-  through the partition-scatter kernel (:func:`~..ops.kernels.
-  partition_scatter`, one launch per (morsel, round) for all shards).
+* **scatter** (stream): each morsel lands in its round chunks through the
+  partition-scatter kernel (:class:`~..ops.kernels.PartitionScatter`, one
+  launch per morsel for every round it touches and all shards; the
+  kernel ranks each row within its (shard, destination) bucket itself).
 * **drain + reassemble + account**: rows received must equal rows sent,
   else :class:`ShuffleError` — ``dropped == 0`` is an invariant.
 
@@ -41,18 +43,13 @@ import torch
 from .. import config
 from .._roadmap import not_ported
 from ..columnar.column import Column, ColumnBatch
-from ..ops.kernels import partition_scatter
+from ..ops.kernels import PartitionScatter
 from ..parallel.partition import spark_partition_id
 from ..parallel.shuffle import route_out_of_range
 from ..relational.gather import gather_batch
 from .buffers import MorselBuffer, PartitionBuffer, RoundChunk
 from .planner import plan_rounds, plan_stream_capacity
 from .registry import ShuffleInfo, ShuffleRegistry, get_registry
-
-# the partition scatter's int32 ``base`` operand: cumulative bucket
-# counts must stay below this, checked on the host
-_INT32_LIMIT = 1 << 31
-
 
 class ShuffleError(RuntimeError):
     """Lossless-invariant violation or strict-mode partition id abuse."""
@@ -121,28 +118,39 @@ def _concat_rounds(chunks, P: int):
 # map
 # ---------------------------------------------------------------------------
 
-def _map_local(b: ColumnBatch, pid: torch.Tensor, P: int):
-    """The per-shard map body over all P shards at once: route OOB ->
-    regroup each shard destination-major (one stable sort on
-    ``shard * (P + 1) + pid``) -> count.  Returns ``(regrouped,
-    counts int64[P, P], n_oob)``."""
+def _route_count(pid: torch.Tensor, P: int):
+    """Route OOB ids to the null partition and count each shard's rows per
+    destination: the stream's whole map body (its morsels stay in map
+    order; the scatter kernel ranks rows itself).  Returns ``(pid int32,
+    counts int64[P, P], n_oob, key)``, ``key = shard * (P + 1) + pid``."""
     pid, n_oob = route_out_of_range(pid, P)
     n = pid.shape[0]
     R = n // P
     shard = torch.arange(n, dtype=torch.int64, device=pid.device) // max(R, 1)
     key = shard * (P + 1) + pid.to(torch.int64)
-    perm = torch.sort(key, stable=True).indices
     counts = torch.bincount(key, minlength=P * (P + 1))
-    counts = counts.reshape(P, P + 1)[:, :P]
+    return pid, counts.reshape(P, P + 1)[:, :P], n_oob, key
+
+
+def _map_local(b: ColumnBatch, pid: torch.Tensor, P: int):
+    """The materialized exchange's map body over all P shards at once:
+    route OOB -> count -> regroup each shard destination-major (one stable
+    sort on ``shard * (P + 1) + pid``).  Returns ``(regrouped, counts
+    int64[P, P], n_oob)``."""
+    _, counts, n_oob, key = _route_count(pid, P)
+    perm = torch.sort(key, stable=True).indices
     return gather_batch(b, perm), counts, n_oob
 
 
-def _map_keys(b: ColumnBatch, key_names, row_valid, P: int):
+def _key_pid(b: ColumnBatch, key_names, row_valid, P: int):
     rv = (torch.ones((b.num_rows,), dtype=torch.bool,
                      device=b.columns[0].data.device)
           if row_valid is None else row_valid.to(torch.bool))
-    pid = spark_partition_id([b[k] for k in key_names], P, rv)
-    return _map_local(b, pid, P)
+    return spark_partition_id([b[k] for k in key_names], P, rv)
+
+
+def _map_keys(b: ColumnBatch, key_names, row_valid, P: int):
+    return _map_local(b, _key_pid(b, key_names, row_valid, P), P)
 
 
 def _host_counts(counts: torch.Tensor, oob: torch.Tensor, P: int):
@@ -324,9 +332,10 @@ class ShuffleService:
         C = plan_stream_capacity(round_rows=round_rows)
 
         cum = np.zeros((P, P), np.int64)
+        cum_dev = None        # the same counts on the device: the base
         send_chunks = {}
         recv = []
-        like = None
+        like = scatter = None
         oob_total = 0
         n_morsels = scatters = rounds_overlapped = next_drain = 0
         decode_ms = drain_ms = sync_ms = 0.0
@@ -334,11 +343,11 @@ class ShuffleService:
         def run_map(item):
             b, aux = item if isinstance(item, tuple) else (item, None)
             if key_names is not None:
-                return _map_keys(b, key_names, aux, P)
-            if aux is None:
+                aux = _key_pid(b, key_names, aux, P)
+            elif aux is None:
                 raise ValueError("pid-mode streaming morsels must be "
                                  "(batch, pid) pairs")
-            return _map_local(b, aux, P)
+            return (b,) + _route_count(aux, P)[:3]
 
         def open_chunk(rr, m_leaves):
             # P * P * C slots per leaf, sender-major then destination
@@ -349,6 +358,7 @@ class ShuffleService:
                               device=m_leaves[0].device)
             send_chunks[rr] = RoundChunk((leaves, occ),
                                          name=f"shuffle{sid}-send{rr}")
+            scatter.open_round(rr, leaves, occ)
 
         def drain_round(rr):
             chunk = send_chunks[rr]
@@ -357,12 +367,13 @@ class ShuffleService:
                 ([_a2a(x, P) for x in leaves], _a2a(occ, P)),
                 name=f"shuffle{sid}-recv{rr}"))
             chunk.close()  # resident: nothing re-drives a drained round
+            scatter.close_round(rr)
 
         try:
             for item in morsels:
                 replay = item if callable(item) else (lambda it=item: it)
                 t0 = time.perf_counter()
-                regrouped, counts, oob = run_map(replay())
+                b, pid, counts, oob = run_map(replay())
                 t1 = time.perf_counter()
                 counts_np, oob_n = _host_counts(counts, oob, P)
                 t2 = time.perf_counter()
@@ -373,22 +384,20 @@ class ShuffleService:
                     raise ShuffleError(
                         f"shuffle {sid}: {oob_n} out-of-range partition "
                         f"ids (strict mode; ids must lie in [0, {P}])")
+                m_leaves = [x.contiguous() for x in _leaves(b)]
                 if like is None:
-                    like = regrouped
+                    like = b
+                    scatter = PartitionScatter(m_leaves, P, P, C)
+                    cum_dev = torch.zeros((P, P), dtype=torch.int64,
+                                          device=pid.device)
                 base = cum.copy()
                 cum = cum + counts_np
-                if int(cum.max()) >= _INT32_LIMIT:
-                    raise ShuffleError(
-                        f"shuffle {sid}: a bucket's cumulative count "
-                        f"{int(cum.max())} does not fit the scatter's "
-                        "int32 slot base")
                 m_idx = n_morsels
                 n_morsels += 1
-                mbuf = MorselBuffer((regrouped, counts),
+                mbuf = MorselBuffer((m_leaves, pid),
                                     name=f"shuffle{sid}-morsel{m_idx}")
                 try:
-                    m_tree, m_counts = mbuf.get()
-                    m_leaves = _leaves(m_tree)
+                    m_leaves, m_pid = mbuf.get()
                     if m_idx == 0:
                         # round 0 always exists: an all-empty stream
                         # still drains one schema-bearing empty round
@@ -397,16 +406,14 @@ class ShuffleService:
                     if nz.any():
                         r_lo = int((base[nz] // C).min())
                         r_hi = int(((cum[nz] - 1) // C).max())
-                        cnts32 = m_counts.to(torch.int32)
-                        base32 = torch.as_tensor(
-                            base.astype(np.int32), device=cnts32.device)
                         for rr in range(r_lo, r_hi + 1):
                             if rr not in send_chunks:
                                 open_chunk(rr, m_leaves)
-                            c_leaves, c_occ = send_chunks[rr].get()
-                            partition_scatter(c_leaves, c_occ, m_leaves,
-                                              cnts32, base32, rr, P, C)
-                            scatters += 1
+                        # one launch for every round the morsel touches;
+                        # cum_dev is this morsel's base until the add
+                        scatter(m_leaves, m_pid, cum_dev, r_lo, r_hi)
+                        cum_dev += counts
+                        scatters += r_hi - r_lo + 1
                 finally:
                     mbuf.close()
                 # early drain: rounds no future morsel can touch

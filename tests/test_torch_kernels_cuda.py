@@ -78,7 +78,8 @@ def test_onehot_groupby_rejects_what_it_cannot_take(dev):
 
 
 @pytest.mark.parametrize("case", ["zipf", "distinct", "overflow", "dead",
-                                  "truncated", "empty"])
+                                  "truncated", "empty", "hot100",
+                                  "one_key", "join_shape"])
 def test_slot_table_build_matches_plain(dev, case):
     rng = np.random.default_rng(1)
     S, mr, live = 1 << 16, None, None
@@ -93,14 +94,38 @@ def test_slot_table_build_matches_plain(dev, case):
         live = rng.random(50_000) > 0.3
     elif case == "truncated":
         keys, S, mr = rng.integers(0, 5000, 50_000), 8192, 3
+    elif case == "hot100":  # the q6 group-by build's hot spot
+        keys, S = rng.integers(0, 100, 1 << 20), 4096
+        live = rng.random(1 << 20) > 0.5
+    elif case == "one_key":
+        keys, S = np.full(1 << 20, 42), 4096
+    elif case == "join_shape":  # distinct dim keys, load 1/2
+        keys, S = rng.permutation(1 << 24)[:1 << 21], 1 << 22
     else:
         keys = np.zeros(0, np.int64)
     words, lv = _words(keys, dev, live)
+    KER.reset_launches()
     got = KER.slot_table_build(words, lv, S, mr)
+    assert KER.launches["slot_table_build"] == (1 if len(keys) else 0)
     ref = KER.slot_table_build_plain(words, lv, S, S if mr is None else mr)
     _same(got, ref)
     if case == "overflow":
         assert bool(got[2])
+
+
+@pytest.mark.parametrize("S", [4096, 1 << 16])
+def test_slot_table_build_every_round_bound(dev, S):
+    """Both claim paths (shared-memory prop for small S, warp-aggregated
+    global claims otherwise) at max_rounds 1, 2 and S, with enough key
+    collisions that the early bounds overflow."""
+    rng = np.random.default_rng(6)
+    keys = rng.integers(0, S // 2, 1 << 18)
+    words, lv = _words(keys, dev)
+    for mr in (1, 2, S):
+        got = KER.slot_table_build(words, lv, S, mr)
+        ref = KER.slot_table_build_plain(words, lv, S, mr)
+        _same(got, ref)
+    assert bool(KER.slot_table_build(words, lv, S, 1)[2])
 
 
 def test_slot_table_probe_matches_plain(dev):
@@ -194,3 +219,71 @@ def test_partition_scatter_counts_its_launches(dev):
         strided = torch.stack([mleaves[1], mleaves[1]], dim=1)[:, 0]
         KER.partition_scatter(chunk, occ, [mleaves[0], strided]
                               + mleaves[2:], cnts, base, 0, 4, 64)
+
+
+def _mapped_inputs(dev, S, P, C, M, rng, null_share=0.0, empty_shard=None,
+                   base_lo=None):
+    """A morsel in map order: S shards of M rows with random destinations
+    (P = null partition for a ``null_share`` of the rows, and for every
+    row of ``empty_shard``), bases from ``base_lo`` (default: straddling
+    the round-1 boundary)."""
+    pid = rng.integers(0, P, (S, M))
+    pid[rng.random((S, M)) < null_share] = P
+    if empty_shard is not None:
+        pid[empty_shard] = P
+    lo = max(C - 300, 0) if base_lo is None else base_lo
+    base = rng.integers(lo, lo + 350, (S, P))
+    leaves = [rng.integers(0, 1 << 20, S * M).astype(np.int32),
+              rng.integers(-(1 << 40), 1 << 40, S * M),
+              rng.random(S * M) < 0.5,
+              rng.random(S * M),
+              rng.integers(-9, 9, (S * M, 2))]
+    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return (to(pid.reshape(-1).astype(np.int32)), to(base.astype(np.int64)),
+            [to(a) for a in leaves])
+
+
+@pytest.mark.parametrize("case", ["stream_shape", "three_rounds", "padding",
+                                  "empty_shard", "all_null", "wide_p"])
+def test_partition_scatter_mapped_matches_plain(dev, case):
+    rng = np.random.default_rng(8)
+    S, P, C, M, null, empty, lo = 8, 8, 1 << 16, 4096, 0.0, None, None
+    if case == "three_rounds":
+        C, M, lo = 64, 512, 0
+    elif case == "padding":
+        null = 0.25
+    elif case == "empty_shard":
+        empty = 3
+    elif case == "all_null":
+        null = 1.0
+    elif case == "wide_p":
+        S, P, C, M = 2, 2048, 256, 4096
+    pid, base, mleaves = _mapped_inputs(dev, S, P, C, M, rng, null, empty,
+                                        lo)
+    d = pid.long().reshape(S, M)
+    ok = d < P
+    r_lo, r_hi = 0, 1
+    if ok.any():
+        bmax = base.max().item() + M
+        r_lo, r_hi = base.min().item() // C, bmax // C
+    outs = []
+    for fn in (KER.partition_scatter_mapped,
+               KER.partition_scatter_mapped_plain):
+        rounds = {r: ([torch.zeros((S * P * C,) + tuple(m.shape[1:]),
+                                   dtype=m.dtype, device=dev)
+                       for m in mleaves],
+                      torch.zeros(S * P * C, dtype=torch.bool, device=dev))
+                  for r in range(r_lo, r_hi + 1)}
+        KER.reset_launches()
+        outs.append(fn(rounds, mleaves, pid, base, P, C))
+        if fn is KER.partition_scatter_mapped:
+            assert KER.launches["partition_scatter"] == 1
+    got, ref = outs
+    placed = 0
+    for r in got:
+        assert torch.equal(got[r][1], ref[r][1])
+        _same(got[r][0], ref[r][0])
+        placed += int(got[r][1].sum())
+    assert placed == int(ok.sum())
+    if case == "three_rounds":
+        assert r_hi - r_lo + 1 >= 3

@@ -156,3 +156,148 @@ def test_rejects_what_the_kernel_cannot_take():
         KER.partition_scatter(leaf, occ, [mo[0].int()], c32, c32, 0, P, C)
     with pytest.raises(ValueError, match="occ"):
         KER.partition_scatter(leaf, occ[:-1], mo, c32, c32, 0, P, C)
+
+
+# ---------------------------------------------------------------------------
+# the map-order form: the morsel as the map leaves it, every round at once
+# ---------------------------------------------------------------------------
+
+def _mapped_case(rng, S, P, C, M, null_share=0.0, dead_shard=None,
+                 base_hi=24):
+    """S shards of M map-order rows: a destination per row (P = the null
+    partition: dead, padding or out-of-range rows), a base per (shard,
+    destination), and int64/float32/bool leaves."""
+    pid = rng.integers(0, P, (S, M))
+    pid[rng.random((S, M)) < null_share] = P
+    if dead_shard is not None:
+        pid[dead_shard] = P
+    base = rng.integers(0, base_hi, (S, P)).astype(np.int32)
+    leaves = (rng.integers(0, 1 << 30, S * M).astype(np.int64),
+              rng.random(S * M).astype(np.float32),
+              rng.random(S * M) < 0.7)
+    return pid, base, leaves
+
+
+def _reference_rounds(pid, base, leaves, rounds, P, C):
+    """Per shard: the reference's map regroup (a stable argsort of the
+    destinations, per-destination counts), then its Pallas
+    ``partition_scatter`` once per round.  Returns ``{round: (chunk
+    leaves, occ)}`` over all shards, shard-major like the port's."""
+    S, M = pid.shape
+    out = {}
+    for r in rounds:
+        chunks = [[] for _ in leaves]
+        occs = []
+        for s in range(S):
+            order = np.argsort(pid[s], kind="stable")
+            regrouped = [jnp.asarray(x[s * M:(s + 1) * M][order])
+                         for x in leaves]
+            live = pid[s][pid[s] < P]
+            cnts = np.bincount(live, minlength=P).astype(np.int32)
+            zeros = [jnp.zeros(P * C, x.dtype) for x in leaves]
+            ch, oc = PK.partition_scatter(
+                zeros, jnp.zeros(P * C, jnp.bool_), regrouped,
+                jnp.asarray(cnts), jnp.asarray(base[s]), jnp.int32(r), P,
+                C)
+            for acc, x in zip(chunks, ch):
+                acc.append(np.asarray(x))
+            occs.append(np.asarray(oc))
+        out[r] = ([np.concatenate(c) for c in chunks],
+                  np.concatenate(occs))
+    return out
+
+
+def _port_rounds(pid, base, leaves, rounds, P, C):
+    S, M = pid.shape
+    rr = {r: ([torch.zeros(S * P * C, dtype=torch.from_numpy(x).dtype)
+               for x in leaves],
+              torch.zeros(S * P * C, dtype=torch.bool)) for r in rounds}
+    KER.reset_launches()
+    KER.partition_scatter_mapped(
+        rr, [torch.from_numpy(x) for x in leaves],
+        torch.from_numpy(pid.reshape(-1).astype(np.int32)),
+        torch.from_numpy(base.astype(np.int64)), P, C)
+    assert KER.launches["partition_scatter"] == 0  # CPU: plain version
+    return rr
+
+
+@pytest.mark.parametrize("case", ["three_rounds", "padding_and_null",
+                                  "dead_shard", "one_partition", "wide_p"])
+def test_mapped_matches_reference_regroup_then_pallas(case):
+    rng = np.random.default_rng(23)
+    S, P, C, M, null, dead, base_hi = 2, 4, 64, 512, 0.0, None, 24
+    if case == "padding_and_null":
+        S, P, M, null = 2, 8, 256, 0.3
+    elif case == "dead_shard":
+        S, P, M, dead = 3, 8, 128, 1
+    elif case == "one_partition":
+        S, P, C, M = 2, 1, 64, 160
+    elif case == "wide_p":
+        S, P, C, M, base_hi = 2, 256, 4, 512, 6
+    pid, base, leaves = _mapped_case(rng, S, P, C, M, null, dead, base_hi)
+    cnt = np.stack([np.bincount(r[r < P], minlength=P) for r in pid])
+    k_hi = int((base + cnt).max())  # one past the largest slot
+    rounds = list(range(0, max(k_hi - 1, 0) // C + 1))
+    if case == "three_rounds":
+        assert len(rounds) >= 3
+    port = _port_rounds(pid, base, leaves, rounds, P, C)
+    ref = _reference_rounds(pid, base, leaves, rounds, P, C)
+    placed = 0
+    for r in rounds:
+        np.testing.assert_array_equal(port[r][1].numpy(), ref[r][1])
+        for a, b in zip(port[r][0], ref[r][0]):
+            np.testing.assert_array_equal(a.numpy(), b)
+        placed += int(port[r][1].sum())
+    assert placed == int((pid < P).sum())
+    if case == "dead_shard":
+        region = slice(1 * P * C, 2 * P * C)
+        assert not any(port[r][1][region].any() for r in rounds)
+
+
+def test_regrouped_entry_equals_map_order_form():
+    """The regrouped entry's route on the card: a regrouped morsel's
+    destination per row (the upper-bound search over cumsum(cnts)) and
+    the map-order form give the chunk the reference's form gives."""
+    rng = np.random.default_rng(29)
+    S, P, C, M = 3, 8, 16, 96
+    cases = [_case(rng, P, C, M) for _ in range(S)]
+    cnts = torch.from_numpy(np.stack([c[0] for c in cases]))
+    base = torch.from_numpy(np.stack([c[1] for c in cases]))
+    morsel = [torch.from_numpy(np.concatenate([c[2][j] for c in cases]))
+              for j in range(3)]
+    ends = torch.cumsum(cnts.to(torch.int64), 1)
+    i = torch.arange(M, dtype=torch.int64).expand(S, M).contiguous()
+    pid = torch.searchsorted(ends, i, right=True).to(torch.int32)
+    for rnd in (0, 1, 2):
+        want = KER.partition_scatter_plain(
+            [torch.zeros(S * P * C, dtype=m.dtype) for m in morsel],
+            torch.zeros(S * P * C, dtype=torch.bool), morsel, cnts, base,
+            rnd, P, C)
+        got = KER.partition_scatter_mapped_plain(
+            {rnd: ([torch.zeros(S * P * C, dtype=m.dtype) for m in morsel],
+                   torch.zeros(S * P * C, dtype=torch.bool))},
+            morsel, pid.reshape(-1), base.to(torch.int64), P, C)[rnd]
+        assert torch.equal(got[1], want[1])
+        for a, b in zip(got[0], want[0]):
+            assert torch.equal(a, b)
+
+
+def test_mapped_rejects_what_the_kernel_cannot_take():
+    P, C, S, M = 4, 8, 2, 8
+    like = [torch.zeros(S * M, dtype=torch.int64)]
+    sc = KER.PartitionScatter(like, S, P, C)
+    sc.open_round(0, [torch.zeros(S * P * C, dtype=torch.int64)],
+                  torch.zeros(S * P * C, dtype=torch.bool))
+    pid = torch.zeros(S * M, dtype=torch.int32)
+    base = torch.zeros((S, P), dtype=torch.int64)
+    with pytest.raises(ValueError, match="not all open"):
+        sc(like, pid, base, 0, 1)
+    with pytest.raises(ValueError, match="base"):
+        sc(like, pid, base.int(), 0, 0)
+    with pytest.raises(ValueError, match="stream's"):
+        sc([like[0].int()], pid, base, 0, 0)
+    with pytest.raises(ValueError, match="line up"):
+        sc.open_round(1, [torch.zeros(S * P * C, dtype=torch.int32)],
+                      torch.zeros(S * P * C, dtype=torch.bool))
+    with pytest.raises(ValueError, match="2048"):
+        KER.PartitionScatter(like, S, 4096, C)
