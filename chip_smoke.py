@@ -10,20 +10,26 @@ Phases, each printing one JSON line:
 2. build: compile every CUDA kernel of the port from ``csrc/`` (nvcc,
    ``sm_90a``, one process per source, all started together);
 3. kernels: each kernel at the shapes the main path gives it, held
-   against its plain PyTorch version on the same inputs (ints, owners and
-   slots bit-identical; float sums rel 1e-5, the reference's f32x3
-   tolerance), timed beside the plain version, a library call where one
-   computes the same function, and the least time the card could take;
-4. q6 on the one-hot path, 5. q6 on the slot-table hash engine,
-6. q95 (dense joins + one-hot group-by) and q95 through the hash join:
-   each driven once with every launch count at 0 just before and read
-   just after, checked against the numpy oracle, then timed;
+   against its plain PyTorch version on the same inputs (ints, owners,
+   slot records and slots bit-identical; float sums rel 1e-5 of the sum
+   of |x|, the reference's f32x3 tolerance), timed beside the plain
+   version, a library call where one computes the same function, and the
+   least time the card could take; the one-hot group-by's fused entry
+   at q6 and q95's seg and its contract entry at q6; the slot-table
+   probe's record build and probe at both of the q95 hash join's shapes;
+4. q6 on the one-hot path (one profiled step: one K1 launch, no
+   ``aten::stack``), 5. q6 on the slot-table hash engine,
+6. q95 (dense joins + one-hot group-by) and q95 through the hash join
+   (two record builds, two probes): each driven once with every launch
+   count at 0 just before and read just after (the one-hot contract
+   entry's payload kernel must not run on any of them), checked against
+   the numpy oracle, then timed;
 7. the plan layer: ``plan.execute`` of q6 (one-hot and hash engines),
    q95 (both ``groupby_engine`` settings) and q9 (dim1 shuffled through
    the dense join, dim2 broadcast through a prebuilt slot table), each
    held against the hand-fused ``pipelines`` step and the numpy oracle,
-   a second call checked to be a plan-cache hit with no new compile,
-   then timed;
+   a second call checked to be a plan-cache hit with no new compile (q9's
+   without a build or record build of its broadcast table), then timed;
 8. the streaming exchange: the q95 plan's first stage,
    ``Exchange(Scan("fact"), "k")`` over a ``MorselSource`` of 8 shards
    with ``shuffle_stream`` on, checked lossless, routed, order-keeping,
@@ -54,6 +60,9 @@ REPLACES = {
         "spark_rapids_jni_tpu/ops/pallas_kernels.py:161",
     "slot_table_build":
         "spark_rapids_jni_tpu/ops/pallas_kernels.py:318",
+    # the probe's per-table half: the owner words its wrapper gathers
+    "slot_table_records":
+        "spark_rapids_jni_tpu/ops/pallas_kernels.py:414",
     "slot_table_probe":
         "spark_rapids_jni_tpu/ops/pallas_kernels.py:414",
     "partition_scatter":
@@ -62,6 +71,7 @@ REPLACES = {
 SOURCES = {
     "onehot_groupby": "spark_rapids_jni_tpu_torch/csrc/onehot_groupby.cu",
     "slot_table_build": "spark_rapids_jni_tpu_torch/csrc/slot_table.cu",
+    "slot_table_records": "spark_rapids_jni_tpu_torch/csrc/slot_table.cu",
     "slot_table_probe": "spark_rapids_jni_tpu_torch/csrc/slot_table.cu",
     "partition_scatter":
         "spark_rapids_jni_tpu_torch/csrc/partition_scatter.cu",
@@ -130,17 +140,118 @@ def nvidia_smi_line() -> str:
 # kernels against their plain versions, at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def k1_case(name, batch, key, aggs, K, row_valid):
-    """The one-hot group-by at the payload the main path builds."""
-    from spark_rapids_jni_tpu_torch.ops import kernels as KER
-    from spark_rapids_jni_tpu_torch.relational import aggregate as AGG
+def onehot_inputs(batch, key, aggs, row_valid):
+    """The fused one-hot group-by's arguments as ``_domain_partials``
+    passes them: the key, the row mask, every referenced column, the int
+    and float sum columns."""
+    from spark_rapids_jni_tpu_torch.columnar import types as T
 
-    bucket, X8, F, _, _ = AGG._onehot_payload(batch, key, aggs, K,
-                                              row_valid, "f32x3")
+    names, ints, floats = [], [], []
+    for a in aggs:
+        if a.column is None:
+            continue
+        if a.column not in names:
+            names.append(a.column)
+        if a.op in ("sum", "mean"):
+            fl = batch[a.column].dtype.kind in T.FLOAT_KINDS
+            tgt = floats if fl else ints
+            if names.index(a.column) not in tgt:
+                tgt.append(names.index(a.column))
+    cols = [(batch[c].data, batch[c].validity) for c in names]
+    return (batch[key].data, batch[key].validity, row_valid, cols, ints,
+            floats)
+
+
+def k1_case(name, batch, key, aggs, K, row_valid):
+    """The fused one-hot group-by on the raw columns the main path gives
+    it, against its plain path (the reference's payload, per-bucket sums
+    and limb rebuild): ints and counts exact, floats rel 1e-5 of the sum
+    of |x|, the overflow flag equal."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+
+    args = onehot_inputs(batch, key, aggs, row_valid)
+    kd, kv, live, cols, ints, floats = args
+    n = kd.shape[0]
+    KER.reset_launches()
+    oi, of, ovf = KER.onehot_groupby_columns(*args, K)
+    check(KER.launches["onehot_groupby"] == 1
+          and KER.launches["onehot_groupby_parts"] == 0,
+          f"onehot_groupby[{name}]: {KER.launches['onehot_groupby']} fused "
+          f"and {KER.launches['onehot_groupby_parts']} payload launches for "
+          "one group-by")
+    ri, rf, rovf = KER.onehot_groupby_columns_plain(*args, K)
+    torch.cuda.synchronize()
+    check(torch.equal(oi, ri), f"onehot_groupby[{name}]: ints differ")
+    check(bool(ovf.item()) == bool(rovf.item()),
+          f"onehot_groupby[{name}]: overflow flag differs")
+    err = 0.0
+    if floats:
+        absc = [(d.abs() if d.is_floating_point() else d, v)
+                for d, v in cols]
+        rabs = KER.onehot_groupby_columns_plain(kd, kv, live, absc, ints,
+                                                floats, K)[1]
+        rel = 0.0
+        for j in range(len(floats)):
+            a = of[:, 3 * j:3 * j + 3].sum(1)
+            b = rf[:, 3 * j:3 * j + 3].sum(1)
+            err = max(err, (a - b).abs().max().item())
+            scale = rabs[:, 3 * j:3 * j + 3].sum(1).clamp(min=1e-300)
+            rel = max(rel, ((a - b).abs() / scale).max().item())
+        check(rel <= FLOAT_RTOL,
+              f"onehot_groupby[{name}]: float sums off by {rel} of sum|x|")
+    ms = time_ms(lambda: KER.onehot_groupby_columns(*args, K))
+    plain = time_ms(lambda: KER.onehot_groupby_columns_plain(*args, K))
+
+    # yardstick: index_add_ of the same columns by bucket, the bucket and
+    # the widened columns made outside the timed region
+    bucket = KER.onehot_payload(kd, kv, live, [], [], [], K)[0]
+    idx = torch.where(bucket >= 0, bucket, K + 1).to(torch.int64)
+    vi = torch.stack([torch.ones_like(kd, dtype=torch.int64)]
+                     + [v.to(torch.int64) for _, v in cols]
+                     + [cols[i][0].to(torch.int64) for i in ints], 1)
+    vf = (torch.stack([cols[i][0] for i in floats], 1) if floats else None)
+
+    def library():
+        torch.zeros((K + 2, vi.shape[1]), dtype=torch.int64,
+                    device=kd.device).index_add_(0, idx, vi)
+        if vf is not None:
+            torch.zeros((K + 2, vf.shape[1]), dtype=torch.float64,
+                        device=kd.device).index_add_(0, idx, vf)
+
+    lib = time_ms(library)
+    # the raw columns read once: key and its validity, the row mask, each
+    # column's validity, each sum column's data; the partials written once
+    nbytes = n * (kd.element_size() + 1 + (1 if live is not None else 0)
+                  + len(cols)
+                  + sum(cols[i][0].element_size() for i in ints + floats)) \
+        + (K + 1) * (oi.shape[1] + of.shape[1]) * 8
+    mi, mf = oi.shape[1], of.shape[1]
+    b, by = bound_ms(nbytes, n * (mi + 3 * mf))
+    return {"shape": name, "form": "fused_columns", "n": n, "domain": K + 1,
+            "int_partials": mi, "float_partials": mf,
+            "overflow": bool(ovf.item()), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": b, "bound_by": by,
+            "library_ms": lib}
+
+
+def k1_contract_case(name, batch, key, aggs, K, row_valid):
+    """The reference's contract entry (a built int8/f32 payload) on the
+    payload kernel, against its plain version."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+
+    kd, kv, live, cols, ints, floats = onehot_inputs(batch, key, aggs,
+                                                     row_valid)
+    bucket, X8, F, _ = KER.onehot_payload(kd, kv, live, cols, ints, floats,
+                                          K)
     n, mi = X8.shape
     mf = F.shape[1]
     dom = K + 1
+    KER.reset_launches()
     oi, of = KER.onehot_groupby_parts(bucket, X8, F, dom)
+    check(KER.launches["onehot_groupby_parts"] == 1
+          and KER.launches["onehot_groupby"] == 0,
+          f"onehot_groupby[{name}]: the contract entry did not run its "
+          "payload kernel once")
     ri, rf = KER.onehot_groupby_parts_plain(bucket, X8, F, dom)
     torch.cuda.synchronize()
     check(torch.equal(oi, ri), f"onehot_groupby[{name}]: int sums differ")
@@ -171,9 +282,10 @@ def k1_case(name, batch, key, aggs, K, row_valid):
     lib = time_ms(library)
     nbytes = n * (4 + mi + 4 * mf) + dom * (mi + mf) * 8
     b, by = bound_ms(nbytes, n * (mi + mf))
-    return {"shape": name, "n": n, "domain": dom, "mi": mi, "mf": mf,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b,
-            "bound_by": by, "library_ms": lib}
+    return {"shape": name, "form": "contract_payload", "n": n,
+            "domain": dom, "mi": mi, "mf": mf, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": b, "bound_by": by,
+            "library_ms": lib}
 
 
 def k2_case(name, words, live, S, max_rounds):
@@ -202,24 +314,65 @@ def k2_case(name, words, live, S, max_rounds):
             "library_ms": None}, got[0]
 
 
-def k3_case(name, owner, bwords, pwords, live, rounds):
+def k3_records_case(name, owner, bwords):
+    """The per-table slot-record build (one launch) against its plain
+    version: records and chain bound bit-identical."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+
+    S, n, W = owner.shape[0], bwords[0].shape[0], len(bwords)
+    KER.reset_launches()
+    got = KER.slot_table_records(owner, bwords)
+    check(KER.launches["slot_table_records"] == 1,
+          f"slot_table_records[{name}]: not one launch")
+    ref = KER.slot_table_records_plain(owner, bwords)
+    torch.cuda.synchronize()
+    check(torch.equal(got.rec, ref.rec),
+          f"slot_table_records[{name}]: records differ")
+    check(torch.equal(got.bound, ref.bound),
+          f"slot_table_records[{name}]: chain bound differs")
+    ms = time_ms(lambda: KER.slot_table_records(owner, bwords))
+    plain = time_ms(lambda: KER.slot_table_records_plain(owner, bwords),
+                    reps=2)
+    R = got.rec.shape[1]
+    occupied = int((owner != n).sum().item())
+    # owner read once, each occupied slot's owner words as carried (8 B
+    # each), the records written once
+    b, by = bound_ms(S * 4 + occupied * 8 * W + S * R * 4)
+    return {"shape": name, "S": S, "n_build": n, "W": W, "record_bytes":
+            4 * R, "chain_bound": int(got.bound[0].item()),
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain, "bound_ms": b,
+            "bound_by": by, "library_ms": None}, got
+
+
+def k3_case(name, owner, bwords, pwords, live, rounds, recs):
+    """The probe over a table's records, as the hash join calls it, held
+    bit-identical to the reference's round-by-round walk; the contract
+    entry (records + probe) too."""
     from spark_rapids_jni_tpu_torch.ops import kernels as KER
 
     S, n, m, W = owner.shape[0], bwords[0].shape[0], live.shape[0], \
         len(pwords)
-    got = KER.slot_table_probe(owner, bwords, pwords, live, rounds)
+    KER.reset_launches()
+    got = KER.slot_table_probe_records(recs, pwords, live)
+    check(KER.launches["slot_table_probe"] == 1
+          and KER.launches["slot_table_records"] == 0,
+          f"slot_table_probe[{name}]: not one launch and no record build")
     ref = KER.slot_table_probe_plain(owner, bwords, pwords, live, rounds)
+    contract = KER.slot_table_probe(owner, bwords, pwords, live, rounds)
     torch.cuda.synchronize()
-    for a, r, what in zip(got, ref, ("found", "slot")):
+    for a, c, r, what in zip(got, contract, ref, ("found", "slot")):
         check(torch.equal(a, r), f"slot_table_probe[{name}]: {what} differs")
-    ms = time_ms(lambda: KER.slot_table_probe(owner, bwords, pwords, live,
-                                              rounds))
+        check(torch.equal(c, r),
+              f"slot_table_probe[{name}]: contract entry {what} differs")
+    ms = time_ms(lambda: KER.slot_table_probe_records(recs, pwords, live))
     plain = time_ms(lambda: KER.slot_table_probe_plain(
         owner, bwords, pwords, live, rounds), reps=2)
-    # owner + build words + probe words + live in; found + slot out
-    b, by = bound_ms(S * 4 + n * 4 * W + m * (4 * W + 1) + m * 5)
+    # probe words as carried (8 B each) and live read once, the table's
+    # records read once, found and slot written once
+    b, by = bound_ms(m * (8 * W + 1) + recs.rec.numel() * 4 + m * 5)
     return {"shape": name, "m": m, "S": S, "n_build": n, "W": W,
             "rounds": rounds, "hit_rate": got[0].float().mean().item(),
+            "smem": S * recs.rec.shape[1] * 4 <= 48 * 1024,
             "max_abs_err": 0, "ms": ms, "plain_ms": plain, "bound_ms": b,
             "bound_by": by, "library_ms": None}
 
@@ -413,8 +566,7 @@ def phase_kernels(q6b, fact, dim1, dim2):
     from spark_rapids_jni_tpu_torch.relational import hashtable as H
     from spark_rapids_jni_tpu_torch.relational import keys as RK
 
-    cases = {"onehot_groupby": [], "slot_table_build": [],
-             "slot_table_probe": [], "partition_scatter": []}
+    cases = {k: [] for k in REPLACES}
 
     def run(kernel, label, fn, *args):
         out = guarded(f"kernel {kernel}[{label}]", fn, *args)
@@ -432,6 +584,9 @@ def phase_kernels(q6b, fact, dim1, dim2):
     live2 = torch.arange(j2.num_rows, device=dev) < c2
     run("onehot_groupby", "q95_seg", k1_case, "q95_seg", j2, "seg",
         list(PL.Q95_AGGS), PL.Q95_SEG, live2)
+    # the reference's contract entry over a built payload, at q6
+    run("onehot_groupby", "q6_contract", k1_contract_case, "q6_contract",
+        q6b, "k", list(PL.Q6_AGGS), 100, mask)
 
     # the join build over dim1 (S = 2 x rows, no round bound) and the
     # group-by build over q6 (S = 4096, the adaptive round bound)
@@ -448,14 +603,37 @@ def phase_kernels(q6b, fact, dim1, dim2):
         "hot_spot_100_keys", gk, torch.ones_like(mask), 4096,
         AD.bound_build_rounds(q6b.num_rows, 4096))
 
-    # the probe of the fact keys into the dim1 table
+    # the probe at both main-path shapes of the q95 hash join: the
+    # exchanged fact keys into the dim1 table (S 2^22), and the first
+    # join's rows, exchanged on wh, into dim2's 25-row table (S 64)
     if out is not None:
+        from spark_rapids_jni_tpu_torch.parallel.partition import \
+            exchange_local
+        from spark_rapids_jni_tpu_torch.relational import join as JN
+
         owner1 = out[1]
-        pk = RK.batch_radix_keys([fact["k"]], equality=True,
-                                 nulls_first=False)
-        plive = torch.ones(fact.num_rows, dtype=torch.bool, device=dev)
-        run("slot_table_probe", "fact_into_dim1", k3_case, "fact_into_dim1",
-            owner1, rk1, pk, plive, H.chain_bound(owner1, dim1.num_rows))
+        ones = torch.ones(fact.num_rows, dtype=torch.bool, device=dev)
+        staged = exchange_local(fact, "k", ones, PL.P)
+        j1, c1 = JN.hash_join(staged, dim1, ["k"], ["k"])
+        j1_live = torch.arange(j1.num_rows, device=dev) < c1
+        staged2 = exchange_local(j1, "wh", j1_live, PL.P)
+        rk2 = RK.batch_radix_keys([dim2["wh"]], equality=True,
+                                  nulls_first=False)
+        owner2 = H.build_slot_table(rk2, torch.ones(
+            dim2.num_rows, dtype=torch.bool, device=dev),
+            H.next_pow2(2 * dim2.num_rows))[0]
+        for label, owner, bw, left, key, llive in (
+                ("fact_into_dim1", owner1, rk1, staged, "k", ones),
+                ("j1_into_dim2", owner2, rk2, staged2, "wh", j1_live)):
+            rec = run("slot_table_records", label, k3_records_case, label,
+                      owner, bw)
+            if rec is None:
+                continue
+            pk = RK.batch_radix_keys([left[key]], equality=True,
+                                     nulls_first=False)
+            run("slot_table_probe", label, k3_case, label, owner, bw, pk,
+                left[key].validity & llive,
+                H.chain_bound(owner, bw[0].shape[0]), rec[1])
 
     # the stream's scatter, map order: a fact morsel (8 shards x 4096
     # rows, C 2^16) across a round boundary; one whose shards end in
@@ -526,13 +704,36 @@ def check_q95(res, ng, arrays, label):
 
 
 def q6_stages(q6b):
-    """Where q6's one-hot step spends its time: the payload build alone."""
+    """Where q6's one-hot step spends its time: the group-by's partials
+    (one fused K1 launch over the raw columns), and one profiled step,
+    which must launch K1 once and build no payload (no ``aten::stack``)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
     from spark_rapids_jni_tpu_torch.relational import aggregate as AGG
 
-    return {"onehot_payload_ms": time_ms(lambda: AGG._onehot_payload(
-        q6b, "k", list(PL.Q6_AGGS), 100, q6b["price"].data < 50.0,
-        "f32x3"))}
+    mask = q6b["price"].data < 50.0
+    partials = time_ms(lambda: AGG._domain_partials(
+        q6b, "k", list(PL.Q6_AGGS), 100, mask))
+    torch.cuda.synchronize()
+    KER.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        PL.q6_step(q6b)
+        torch.cuda.synchronize()
+    k1 = KER.launches["onehot_groupby"]
+    ev = prof.key_averages()
+    stacks = sum(e.count for e in ev if e.key == "aten::stack")
+    kernels = sum(e.count for e in ev
+                  if "CUDA" in str(getattr(e, "device_type", ""))
+                  and (getattr(e, "self_device_time_total", None) or
+                       getattr(e, "self_cuda_time_total", 0.0)) > 0)
+    check(k1 == 1, f"q6_onehot: {k1} K1 launches in one profiled step")
+    check(stacks == 0, f"q6_onehot: {stacks} aten::stack in one step (a "
+          "payload build)")
+    return {"partials_ms": partials, "k1_launches_in_step": k1,
+            "aten_stack_in_step": stacks, "kernels_in_step": kernels}
 
 
 def q95_stages(fact, dim1, dim2):
@@ -543,12 +744,25 @@ def q95_stages(fact, dim1, dim2):
         fact, dim1, dim2, u), reps=3) for u in ("exch1", "join1", "join2")}
 
 
-def phase_path(name, fn, args, rows, verify, needs, stages=None):
+def check_counts(name, counts, needs, exact):
+    # the main path runs the fused one-hot group-by, never the contract
+    # entry's payload kernel
+    check(counts["onehot_groupby_parts"] == 0,
+          f"{name}: {counts['onehot_groupby_parts']} launches of the one-hot "
+          "contract entry's payload kernel")
+    for k in needs:
+        check(counts[k] > 0, f"{name}: kernel {k} was not launched")
+    for k, want in (exact or {}).items():
+        check(counts[k] == want,
+              f"{name}: {counts[k]} {k} launches, expected {want}")
+
+
+def phase_path(name, fn, args, rows, verify, needs, stages=None,
+               exact=None):
     """Drive one pipeline: counts, oracle check, then steady-state time."""
     (res, ng), counts, first_s = driven(fn, *args)
     extra = verify(res, ng)
-    for k in needs:
-        check(counts[k] > 0, f"{name}: kernel {k} was not launched")
+    check_counts(name, counts, needs, exact)
     ms = time_ms(lambda: fn(*args), reps=3)
     line = {"phase": name, "rows": rows, "groups": int(ng),
             "launches": counts, "first_run_s": first_s, "ms": ms,
@@ -601,21 +815,22 @@ def check_q9(res, ng, arrays, label):
     return worst
 
 
-def phase_plan(name, make_plan, inputs, verify, needs):
+def phase_plan(name, make_plan, inputs, verify, needs, exact=None,
+               exact_again=None):
     """``plan.execute`` once from an empty plan cache (counts at 0 just
     before), verified; then a second call that must hit the cache with no
-    new compile; then timed."""
+    new compile (``exact_again``: its launch counts); then timed."""
     from spark_rapids_jni_tpu_torch import plan as PLAN
 
     PLAN.reset_plan_cache()
     (res, ng), counts, first_s = driven(
         lambda: PLAN.execute(make_plan(), inputs))
     extra = verify(res, ng)
-    for k in needs:
-        check(counts[k] > 0, f"{name}: kernel {k} was not launched")
+    check_counts(name, counts, needs, exact)
     t0 = PLAN.trace_count()
     cp = PLAN.compile_plan(make_plan(), inputs)
-    again = cp(inputs)
+    again, counts_again, _ = driven(cp, inputs)
+    check_counts(f"{name} (second call)", counts_again, (), exact_again)
     check(cp.last_lookup == "hit", f"{name}: second call missed the cache")
     check(PLAN.trace_count() == t0, f"{name}: second call compiled")
     check(int(again[1]) == int(ng), f"{name}: second call differs")
@@ -623,8 +838,8 @@ def phase_plan(name, make_plan, inputs, verify, needs):
     rows = inputs["fact"].num_rows if "fact" in inputs else \
         inputs["batch"].num_rows
     line = {"phase": name, "rows": rows, "groups": int(ng),
-            "launches": counts, "first_run_s": first_s,
-            "decisions": cp.decisions, "ms": ms,
+            "launches": counts, "launches_second_call": counts_again,
+            "first_run_s": first_s, "decisions": cp.decisions, "ms": ms,
             "mrows_per_s": rows / (ms * 1e-3) / 1e6}
     if extra is not None:
         line["float_max_rel_err"] = extra
@@ -781,35 +996,41 @@ def main() -> int:
 
     total = {k: 0 for k in REPLACES}
 
-    def path(name, group_path, fn, args, rows, verify, needs, stages=None):
+    def path(name, group_path, fn, args, rows, verify, needs, stages=None,
+             exact=None):
         config.set("q6_group_path", group_path)
         counts = guarded(name, phase_path, name, fn, args, rows, verify,
-                         needs, stages)
+                         needs, stages, exact)
         config.reset("q6_group_path")
         for k in total:
             total[k] += (counts or {}).get(k, 0)
 
     path("q6_onehot", "onehot", PL.q6_step, (q6b,), n6,
          lambda r, g: check_q6(r, g, q6_arrays, "q6_onehot"),
-         ("onehot_groupby",), lambda: q6_stages(q6b))
+         ("onehot_groupby",), lambda: q6_stages(q6b),
+         {"onehot_groupby": 1})
     path("q6_hash", "sort", PL.q6_step, (q6b,), n6,
          lambda r, g: check_q6(r, g, q6_arrays, "q6_hash"),
          ("slot_table_build",))
     path("q95", "onehot", PL.q95_step, (fact, dim1, dim2), N_FACT,
          lambda r, g: check_q95(r, g, q95_arrays, "q95"),
-         ("onehot_groupby",), lambda: q95_stages(fact, dim1, dim2))
+         ("onehot_groupby",), lambda: q95_stages(fact, dim1, dim2),
+         {"onehot_groupby": 1})
+    # two joins: one record build per built table, one probe per join
     path("q95_hashjoin", "onehot", PL.q95_hashjoin_step, (fact, dim1, dim2),
          N_FACT, lambda r, g: check_q95(r, g, q95_arrays, "q95_hashjoin"),
-         ("slot_table_build", "slot_table_probe"))
+         ("slot_table_build", "slot_table_probe"), None,
+         {"slot_table_records": 2, "slot_table_probe": 2})
 
     from spark_rapids_jni_tpu_torch.plan import queries as Q
 
-    def plan_path(name, knobs, make_plan, inputs, verify, needs):
+    def plan_path(name, knobs, make_plan, inputs, verify, needs, exact=None,
+                  exact_again=None):
         for k, v in knobs.items():
             config.set(k, v)
         try:
             counts = guarded(name, phase_plan, name, make_plan, inputs,
-                             verify, needs)
+                             verify, needs, exact, exact_again)
         finally:
             for k in knobs:
                 config.reset(k)
@@ -839,9 +1060,15 @@ def main() -> int:
                           lambda r, g, n=name: check_q95(r, g, q95_arrays,
                                                          n)),
                   ("onehot_groupby",) if engine == "auto" else ())
+    # the broadcast table's records are built with the table and reused
+    # by the cached plan: no record build on the second call
     plan_path("plan_q9", {}, Q.q9_plan, q95_in,
               lambda r, g: check_q9(r, g, q95_arrays, "plan_q9"),
-              ("slot_table_build", "slot_table_probe", "onehot_groupby"))
+              ("slot_table_build", "slot_table_probe", "onehot_groupby"),
+              {"slot_table_records": 1, "slot_table_probe": 1,
+               "onehot_groupby": 1},
+              {"slot_table_records": 0, "slot_table_build": 0,
+               "slot_table_probe": 1})
 
     k4_main = (cases.get("partition_scatter") or [None])[0]
     counts = guarded("stream_exchange", phase_stream, fact, k4_main)

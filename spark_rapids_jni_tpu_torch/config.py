@@ -69,8 +69,10 @@ _register("adaptive_execution", True, _parse_bool,
           "shuffled joins from observed build sizes, group-by engine from "
           "skewed counts passes, per-exchange round capacity from "
           "ShuffleMetrics, and the slot table's round bounds (build bound "
-          "from the load factor, probe bound = the table's exact "
-          "chain_bound).  Off = the static defaults everywhere.")
+          "from the load factor; bound_probe_rounds = the table's exact "
+          "chain_bound — hash_join's probe walks to the chain bound its "
+          "slot records carry either way, result-identical).  Off = the "
+          "static defaults everywhere.")
 _register("broadcast_threshold_rows", 1 << 16, int,
           "Adaptive-join build-side row cutoff: a strategy='auto' join "
           "whose observed build side is at or under this goes broadcast "

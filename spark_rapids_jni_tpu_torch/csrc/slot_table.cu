@@ -48,11 +48,36 @@
 //     same slot agree with __match_any_sync and __reduce_min_sync, and
 //     one lane claims their minimum row id.
 //
-// Probe: one thread per probe row walks its chain over owner and the
-// owners' words gathered once into [S, W]; no VMEM-style size cutoff —
-// the table lives in device memory at every S.  Random reads of owner
-// and the gathered words miss L2 when the table (48 MB at S = 2^22)
-// does not fit the 50 MB cache.
+// Probe, in two launches of their own.  Once per built table,
+// slot_records writes one record per slot in slot order: the owner's row
+// id, then its W key words (u32), W + 1 words in all (12 bytes at W = 2),
+// so a step of the walk reads one record and linear probing's next step
+// is the adjacent record.  The same launch computes the table's chain
+// bound: each empty slot walks back over the run of occupied slots
+// before it and takes max(run + 1) (S where a run reaches kMaxRun; 0 when
+// no slot is empty, read as S) — a bound covering the longest chain, so
+// any walk it truncates would have ended at an empty slot first.
+//
+// Then per probe call, slot_probe: one thread walks one probe row's
+// chain, (cand0 + r) & (S - 1) for r < min(max_rounds, chain bound),
+// and stops at the first slot that is empty or whose owner's words equal
+// the probe's, exactly as the round-by-round walk does.  At load 1/2 a
+// hit reads about 1.5 records, so lanes added to one row would mostly
+// idle.  The probe words are read from their int64 carriers (low 32
+// bits) through W pointers, live as bool bytes, and found is written as
+// bool bytes: the wrapper packs nothing.  The loops over the words are
+// unrolled to a compile-time cap (2 where W <= 2, else kMaxWords) and
+// predicated on W, so a record's loads issue together and
+// the probe words stay in registers; loops that stopped at a runtime W
+// issued them one after another and walked 1.5x slower.  A table whose
+// records fit kSmemRecords bytes (dim2's 25-row S = 64 table of the q95
+// hash join and q9) is staged into each block's shared memory and walked
+// there.
+//
+// What bounds the probe: bytes.  Per probe row it reads its words as
+// carried (8 B each) and live, and writes found and slot; the records of
+// a large table (S = 2^22: 48 MB beside a 50 MB L2) are read at random,
+// about 1.5 records a hit at load 1/2.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -73,12 +98,6 @@ __device__ __forceinline__ uint32_t finalize(uint32_t h) {
   h ^= h >> 15;
   h *= 0x846CA68Bu;
   return h ^ (h >> 16);
-}
-
-__device__ __forceinline__ uint32_t fold_hash(const uint32_t* w, int W) {
-  uint32_t h = 2166136261u;
-  for (int j = 0; j < W; ++j) h = (h ^ w[j]) * 16777619u;
-  return finalize(h);
 }
 
 // the build's key words: W int64 carriers of u32 lanes
@@ -237,40 +256,131 @@ __global__ void __launch_bounds__(kBuildThreads) slot_build(Build a) {
   if (gtid == 0) *a.overflow = len > 0;
 }
 
-__global__ void slot_probe(const int32_t* __restrict__ owner,
-                           const uint32_t* __restrict__ slotw,
-                           const uint32_t* __restrict__ pw,
-                           const uint8_t* __restrict__ live,
-                           uint8_t* __restrict__ found,
-                           int32_t* __restrict__ slot, int m, int W, int S,
-                           int n_build, int rounds) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  bool f = false;
-  int s = S;
-  if (live[i]) {
-    const uint32_t* wi = pw + (size_t)i * W;
-    const uint32_t mask = (uint32_t)(S - 1);
-    uint32_t c = fold_hash(wi, W) & mask;
-    for (int r = 0; r < rounds; ++r) {
-      if (owner[c] == n_build) break;  // an empty slot ends the chain
-      const uint32_t* wo = slotw + (size_t)c * W;
-      bool match = true;
-      for (int j = 0; j < W; ++j) match = match && (wo[j] == wi[j]);
-      if (match) {
-        f = true;
-        s = (int)c;
-        break;
+// ---------------------------------------------------------------------------
+// probe: per-table slot records, then one thread's walk per probe row
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxRun = 1024;            // a longer run bounds the walk by S
+constexpr int kSmemRecords = 48 * 1024;  // records staged in shared memory
+
+// one record per slot: owner, then its W words; and the chain bound
+// (atomicMax over the empty slots; *bound is 0 on entry)
+__global__ void slot_records(const int32_t* __restrict__ owner, Words k,
+                             uint32_t* __restrict__ rec, int* bound, int S,
+                             int n) {
+  const int mask = S - 1, R = k.W + 1;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       c < S; c += stride) {
+    const int o = owner[c];
+    uint32_t* r = rec + c * R;
+    r[0] = (uint32_t)o;
+    const bool occ = o != n;
+    for (int j = 0; j < k.W; ++j) r[1 + j] = occ ? word(k, j, o) : 0u;
+    if (!occ) {
+      int len = 0;
+      int p = ((int)c - 1) & mask;
+      while (len < kMaxRun && owner[p] != n) {
+        ++len;
+        p = (p - 1) & mask;
       }
-      c = (c + 1) & mask;
+      atomicMax(bound, len < kMaxRun ? len + 1 : S);
     }
   }
-  found[i] = f;
-  slot[i] = s;
 }
 
-inline unsigned blocks(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+struct Probe {
+  Words k;                // probe words: W int64 carriers
+  const uint8_t* live;    // bool[m]
+  const uint32_t* rec;    // [S * (W + 1)] slot records
+  const int* bound;       // the table's chain bound, 0 = S
+  uint8_t* found;         // bool[m]
+  int32_t* slot;          // int32[m]
+  long long m;
+  int S, n_build, max_rounds;
+};
+
+template <bool kSmem>
+__device__ __forceinline__ uint32_t rec_word(const uint32_t* p) {
+  return kSmem ? *p : __ldg(p);
+}
+
+// kCap >= W: the word loops' compile-time length; kSmem: the table's
+// records are staged in shared memory
+template <int kCap, bool kSmem>
+__global__ void __launch_bounds__(kThreads) slot_probe(Probe a) {
+  extern __shared__ uint32_t srec[];
+  const int S = a.S, W = a.k.W, R = W + 1;
+  const uint32_t* rec = a.rec;
+  if constexpr (kSmem) {
+    for (int i = threadIdx.x; i < S * R; i += blockDim.x)
+      srec[i] = __ldg(a.rec + i);
+    __syncthreads();
+    rec = srec;
+  }
+  const int b = *a.bound;
+  const int rounds = min(a.max_rounds, b ? b : S);
+  const uint32_t mask = (uint32_t)(S - 1);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < a.m; i += stride) {
+    bool f = false;
+    int s = S;
+    // the probe side streams through once: evict-first loads and stores
+    // (__ldcs / __stcs) leave L2 to the records
+    if (__ldcs(reinterpret_cast<const signed char*>(a.live) + i)) {
+      uint32_t pw[kCap];
+      uint32_t h = 2166136261u;
+#pragma unroll
+      for (int j = 0; j < kCap; ++j) {
+        pw[j] = j < W ? (uint32_t)(unsigned long long)__ldcs(a.k.w[j] + i)
+                      : 0u;
+        if (j < W) h = (h ^ pw[j]) * 16777619u;
+      }
+      uint32_t c = finalize(h) & mask;
+      for (int r = 0; r < rounds; ++r, c = (c + 1) & mask) {
+        const uint32_t* e = rec + (long long)c * R;
+        const uint32_t o = rec_word<kSmem>(e);
+        bool match = true;
+#pragma unroll
+        for (int j = 0; j < kCap; ++j)
+          if (j < W) match &= rec_word<kSmem>(e + 1 + j) == pw[j];
+        if ((int)o == a.n_build) break;  // an empty slot ends the chain
+        if (match) {
+          f = true;
+          s = (int)c;
+          break;
+        }
+      }
+    }
+    __stcs(reinterpret_cast<signed char*>(a.found) + i, (signed char)f);
+    __stcs(a.slot + i, s);
+  }
+}
+
+template <int kCap, bool kSmem>
+cudaError_t launch_probe(const Probe& a, cudaStream_t stream, int device) {
+  const void* fn = (const void*)slot_probe<kCap, kSmem>;
+  const size_t smem = kSmem ? (size_t)a.S * (a.k.W + 1) * 4 : 0;
+  int per_sm = 0, sms = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  long long grid = (a.m + kThreads - 1) / kThreads;
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  if (grid > resident) grid = resident;
+  slot_probe<kCap, kSmem><<<(unsigned)grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kSmem>
+cudaError_t probe_by_words(const Probe& a, cudaStream_t s, int device) {
+  // two words: one int32 key with its null word, the q95 and q9 joins
+  if (a.k.W <= 2) return launch_probe<2, kSmem>(a, s, device);
+  return launch_probe<kMaxWords, kSmem>(a, s, device);
 }
 
 }  // namespace
@@ -334,17 +444,63 @@ int srj_slot_build(const int64_t* word_ptrs, int W, const void* live,
   return (int)cudaGetLastError();
 }
 
-int srj_slot_probe(const void* owner, const void* slotw, const void* pw,
-                   const void* live, void* found, void* slot, int m, int W,
-                   int S, int n_build, int rounds, void* stream) {
-  if (m <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  slot_probe<<<blocks(m), kThreads, 0, s>>>(
-      static_cast<const int32_t*>(owner), static_cast<const uint32_t*>(slotw),
-      static_cast<const uint32_t*>(pw), static_cast<const uint8_t*>(live),
-      static_cast<uint8_t*>(found), static_cast<int32_t*>(slot), m, W, S,
-      n_build, rounds);
+// One record per slot, once per built table.  owner int32[S];
+// word_ptrs: W device pointers (host array) to the build side's int64[n]
+// u32 carriers; rec uint32[S * (W + 1)] out; bound int32[1], zero on
+// entry, out.  Returns a cudaError_t.
+int srj_slot_records(const void* owner, const int64_t* word_ptrs, int W,
+                     void* rec, void* bound, int S, int n, void* stream) {
+  if (W < 1 || W > kMaxWords || S < 1 || (S & (S - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  Words k;
+  for (int j = 0; j < W; ++j)
+    k.w[j] = reinterpret_cast<const long long*>(word_ptrs[j]);
+  k.W = W;
+  const long long grid = ((long long)S + kThreads - 1) / kThreads;
+  slot_records<<<(unsigned)(grid < 65535 ? grid : 65535), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(owner), k, static_cast<uint32_t*>(rec),
+      static_cast<int*>(bound), S, n);
   return (int)cudaGetLastError();
+}
+
+// Largest record table (bytes) the probe stages in shared memory.
+int srj_slot_probe_smem_limit() { return kSmemRecords; }
+
+// The probe over slot records: word_ptrs: W device pointers (host array)
+// to the probe side's int64[m] carriers; live bool[m]; rec uint32[S *
+// (W + 1)] and bound int32[1] from srj_slot_records; found bool[m] and
+// slot int32[m] out.  smem: stage the records in shared memory (S * (W +
+// 1) * 4 <= the limit).
+int srj_slot_probe(const int64_t* word_ptrs, int W, const void* live,
+                   const void* rec, const void* bound, void* found,
+                   void* slot, long long m, int S, int n_build,
+                   int max_rounds, int smem, int device, void* stream) {
+  if (m <= 0) return 0;
+  if (W < 1 || W > kMaxWords || S < 1 || (S & (S - 1)) != 0 ||
+      (smem && (long long)S * (W + 1) * 4 > kSmemRecords))
+    return (int)cudaErrorInvalidValue;
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Probe a;
+  for (int j = 0; j < kMaxWords; ++j)  // unused entries: a valid pointer
+    a.k.w[j] = reinterpret_cast<const long long*>(word_ptrs[j < W ? j : 0]);
+  a.k.W = W;
+  a.live = static_cast<const uint8_t*>(live);
+  a.rec = static_cast<const uint32_t*>(rec);
+  a.bound = static_cast<const int*>(bound);
+  a.found = static_cast<uint8_t*>(found);
+  a.slot = static_cast<int32_t*>(slot);
+  a.m = m;
+  a.S = S;
+  a.n_build = n_build;
+  a.max_rounds = max_rounds;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = smem ? probe_by_words<true>(a, s, device)
+             : probe_by_words<false>(a, s, device);
+  return (int)err;
 }
 
 const char* srj_slot_error_string(int code) {

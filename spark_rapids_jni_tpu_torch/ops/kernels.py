@@ -3,11 +3,18 @@
 Counterpart of ``spark_rapids_jni_tpu/ops/pallas_kernels.py``, all four
 kernels:
 
-* :func:`onehot_groupby_parts` — per-bucket column sums (the one-hot
-  group-by, ``csrc/onehot_groupby.cu``);
+* :func:`onehot_groupby_columns` — the one-hot group-by over raw columns
+  (bucket, counts, int sums mod 2^64, f32x3 float sums and the
+  out-of-domain flag in one launch); :func:`onehot_groupby_parts` is the
+  reference's contract entry over a built payload
+  (``csrc/onehot_groupby.cu``);
 * :func:`slot_table_build` — open-addressing insert in synchronous rounds,
   all of them in one cooperative launch (``csrc/slot_table.cu``);
-* :func:`slot_table_probe` — read-only chain walk (``csrc/slot_table.cu``);
+* :func:`slot_table_records` — a built table's slot records (owner and
+  its words, one record per slot) and chain bound, once per table;
+  :func:`slot_table_probe_records` — the read-only chain walk over them,
+  one thread per probe row; :func:`slot_table_probe` is the
+  reference's contract entry, both in turn (``csrc/slot_table.cu``);
 * :class:`PartitionScatter` — one morsel of the streaming exchange, in
   map order, into the send chunks of every round it touches, every shard
   in one launch (``csrc/partition_scatter.cu``); :func:`partition_scatter`
@@ -29,16 +36,18 @@ every size.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
-from .._u32 import mul32, to_i32
+from .._u32 import M32, mul32, to_i32
 from . import _build
 
 # launches of each kernel since the last reset_launches(): one per
-# wrapper call that went to the CUDA kernel
-launches: Dict[str, int] = {"onehot_groupby": 0, "slot_table_build": 0,
+# wrapper call that went to the CUDA kernel ("onehot_groupby" is the fused
+# group-by, "onehot_groupby_parts" the contract entry's payload kernel)
+launches: Dict[str, int] = {"onehot_groupby": 0, "onehot_groupby_parts": 0,
+                            "slot_table_build": 0, "slot_table_records": 0,
                             "slot_table_probe": 0, "partition_scatter": 0}
 
 _P = ctypes.c_void_p
@@ -50,13 +59,19 @@ _SIGNATURES = {
                                     _LL, _P]),
         "srj_onehot_smem_limit": (_I, []),
         "srj_onehot_max_block_rows": (_LL, []),
+        "srj_onehot_columns": (_I, [_P, _I, _P, _P, ctypes.POINTER(_LL),
+                                    ctypes.POINTER(_I), _I, _I, _I, _P, _P,
+                                    _P, _LL, _I, _I, _I, _P]),
         "srj_onehot_error_string": (ctypes.c_char_p, [_I]),
     },
     "slot_table": {
         "srj_slot_build": (_I, [ctypes.POINTER(_LL), _I, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _I, _I, _I, _I, _P]),
-        "srj_slot_probe": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _P]),
+        "srj_slot_records": (_I, [_P, ctypes.POINTER(_LL), _I, _P, _P, _I,
+                                  _I, _P]),
+        "srj_slot_probe_smem_limit": (_I, []),
+        "srj_slot_probe": (_I, [ctypes.POINTER(_LL), _I, _P, _P, _P, _P, _P,
+                                _LL, _I, _I, _I, _I, _I, _P]),
         "srj_slot_error_string": (ctypes.c_char_p, [_I]),
     },
     "partition_scatter": {
@@ -185,8 +200,173 @@ def onehot_groupby_parts(bucket, int_payload, float_payload, domain: int):
             of.data_ptr() if mf else None, n, mi, mf, domain, dtile,
             rows_per_block, _stream(bucket))
     _check(rc, lib, "srj_onehot_error_string", what)
-    launches["onehot_groupby"] += 1
+    launches["onehot_groupby_parts"] += 1
     return oi, of
+
+
+_ONEHOT_MAX_COLS = 16
+
+
+def _dekker_limbs(v: torch.Tensor):
+    """Exact 3-way split of f64 values into f32 (hi, mid, lo)."""
+    hi = v.to(torch.float32)
+    r1 = v - hi.to(torch.float64)
+    mid = r1.to(torch.float32)
+    lo = (r1 - mid.to(torch.float64)).to(torch.float32)
+    return [hi, mid, lo]
+
+
+def _int_sum_from_limbs(true_limb: torch.Tensor) -> torch.Tensor:
+    """``sum_j true_limb[:, j] << 8j`` mod 2^64 in int64.  Each limb is
+    masked to the bits that survive its shift first, so every shift is
+    exact mod 2^64 and only the final adds wrap."""
+    total = torch.zeros(true_limb.shape[:1], dtype=torch.int64,
+                        device=true_limb.device)
+    for j in range(8):
+        x = true_limb[:, j]
+        if j:
+            x = x & ((1 << (64 - 8 * j)) - 1)
+        total = total + (x << (8 * j))
+    return total
+
+
+def onehot_payload(key, key_valid, row_live, cols, int_sums, float_sums,
+                   K: int):
+    """The reference's one-hot payload over raw columns (the contract
+    entry's input): ``(bucket, X8, F, overflow)``.
+
+    ``bucket`` int32[n]: ``clamp(k, 0, K-1)`` for a live non-null key, K
+    for a live null key, -1 for a dead row; ``X8`` int8[n, mi]: [0]
+    count(*) ones, then each column of ``cols``' validity, then 8 offset
+    byte limbs ``b - 128`` per int sum column; ``F`` f32[n, 3 nf]: the
+    Dekker limbs of each float sum column; ``overflow``: a live non-null
+    key outside ``[0, K)``.
+    """
+    n = key.shape[0]
+    dev = key.device
+    live = (torch.ones((n,), dtype=torch.bool, device=dev)
+            if row_live is None else row_live)
+    k = key.to(torch.int64)
+    klive = key_valid & live
+    overflow = (klive & ((k < 0) | (k >= K))).any()
+    bucket = torch.where(klive, k.clamp(0, K - 1), torch.full_like(k, K))
+    bucket = torch.where(live, bucket, torch.full_like(bucket, -1))
+    cols8 = [torch.ones((n,), dtype=torch.int8, device=dev)]
+    cols8 += [(v & live).to(torch.int8) for _, v in cols]
+    for i in int_sums:
+        data, valid = cols[i]
+        vvalid = valid & live
+        v = torch.where(vvalid, data.to(torch.int64), 0)
+        for j in range(8):
+            byte = (v >> (8 * j)) & 0xFF
+            cols8.append(torch.where(vvalid, byte - 128,
+                                     torch.zeros_like(byte)).to(torch.int8))
+    X8 = torch.stack(cols8, dim=1).contiguous()
+    limbs = []
+    for i in float_sums:
+        data, valid = cols[i]
+        v = data.to(torch.float64)
+        limbs.extend(_dekker_limbs(torch.where(valid & live, v,
+                                               torch.zeros_like(v))))
+    F = (torch.stack(limbs, dim=1).contiguous() if limbs else
+         torch.zeros((n, 0), dtype=torch.float32, device=dev))
+    return bucket.to(torch.int32), X8, F, overflow
+
+
+def onehot_groupby_columns_plain(key, key_valid, row_live, cols, int_sums,
+                                 float_sums, K: int):
+    """Plain version of :func:`onehot_groupby_columns`: the reference's
+    path — :func:`onehot_payload`, the per-bucket sums of the payload
+    (:func:`onehot_groupby_parts_plain`), then each int sum rebuilt from
+    its byte limbs."""
+    bucket, X8, F, overflow = onehot_payload(key, key_valid, row_live, cols,
+                                             int_sums, float_sums, K)
+    part, fpart = onehot_groupby_parts_plain(bucket, X8, F, K + 1)
+    nc = len(cols)
+    ints = [part[:, :1 + nc]]
+    for j, i in enumerate(int_sums):
+        s = 1 + nc + 8 * j
+        true_limb = part[:, s:s + 8] + 128 * part[:, 1 + i:2 + i]
+        ints.append(_int_sum_from_limbs(true_limb)[:, None])
+    return torch.cat(ints, dim=1), fpart, overflow
+
+
+def onehot_groupby_columns(key, key_valid, row_live, cols, int_sums,
+                           float_sums, K: int):
+    """The one-hot group-by over raw columns, in one launch.
+
+    ``key`` int32/int64[n] and ``key_valid`` bool[n]; ``row_live``
+    bool[n] or None (every row live); ``cols``: ``(data, validity)`` of
+    every referenced column, each counted where non-null; ``int_sums`` /
+    ``float_sums``: indices into ``cols`` of the int (bool/int32/int64)
+    and float (f64) sum columns; buckets ``[0, K]``, K the null key.
+    Returns ``(ints int64[K+1, 1 + nc + ni], floats f64[K+1, 3 nf],
+    overflow bool[])``: count(*), the non-null counts and the int sums
+    mod 2^64, bit-identical to the reference's limb path; the hi, mid and
+    lo limb sums of each float column (f32 per block, then f64: within
+    rel 1e-5 of the sum of |x|); ``overflow`` True when a live non-null
+    key falls outside ``[0, K)``.
+    """
+    what = "onehot_groupby_columns"
+    K = int(K)
+    _require(K >= 1, f"{what}: K must be >= 1")
+    n = key.shape[0]
+    _require(key.dtype in (torch.int32, torch.int64) and key.dim() == 1,
+             f"{what}: key must be int32[n] or int64[n]")
+    masks = [key_valid] + ([] if row_live is None else [row_live])
+    masks += [v for _, v in cols]
+    _require(all(m.dtype == torch.bool and m.shape == (n,) for m in masks),
+             f"{what}: validity and row_live must be bool[n]")
+    _require(len(cols) <= _ONEHOT_MAX_COLS,
+             f"{what}: {len(cols)} columns exceed {_ONEHOT_MAX_COLS}")
+    _require(all(0 <= i < len(cols) for i in list(int_sums)
+                 + list(float_sums)), f"{what}: sum index out of range")
+    for i in int_sums:
+        _require(cols[i][0].dtype in (torch.bool, torch.int32, torch.int64)
+                 and cols[i][0].shape == (n,),
+                 f"{what}: int sum columns must be bool/int32/int64[n]")
+    for i in float_sums:
+        _require(cols[i][0].dtype == torch.float64
+                 and cols[i][0].shape == (n,),
+                 f"{what}: float sum columns must be float64[n]")
+    tensors = [key] + masks + [cols[i][0] for i in list(int_sums)
+                               + list(float_sums)]
+    if not _on_cuda(tensors, what):
+        return onehot_groupby_columns_plain(key, key_valid, row_live, cols,
+                                            int_sums, float_sums, K)
+    _require(all(t.is_contiguous() for t in tensors),
+             f"{what}: inputs must be contiguous")
+    _require(n < 1 << 31, f"{what}: n {n} too large for one launch")
+    dev = key.device
+    nc, ni, nf = len(cols), len(int_sums), len(float_sums)
+    mi = 1 + nc + ni
+    oi = torch.zeros((K + 1, mi), dtype=torch.int64, device=dev)
+    of = torch.zeros((K + 1, 3 * nf), dtype=torch.float64, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    if n == 0:
+        return oi, of, overflow
+    lib = _lib("onehot_groupby")
+    limit = lib.srj_onehot_smem_limit()
+    per_bucket = 8 * ni + 4 * (1 + nc) + 12 * nf  # u64, u32 and f32 partials
+    dtile = min(K + 1, limit // per_bucket)
+    _require(dtile >= 1, f"{what}: {mi} int and {3 * nf} float partials "
+             "exceed one block's shared memory")
+    ptrs = (_LL * (nc + 2 * ni + 2 * nf))(
+        *[v.data_ptr() for _, v in cols],
+        *[cols[i][0].data_ptr() for i in int_sums],
+        *[cols[i][1].data_ptr() for i in int_sums],
+        *[cols[i][0].data_ptr() for i in float_sums],
+        *[cols[i][1].data_ptr() for i in float_sums])
+    ibytes = (_I * max(ni, 1))(*[cols[i][0].element_size()
+                                 for i in int_sums])
+    rc = lib.srj_onehot_columns(
+        key.data_ptr(), key.element_size(), key_valid.data_ptr(),
+        None if row_live is None else row_live.data_ptr(), ptrs, ibytes,
+        nc, ni, nf, oi.data_ptr(), of.data_ptr(), overflow.data_ptr(), n, K,
+        dtile, _dev_index(dev), _stream(key))
+    _check(rc, lib, "srj_onehot_error_string", what)
+    launches["onehot_groupby"] += 1
+    return oi, of, overflow
 
 
 # ---------------------------------------------------------------------------
@@ -307,28 +487,19 @@ def slot_table_build(words: Sequence[torch.Tensor], live: torch.Tensor,
     return owner, slot, overflow
 
 
-def slot_table_probe_plain(owner, build_words, probe_words, live,
-                           max_rounds: int):
-    """Plain version of :func:`slot_table_probe`: the reference's lax
-    chain walk, round by round."""
-    S = owner.shape[0]
-    n = build_words[0].shape[0]
+def _walk_plain(S: int, probe_words, live, rounds: int, step):
+    """The reference's round-by-round chain walk.  ``step(cand)`` gives
+    ``(empty, match)`` of each row's candidate slot; a row stops at an
+    empty slot or its first match, or after ``rounds`` rounds."""
     m = probe_words[0].shape[0]
-    dev = owner.device
-    owner64 = owner.to(torch.int64)
+    dev = live.device
     cand = fold_hash(probe_words) & (S - 1)
     slot = torch.full((m,), S, dtype=torch.int64, device=dev)
     found = torch.zeros((m,), dtype=torch.bool, device=dev)
     active = live.to(torch.bool).clone()
     rnd = 0
-    while rnd < max_rounds and bool(active.any()):
-        o = owner64[cand]
-        empty = o == n
-        oc = o.clamp(0, max(n - 1, 0))
-        match = ~empty
-        for bw, pw in zip(build_words, probe_words):
-            if n:
-                match &= bw[oc] == pw
+    while rnd < rounds and bool(active.any()):
+        empty, match = step(cand)
         hit = active & match
         slot = torch.where(hit, cand, slot)
         found |= hit
@@ -338,61 +509,209 @@ def slot_table_probe_plain(owner, build_words, probe_words, live,
     return found, slot.to(torch.int32)
 
 
+def slot_table_probe_plain(owner, build_words, probe_words, live,
+                           max_rounds: int):
+    """Plain version of :func:`slot_table_probe`: the reference's lax
+    chain walk over ``owner`` and the build side's words."""
+    S = owner.shape[0]
+    n = build_words[0].shape[0]
+    owner64 = owner.to(torch.int64)
+
+    def step(cand):
+        o = owner64[cand]
+        empty = o == n
+        oc = o.clamp(0, max(n - 1, 0))
+        match = ~empty
+        for bw, pw in zip(build_words, probe_words):
+            if n:
+                match &= bw[oc] == pw
+        return empty, match
+
+    return _walk_plain(S, probe_words, live, max_rounds, step)
+
+
+_MAX_RUN = 1024  # csrc/slot_table.cu kMaxRun
+
+
+def chain_bound(owner: torch.Tensor, n_build: int) -> int:
+    """Exact probe-round bound of a built table: the longest circular run
+    of occupied slots plus the empty slot that ends the walk, in
+    ``[1, S]`` (``S`` when no slot is empty).  Any probe — hit or miss —
+    ends within it, so it is result-identical to the full-table bound."""
+    S = owner.shape[0]
+    occ = owner != n_build
+    occ2 = torch.cat([occ, occ])
+    idx = torch.arange(2 * S, dtype=torch.int64, device=owner.device)
+    last_empty = torch.cummax(torch.where(occ2, torch.full_like(idx, -1),
+                                          idx), 0).values
+    run = torch.where(occ2, idx - last_empty, torch.zeros_like(idx))
+    longest = min(int(run.max().item()), S)
+    return max(1, min(longest + 1, S))
+
+
+class SlotRecords(NamedTuple):
+    """A built table's probe side, from :func:`slot_table_records`.
+
+    ``rec`` int32[S, W + 1]: per slot its owner's row id (``n_build``
+    where empty), then the owner's W key words (u32 bits, 0 where empty);
+    ``bound`` int32[1]: the walk's round bound, covering the longest
+    chain (0 = S: no slot is empty).
+    """
+    rec: torch.Tensor
+    bound: torch.Tensor
+    n_build: int
+    W: int
+
+
+def slot_table_records_plain(owner, build_words):
+    """Plain version of :func:`slot_table_records`: gathers of the owners'
+    words, and the bound from :func:`chain_bound` (S past a run of
+    ``_MAX_RUN`` slots, 0 when no slot is empty, as the kernel has it)."""
+    S = owner.shape[0]
+    n = build_words[0].shape[0]
+    W = len(build_words)
+    dev = owner.device
+    rec = torch.zeros((S, W + 1), dtype=torch.int32, device=dev)
+    rec[:, 0] = owner
+    if n:
+        occ = owner != n
+        oc = owner.to(torch.int64).clamp(0, n - 1)
+        for j, w in enumerate(build_words):
+            rec[:, 1 + j] = to_i32(torch.where(occ, w[oc], 0))
+    if bool((owner == n).any()):
+        b = chain_bound(owner, n)
+        b = b if b <= _MAX_RUN else S
+    else:
+        b = 0
+    return SlotRecords(rec, torch.tensor([b], dtype=torch.int32,
+                                         device=dev), n, W)
+
+
+def slot_table_records(owner: torch.Tensor, build_words) -> SlotRecords:
+    """The probe side of a built table, in one launch: one record per
+    slot (owner, its words; see :class:`SlotRecords`) and the table's
+    chain bound.  Built once per table and kept with it, so a probe
+    packs and gathers nothing."""
+    what = "slot_table_records"
+    S = owner.shape[0]
+    _require(S >= 1 and S & (S - 1) == 0 and owner.dtype == torch.int32
+             and owner.dim() == 1,
+             f"{what}: owner must be int32[S], S a power of two")
+    n = build_words[0].shape[0] if build_words else 0
+    _check_words(build_words, n, what)
+    if not _on_cuda([owner] + list(build_words), what):
+        return slot_table_records_plain(owner, build_words)
+    W = len(build_words)
+    _require(W <= _BUILD_MAX_WORDS,
+             f"{what}: {W} key words exceed the kernel's {_BUILD_MAX_WORDS}")
+    _require(owner.is_contiguous() and all(w.is_contiguous()
+                                           for w in build_words),
+             f"{what}: inputs must be contiguous")
+    dev = owner.device
+    rec = torch.empty((S, W + 1), dtype=torch.int32, device=dev)
+    bound = torch.zeros((1,), dtype=torch.int32, device=dev)
+    ptrs = (_LL * W)(*[w.data_ptr() for w in build_words])
+    lib = _lib("slot_table")
+    with torch.cuda.device(dev):
+        rc = lib.srj_slot_records(owner.data_ptr(), ptrs, W, rec.data_ptr(),
+                                  bound.data_ptr(), S, n, _stream(owner))
+    _check(rc, lib, "srj_slot_error_string", what)
+    launches["slot_table_records"] += 1
+    return SlotRecords(rec, bound, n, W)
+
+
+def slot_table_probe_records_plain(recs: SlotRecords, probe_words, live,
+                                   max_rounds: int):
+    """Plain version of :func:`slot_table_probe_records`: the reference's
+    round-by-round walk, over the records, to ``min(max_rounds, bound)``
+    rounds."""
+    rec, n = recs.rec, recs.n_build
+    S = rec.shape[0]
+    b = int(recs.bound[0].item())
+    owner64 = rec[:, 0].to(torch.int64)
+
+    def step(cand):
+        empty = owner64[cand] == n
+        match = ~empty
+        for j, pw in enumerate(probe_words):
+            match &= (rec[cand, 1 + j].to(torch.int64) & M32) == pw
+        return empty, match
+
+    return _walk_plain(S, probe_words, live, min(int(max_rounds), b or S),
+                       step)
+
+
+def slot_table_probe_records(recs: SlotRecords, probe_words,
+                             live: torch.Tensor,
+                             max_rounds: Optional[int] = None):
+    """Look probe rows' keys up in a table's slot records, in one launch.
+
+    ``probe_words``: the probe side's u32 words (int64[m] each, as
+    carried); ``live`` bool[m].  Returns ``(found bool[m], slot
+    int32[m])``, bit-identical to the reference's ``probe_slot_table``
+    with ``max_rounds`` (default ``S``): the walk runs to
+    ``min(max_rounds, recs.bound)`` rounds, and the bound covers the
+    longest chain.  One thread walks one probe row; a table whose records
+    fit the kernel's shared-memory limit is walked from shared memory.
+    """
+    what = "slot_table_probe"
+    rec = recs.rec
+    S = rec.shape[0]
+    W = recs.W
+    _require(len(probe_words) == W,
+             f"{what}: build/probe key arity mismatch")
+    m = probe_words[0].shape[0]
+    _check_words(probe_words, m, what)
+    _require(live.dtype == torch.bool and live.shape == (m,),
+             f"{what}: live must be bool[m]")
+    mr = S if max_rounds is None else int(max_rounds)
+    if not _on_cuda([rec, recs.bound, live] + list(probe_words), what):
+        return slot_table_probe_records_plain(recs, probe_words, live, mr)
+    _require(m < 1 << 31, f"{what}: m {m} too large for one launch")
+    _require(all(t.is_contiguous() for t in [rec, live] + list(probe_words)),
+             f"{what}: inputs must be contiguous")
+    dev = rec.device
+    found = torch.empty((m,), dtype=torch.bool, device=dev)
+    slot = torch.empty((m,), dtype=torch.int32, device=dev)
+    if m == 0:
+        return found, slot
+    lib = _lib("slot_table")
+    smem = S * (W + 1) * 4 <= lib.srj_slot_probe_smem_limit()
+    ptrs = (_LL * W)(*[w.data_ptr() for w in probe_words])
+    rc = lib.srj_slot_probe(ptrs, W, live.data_ptr(), rec.data_ptr(),
+                            recs.bound.data_ptr(), found.data_ptr(),
+                            slot.data_ptr(), m, S, recs.n_build,
+                            min(max(mr, 0), _INT32_MAX), int(smem),
+                            _dev_index(dev), _stream(live))
+    _check(rc, lib, "srj_slot_error_string", what)
+    launches["slot_table_probe"] += 1
+    return found, slot
+
+
 def slot_table_probe(owner: torch.Tensor, build_words, probe_words,
                      live: torch.Tensor, max_rounds: Optional[int] = None):
-    """Look probe rows' keys up in a built slot table.
+    """Look probe rows' keys up in a built slot table — the reference's
+    contract entry.
 
     ``owner`` int32[S] from :func:`slot_table_build` (sentinel = number of
     build rows); ``build_words`` / ``probe_words`` u32 words of the two
     sides; ``live`` bool[m].  Returns ``(found bool[m], slot int32[m])``
     bit-identical to the reference's ``probe_slot_table`` for the same
     ``max_rounds`` (default ``S``; any bound covering the longest chain,
-    e.g. :func:`relational.hashtable.chain_bound`, gives the same bits).
-    The owners' key words are gathered once, ``[S, W]``, so each step of
-    the in-kernel walk reads one slot's owner and words.
+    e.g. :func:`chain_bound`, gives the same bits).  It builds the
+    table's records (:func:`slot_table_records`) and probes them
+    (:func:`slot_table_probe_records`); a caller that probes one table
+    more than once keeps the records instead.
     """
     what = "slot_table_probe"
-    S = owner.shape[0]
-    _require(S >= 1 and S & (S - 1) == 0 and owner.dtype == torch.int32
-             and owner.dim() == 1,
-             f"{what}: owner must be int32[S], S a power of two")
     _require(len(build_words) == len(probe_words),
              f"{what}: build/probe key arity mismatch")
-    n = build_words[0].shape[0]
     m = probe_words[0].shape[0]
-    _check_words(build_words, n, what)
     _check_words(probe_words, m, what)
     _require(live.dtype == torch.bool and live.shape == (m,),
              f"{what}: live must be bool[m]")
-    mr = S if max_rounds is None else int(max_rounds)
-    if not _on_cuda([owner, live] + list(build_words) + list(probe_words),
-                    what):
-        return slot_table_probe_plain(owner, build_words, probe_words, live,
-                                      mr)
-    _require(owner.is_contiguous(), f"{what}: owner must be contiguous")
-    dev = owner.device
-    W = len(build_words)
-    if n:
-        oc = owner.to(torch.int64).clamp(0, n - 1)
-        slotw = to_i32(torch.stack([w[oc] for w in build_words], dim=1))
-    else:  # every slot is empty: all probes miss at their first step
-        slotw = torch.zeros((S, W), dtype=torch.int32, device=dev)
-    slotw = slotw.contiguous()
-    pw = to_i32(torch.stack(list(probe_words), dim=1)).contiguous()
-    live_u8 = live.to(torch.uint8).contiguous()
-    found = torch.empty((m,), dtype=torch.uint8, device=dev)
-    slot = torch.empty((m,), dtype=torch.int32, device=dev)
-    if m == 0:
-        return found.to(torch.bool), slot
-    lib = _lib("slot_table")
-    with torch.cuda.device(dev):
-        rc = lib.srj_slot_probe(owner.data_ptr(), slotw.data_ptr(),
-                                pw.data_ptr(), live_u8.data_ptr(),
-                                found.data_ptr(), slot.data_ptr(), m, W, S,
-                                n, max(mr, 0), _stream(owner))
-    _check(rc, lib, "srj_slot_error_string", what)
-    launches["slot_table_probe"] += 1
-    return found.to(torch.bool), slot
+    recs = slot_table_records(owner, build_words)
+    return slot_table_probe_records(recs, probe_words, live, max_rounds)
 
 
 # ---------------------------------------------------------------------------
@@ -673,9 +992,13 @@ def partition_scatter(chunk_leaves, occ, morsel_leaves, cnts, base,
     return chunk_leaves, occ
 
 
-__all__ = ["launches", "reset_launches", "fold_hash",
+__all__ = ["launches", "reset_launches", "fold_hash", "chain_bound",
+           "onehot_payload", "onehot_groupby_columns",
+           "onehot_groupby_columns_plain",
            "onehot_groupby_parts", "onehot_groupby_parts_plain",
-           "slot_table_build", "slot_table_build_plain",
+           "slot_table_build", "slot_table_build_plain", "SlotRecords",
+           "slot_table_records", "slot_table_records_plain",
+           "slot_table_probe_records", "slot_table_probe_records_plain",
            "slot_table_probe", "slot_table_probe_plain",
            "partition_scatter", "partition_scatter_plain",
            "PartitionScatter", "partition_scatter_mapped",

@@ -12,11 +12,11 @@ pieces the q6 and q95 pipelines run:
   sort engine's order).  A slot table that overflows falls back to the
   sort engine — a choice between results, not a way around the kernel.
 * :func:`group_by_onehot`, the domain engine for one integer key in a
-  small static domain ``[0, domain)`` (the q6 shape): every count, every
-  validity flag and the eight offset byte limbs of every integer sum ride
-  one int8 payload, float sums ride three exact Dekker f32 limbs, and the
-  one-hot group-by kernel sums the payload per bucket.  Int sums are
-  rebuilt exactly, with Spark's non-ANSI int64 wraparound.
+  small static domain ``[0, domain)`` (the q6 shape): one launch of the
+  one-hot group-by kernel reads the key, the row mask and the referenced
+  columns once and sums count(*), the non-null counts, the int sums (mod
+  2^64, Spark's non-ANSI wraparound, the reference's byte-limb bits) and
+  the float sums (three exact Dekker f32 limbs) per bucket.
 * :func:`group_by_domain_or_sort`, the domain engine when every live key
   fits the domain and the general engine otherwise.
 
@@ -297,55 +297,22 @@ def _domain_bucket_overflow(col: Column, live: torch.Tensor, K: int):
     return bucket.to(torch.int32), overflow
 
 
-def _dekker_limbs(v: torch.Tensor):
-    """Exact 3-way split of f64 values into f32 (hi, mid, lo)."""
-    hi = v.to(torch.float32)
-    r1 = v - hi.to(torch.float64)
-    mid = r1.to(torch.float32)
-    lo = (r1 - mid.to(torch.float64)).to(torch.float32)
-    return [hi, mid, lo]
+def _domain_partials_onehot(batch, key_name, aggs, domain, row_valid,
+                            float_mode):
+    """The partials in one launch of the one-hot group-by kernel over the
+    raw columns (:func:`..ops.kernels.onehot_groupby_columns`)."""
+    from ..ops.kernels import onehot_groupby_columns
 
-
-def _int_sum_from_limbs(true_limb: torch.Tensor) -> torch.Tensor:
-    """``sum_j true_limb[:, j] << 8j`` mod 2^64 in int64.  Each limb is
-    masked to the bits that survive its shift first, so every shift is
-    exact mod 2^64 and only the final adds wrap."""
-    total = torch.zeros(true_limb.shape[:1], dtype=torch.int64,
-                        device=true_limb.device)
-    for j in range(8):
-        x = true_limb[:, j]
-        if j:
-            x = x & ((1 << (64 - 8 * j)) - 1)
-        total = total + (x << (8 * j))
-    return total
-
-
-def _onehot_payload(batch, key_name, aggs, K, row_valid, float_mode):
-    """The one-hot group-by kernel's inputs for ``aggs`` over ``batch``.
-
-    Returns ``(bucket, X8, F, layout, overflow)``: ``bucket`` int32[n]
-    (key bucket in ``[0, K]``, K = null key, -1 = dead row), ``X8``
-    int8[n, mi] — [0] count(*) ones, then one validity flag per
-    referenced column, then 8 offset byte limbs ``b - 128`` per integer
-    sum column — and ``F`` f32[n, 3 * floats], the Dekker limbs of each
-    float sum column.  ``layout`` maps columns to payload slots.
-    """
     col = batch[key_name]
     if col.dtype.kind not in (T.Kind.INT32, T.Kind.INT64):
         raise TypeError("group_by_onehot needs an integer key column")
-    n = col.num_rows
-    dev = col.data.device
-    row_live = (torch.ones((n,), dtype=torch.bool, device=dev)
-                if row_valid is None else row_valid.to(torch.bool))
-    bucket, overflow = _domain_bucket_overflow(col, col.validity & row_live,
-                                               K)
-
-    int_cols, float_cols, valid_slot = [], [], {}
+    names, int_cols, float_cols = [], [], []
     for spec in aggs:
         if spec.column is None:
             continue
         c = spec.column
-        valid_slot.setdefault(c, 0)
+        if c not in names:
+            names.append(c)
         if spec.op in ("sum", "mean"):
             target = (float_cols if batch[c].dtype.kind in T.FLOAT_KINDS
                       else int_cols)
@@ -355,55 +322,20 @@ def _onehot_payload(batch, key_name, aggs, K, row_valid, float_mode):
         raise ValueError(
             "the one-hot group-by kernel computes float sums with the "
             "f32x3 Dekker split only; pass float_mode='f32x3'")
-
-    cols8 = [torch.ones((n,), dtype=torch.int8, device=dev)]
-    for c in valid_slot:
-        valid_slot[c] = len(cols8)
-        cols8.append((batch[c].validity & row_live).to(torch.int8))
-    limb_slot = {}
-    for c in int_cols:
-        vvalid = batch[c].validity & row_live
-        v = batch[c].data.to(torch.int64)
-        v = torch.where(vvalid, v, torch.zeros_like(v))
-        limb_slot[c] = len(cols8)
-        for j in range(8):
-            byte = (v >> (8 * j)) & 0xFF
-            cols8.append(torch.where(vvalid, byte - 128,
-                                     torch.zeros_like(byte)).to(torch.int8))
-    X8 = torch.stack(cols8, dim=1).contiguous()
-    limbs = []
-    for c in float_cols:
-        vvalid = batch[c].validity & row_live
-        v = batch[c].data.to(torch.float64)
-        limbs.extend(_dekker_limbs(torch.where(vvalid, v,
-                                               torch.zeros_like(v))))
-    F = (torch.stack(limbs, dim=1).contiguous() if limbs else
-         torch.zeros((n, 0), dtype=torch.float32, device=dev))
-    bucket = torch.where(row_live, bucket, torch.full_like(bucket, -1))
-    layout = {"valid": valid_slot, "limbs": limb_slot, "ints": int_cols,
-              "floats": float_cols}
-    return bucket, X8, F, layout, overflow
-
-
-def _domain_partials_onehot(batch, key_name, aggs, domain, row_valid,
-                            float_mode):
-    from ..ops.kernels import onehot_groupby_parts
-
-    K = int(domain)
-    bucket, X8, F, layout, overflow = _onehot_payload(
-        batch, key_name, aggs, K, row_valid, float_mode)
-    part, fpart = onehot_groupby_parts(bucket, X8, F, K + 1)
-
-    cnt_of = {c: part[:, s] for c, s in layout["valid"].items()}
-    isum_of = {}
-    for c in layout["ints"]:
-        s = layout["limbs"][c]
-        true_limb = part[:, s:s + 8] + 128 * cnt_of[c][:, None]
-        isum_of[c] = _int_sum_from_limbs(true_limb)
-    fsum_of = {c: fpart[:, 3 * i] + fpart[:, 3 * i + 1] + fpart[:, 3 * i + 2]
-               for i, c in enumerate(layout["floats"])}
-    parts = {"star": part[:, 0], "cnt": cnt_of, "isum": isum_of,
-             "fsum": fsum_of}
+    ints, floats, overflow = onehot_groupby_columns(
+        col.data, col.validity,
+        None if row_valid is None else row_valid.to(torch.bool),
+        [(batch[c].data, batch[c].validity) for c in names],
+        [names.index(c) for c in int_cols],
+        [names.index(c) for c in float_cols], int(domain))
+    nc = len(names)
+    parts = {"star": ints[:, 0],
+             "cnt": {c: ints[:, 1 + j] for j, c in enumerate(names)},
+             "isum": {c: ints[:, 1 + nc + j]
+                      for j, c in enumerate(int_cols)},
+             "fsum": {c: floats[:, 3 * j] + floats[:, 3 * j + 1]
+                      + floats[:, 3 * j + 2]
+                      for j, c in enumerate(float_cols)}}
     return parts, overflow
 
 

@@ -12,21 +12,22 @@ primitive that does not sort:
   key in row order, the representative row the sort engine exposes.
 * :func:`probe_slot_table` — the read-only walk: a probe row follows its
   chain until the owner's words match or an empty slot proves the key
-  absent.
+  absent.  A table probed more than once keeps its slot records
+  (:func:`slot_records`: owner and words per slot, and the chain bound,
+  built once) and probes them with :func:`probe_slot_records`.
 
-Both run through the kernels of :mod:`..ops.kernels` (the ``"kernel"``
+They run through the kernels of :mod:`..ops.kernels` (the ``"kernel"``
 engine; plain versions on CPU tensors), bit-identical to the reference's
 ``(owner, slot, overflow)`` and ``(found, slot)``.
 """
 
 from __future__ import annotations
 
-import torch
-
 from ..ops import kernels as _K
-from ..ops.kernels import fold_hash
+from ..ops.kernels import SlotRecords, chain_bound, fold_hash
 
 __all__ = ["next_pow2", "fold_hash", "build_slot_table", "probe_slot_table",
+           "slot_records", "probe_slot_records", "SlotRecords",
            "chain_bound"]
 
 
@@ -61,17 +62,17 @@ def probe_slot_table(owner, build_words, probe_words, live, max_rounds=None,
                                max_rounds)
 
 
-def chain_bound(owner: torch.Tensor, n_build: int) -> int:
-    """Exact probe-round bound of a built table: the longest circular run
-    of occupied slots plus the empty slot that ends the walk, in
-    ``[1, S]`` (``S`` when no slot is empty).  Any probe — hit or miss —
-    ends within it, so it is result-identical to the full-table bound."""
-    S = owner.shape[0]
-    occ = owner != n_build
-    occ2 = torch.cat([occ, occ])
-    idx = torch.arange(2 * S, dtype=torch.int64, device=owner.device)
-    last_empty = torch.cummax(torch.where(occ2, torch.full_like(idx, -1),
-                                          idx), 0).values
-    run = torch.where(occ2, idx - last_empty, torch.zeros_like(idx))
-    longest = min(int(run.max().item()), S)
-    return max(1, min(longest + 1, S))
+def slot_records(owner, build_words, engine: str = "kernel") -> SlotRecords:
+    """A built table's slot records and chain bound, to keep with the
+    table; see :func:`..ops.kernels.slot_table_records`."""
+    _engine(engine)
+    return _K.slot_table_records(owner, build_words)
+
+
+def probe_slot_records(records: SlotRecords, probe_words, live,
+                       max_rounds=None, engine: str = "kernel"):
+    """:func:`probe_slot_table` over kept records: ``(found, slot)``, the
+    walk bounded by ``max_rounds`` and the records' chain bound."""
+    _engine(engine)
+    return _K.slot_table_probe_records(records, probe_words, live,
+                                       max_rounds)

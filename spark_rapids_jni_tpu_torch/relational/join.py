@@ -5,8 +5,9 @@ path:
 
 * :func:`hash_join` with ``how="inner"`` on the hash engine: the build
   side's radix words go into a slot table (slot-table build kernel),
-  build rows are grouped by slot with one stable sort, and each probe row
-  walks its chain (slot-table probe kernel); matches expand through the
+  build rows are grouped by slot with one stable sort, the table's slot
+  records are built once (slot-record kernel), and each probe row walks
+  its chain over them (slot-table probe kernel); matches expand through the
   offsets/searchsorted expansion, padded to a static ``capacity``.
   Matches enumerate in original right-row order, bit-identical to the
   reference's engines.
@@ -55,13 +56,15 @@ def _resolve_join_engine(engine):
 
 def _hash_build(rkeys, nr: int):
     """Hash-engine build product over the build side's radix words: the
-    flat tuple ``(owner, rslot, rperm, counts_slot, off_slot, *rkeys)``
-    that :func:`hash_join` takes as ``prebuilt``.
+    tuple ``(owner, rslot, rperm, counts_slot, off_slot, records)`` that
+    :func:`hash_join` takes as ``prebuilt``.
 
     S is 2x the build rows rounded up to a power of two (load <= 1/2, so
     insertion always terminates); ``rperm`` groups build rows by slot in
     original order within a slot (one stable sort), which is the order
-    the reference's sort engine yields within a key group.
+    the reference's sort engine yields within a key group; ``records``
+    are the table's slot records and chain bound (one launch), which
+    every probe of the table walks.
     """
     from . import hashtable as H
 
@@ -74,7 +77,8 @@ def _hash_build(rkeys, nr: int):
     counts_slot.index_add_(0, rslot64, torch.ones_like(rslot64))
     off_slot = torch.cumsum(counts_slot, 0) - counts_slot
     rperm = torch.sort(rslot64, stable=True).indices
-    return (owner, rslot, rperm, counts_slot, off_slot) + tuple(rkeys)
+    records = H.slot_records(owner, rkeys)
+    return owner, rslot, rperm, counts_slot, off_slot, records
 
 
 def _one_null_row_like(batch: ColumnBatch) -> ColumnBatch:
@@ -153,18 +157,16 @@ def hash_join(left: ColumnBatch, right: ColumnBatch,
               if left_valid is None else left_valid.to(torch.bool))
 
     from . import hashtable as H
-    from ..plan import adaptive as _adaptive
 
     # null build keys sit in their own slot, which no valid probe's words
-    # equal; null and dead probe rows are masked
+    # equal; null and dead probe rows are masked.  The walk is bounded by
+    # the records' chain bound (result-identical to the full table), so
+    # the probe reads nothing back to the host.
     if prebuilt is None:
         rkeys = K.batch_radix_keys(rcols, equality=True, nulls_first=False)
         prebuilt = _hash_build(rkeys, nr)
-    owner, _rslot, rperm, counts_slot, off_slot = prebuilt[:5]
-    rkeys = list(prebuilt[5:])
-    found, lslot = H.probe_slot_table(
-        owner, rkeys, lkeys, ~l_null & l_live,
-        max_rounds=_adaptive.bound_probe_rounds(owner, nr))
+    _owner, _rslot, rperm, counts_slot, off_slot, records = prebuilt
+    found, lslot = H.probe_slot_records(records, lkeys, ~l_null & l_live)
     lslot = lslot.to(torch.int64)
     counts = torch.where(found, counts_slot[lslot],
                          torch.zeros_like(lslot))

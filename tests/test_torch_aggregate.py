@@ -146,6 +146,91 @@ class TestGroupByOnehot:
                                  float_mode="f64")
 
 
+# cases of the fused one-hot entry: (key dtype, aggs, key range, domain,
+# share of dead rows, value range of "v")
+_FUSED = {
+    "int32_keys_and_values": (np.int32, [("sum", "i", "si"),
+                                         ("count", None, "c"),
+                                         ("count", "i", "ci"),
+                                         ("mean", "p", "mp")], 50, 50, 0.0,
+                              None),
+    "int64_keys_and_values": (np.int64, [("sum", "v", "sv"),
+                                         ("mean", "v", "mv"),
+                                         ("count", None, "c")], 30, 30, 0.0,
+                              None),
+    "null_keys_dead_rows": (np.int32, AGGS, 40, 40, 0.25, None),
+    "out_of_domain_flags_overflow": (np.int64, [("sum", "v", "sv"),
+                                                ("count", None, "c")],
+                                     12, 10, 0.1, None),
+    "int64_sums_wrap": (np.int32, [("sum", "v", "sv"), ("count", "v", "cv")],
+                        3, 3, 0.0, (2**62 - 2**40, 2**62)),
+    "no_float_columns": (np.int64, [("sum", "v", "sv"), ("sum", "i", "si"),
+                                    ("count", "p", "cp")], 20, 20, 0.1,
+                         None),
+    "no_int_columns": (np.int32, [("count", None, "c"), ("sum", "p", "sp"),
+                                  ("mean", "p", "mp")], 20, 20, 0.1, None),
+}
+
+
+class TestFusedOnehotEntry:
+    """The fused entry (onehot_groupby_columns) — on the CPU its plain
+    path, the reference's payload, per-bucket sums and limb rebuild —
+    against the reference's group_by_onehot through its Pallas kernel in
+    interpret mode."""
+
+    @pytest.mark.parametrize("case", sorted(_FUSED))
+    def test_against_the_pallas_kernel(self, case):
+        kdtype, aggs, krange, K, dead, vrange = _FUSED[case]
+        rng = np.random.default_rng(sorted(_FUSED).index(case))
+        n = 900
+        jb = _batch(rng, n, krange, kdtype=kdtype)
+        if vrange is not None:  # sums that wrap past 2^63
+            v = rng.integers(*vrange, n) * np.where(rng.random(n) > 0.1, 1,
+                                                    -1)
+            jb = JBatch({**dict(zip(jb.names, jb.columns)),
+                         "v": JColumn(jnp.asarray(v), jb["v"].validity,
+                                      JT.INT64)})
+        live = rng.random(n) >= dead
+        jr, jng, jovf = jax.jit(lambda b, lv: JAgg.group_by_onehot(
+            b, "k", [JAgg.AggSpec(*a) for a in aggs], K, row_valid=lv,
+            float_mode="f32x3", engine="pallas"))(jb, jnp.asarray(live))
+        tr, tng, tovf = TAgg.group_by_onehot(
+            to_port(jb), "k", [TAgg.AggSpec(*a) for a in aggs], K,
+            row_valid=torch.from_numpy(live))
+        assert bool(tovf) == bool(jovf) == (case == "out_of_domain_flags"
+                                            "_overflow")
+        floats = [a[2] for a in aggs if a[0] == "mean" or a[1] == "p"]
+        assert_results_match(jr, jng, tr, tng, floats=floats)
+        if vrange is not None:
+            k = np.asarray(jb["k"].data)
+            ok = (np.asarray(jb["v"].validity) & live
+                  & np.asarray(jb["k"].validity))
+            with np.errstate(over="ignore"):
+                want = [np.sum(v[(k == g) & ok].astype(np.int64))
+                        for g in range(K)]
+            assert tr["sv"].data[:K].numpy().tolist() == want
+
+    def test_partials_layout(self):
+        """count(*), the non-null counts and the int sums in ints; each
+        float column's hi, mid and lo limb sums in floats."""
+        key = torch.tensor([0, 1, 1, 5, 2], dtype=torch.int64)
+        kv = torch.tensor([True, True, True, True, False])
+        live = torch.tensor([True, True, True, True, True])
+        v = torch.tensor([-1, 2**63 - 1, 2, 7, 9], dtype=torch.int64)
+        p = torch.tensor([0.1, 0.2, 0.3, 0.4, 0.5], dtype=torch.float64)
+        ones = torch.ones(5, dtype=torch.bool)
+        ints, floats, ovf = TKer.onehot_groupby_columns(
+            key, kv, live, [(v, ones), (p, ones)], [0], [1], 3)
+        assert bool(ovf)  # key 5 is outside [0, 3)
+        # buckets: 0 <- row 0; 1 <- rows 1, 2; 2 <- row 3 (clamped); 3 null
+        assert ints.tolist() == [[1, 1, 1, -1], [2, 2, 2, -(2**63) + 1],
+                                 [1, 1, 1, 7], [1, 1, 1, 9]]
+        assert floats.shape == (4, 3)
+        assert torch.allclose(floats.sum(1),
+                              torch.tensor([0.1, 0.5, 0.4, 0.5],
+                                           dtype=torch.float64))
+
+
 class TestGroupByEngines:
     @pytest.mark.parametrize("engine", ["sort", "kernel"])
     def test_general_group_by(self, engine):

@@ -9,6 +9,7 @@ tests/test_torch_kernels_cuda.py holds the kernels themselves against
 those plain versions on the card.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from spark_rapids_jni_tpu.relational import keys as JK
 from spark_rapids_jni_tpu_torch import config as tconfig
 from spark_rapids_jni_tpu_torch.columnar import types as TT
 from spark_rapids_jni_tpu_torch.columnar.column import Column as TColumn
+from spark_rapids_jni_tpu_torch.ops import kernels as TKer
 from spark_rapids_jni_tpu_torch.plan import adaptive as TA
 from spark_rapids_jni_tpu_torch.relational import hashtable as TH
 from spark_rapids_jni_tpu_torch.relational import keys as TK
@@ -248,3 +250,136 @@ class TestAdaptiveBounds:
         assert TH.chain_bound(owner, 9) == 6
         assert TH.chain_bound(torch.zeros(8, dtype=torch.int32), 9) == 8
 
+
+
+def _raw_words(W, n, rng, pool=None):
+    """W random u32 words per row (``pool`` distinct keys when given), in
+    both packages' carriers."""
+    if pool is None:
+        ws = [rng.integers(0, 2**32, n, dtype=np.uint64) for _ in range(W)]
+    else:
+        keys = [rng.integers(0, 2**32, pool, dtype=np.uint64)
+                for _ in range(W)]
+        pick = rng.integers(0, pool, n)
+        ws = [k[pick] for k in keys]
+    return ([jnp.asarray(w.astype(np.uint32)) for w in ws],
+            [torch.from_numpy(w.astype(np.int64)) for w in ws])
+
+
+def _wrapping_keys(S, W, rng, count):
+    """``count`` distinct W-word keys whose first candidate slot is one of
+    the last two, so their chains run across slot S - 1 into slot 0."""
+    got = []
+    while len(got) < count:
+        ws = [rng.integers(0, 2**32, 4096, dtype=np.uint64)
+              for _ in range(W)]
+        c0 = TH.fold_hash([torch.from_numpy(w.astype(np.int64))
+                           for w in ws]).numpy() & (S - 1)
+        got.extend(np.stack(ws, 1)[c0 >= S - 2].tolist())
+    arr = np.array(got[:count], np.uint64)
+    return [arr[:, j] for j in range(W)]
+
+
+# the reference's walk, traced once per shape with the bound as data
+_jprobe = jax.jit(lambda o, bw, pw, lv, mr: JH.probe_slot_table(
+    o, bw, pw, lv, max_rounds=mr))
+
+
+class TestSlotRecords:
+    """The per-table slot records (owner and words per slot, chain bound)
+    and the probe over them, against the reference's probe_slot_table."""
+
+    def _case(self, case, W, S, rng):
+        n = int(S * 0.45)
+        if case == "wrap":
+            ws = _wrapping_keys(S, W, rng, 6)
+            fill = [rng.integers(0, 2**32, n, dtype=np.uint64)
+                    for _ in range(W)]
+            bws = [np.concatenate([a, b]) for a, b in zip(ws, fill)]
+        elif case == "empty_build":
+            bws = [np.zeros(0, np.uint64) for _ in range(W)]
+        else:
+            bws = [rng.integers(0, 2**32, n // 2, dtype=np.uint64)[
+                rng.integers(0, n // 2, n)] for _ in range(W)]
+        nb = len(bws[0])
+        miss = [rng.integers(0, 2**32, 300, dtype=np.uint64)
+                for _ in range(W)]
+        if case == "wrap":
+            miss = [np.concatenate([m, w]) for m, w in
+                    zip(miss, _wrapping_keys(S, W, rng, 40))]
+        pws = [np.concatenate([b[rng.integers(0, max(nb, 1),
+                                              400 if nb else 0)], m])
+               for b, m in zip(bws, miss)]
+        m = len(pws[0])
+        plive = (rng.random(m) > 0.2 if case == "dead_probes"
+                 else np.ones(m, bool))
+        j = lambda ws: [jnp.asarray(w.astype(np.uint32)) for w in ws]  # noqa
+        t = lambda ws: [torch.from_numpy(w.astype(np.int64))  # noqa: E731
+                        for w in ws]
+        live = np.ones(nb, bool)
+        jowner, _, ovf = JH.build_slot_table(j(bws), jnp.asarray(live), S)
+        assert not bool(ovf)
+        towner, _, _ = TH.build_slot_table(t(bws), torch.from_numpy(live), S)
+        np.testing.assert_array_equal(np.asarray(jowner), towner.numpy())
+        return (jowner, j(bws), j(pws), jnp.asarray(plive), towner, t(bws),
+                t(pws), torch.from_numpy(plive))
+
+    @pytest.mark.parametrize("case", ["mixed", "wrap", "empty_build",
+                                      "dead_probes"])
+    @pytest.mark.parametrize("W", [1, 2, 3, 4])
+    @pytest.mark.parametrize("S", [64, 1 << 12])
+    def test_every_round_bound(self, case, W, S, rng):
+        (jowner, jbw, jpw, jpl, towner, tbw, tpw,
+         tpl) = self._case(case, W, S, rng)
+        nb = tbw[0].shape[0]
+        recs = TH.slot_records(towner, tbw)
+        cb = int(JH.chain_bound(jowner, nb))
+        assert int(recs.bound[0]) == cb == TH.chain_bound(towner, nb)
+        assert recs.rec.shape == (S, W + 1)
+        assert torch.equal(recs.rec[:, 0], towner)
+        if case == "wrap":  # a chain crosses slot S - 1
+            occ = towner.numpy() != nb
+            assert occ[-1] and occ[0]
+        m = tpl.shape[0]
+        for mr in list(range(1, cb + 1)) + [None]:
+            # the reference cannot gather from an empty build side: there
+            # every probe misses at its first, empty slot
+            jout = (_jprobe(jowner, jbw, jpw, jpl, jnp.int32(mr or S))
+                    if nb else (np.zeros(m, bool), np.full(m, S, np.int32)))
+            tout = TH.probe_slot_records(recs, tpw, tpl, max_rounds=mr)
+            _assert_same(jout, tout, ("found", "slot"))
+        found = tout[0].numpy()
+        assert not found[~tpl.numpy()].any()
+        if case == "empty_build":
+            assert not found.any()
+
+    @pytest.mark.parametrize("W", [1, 4])
+    def test_against_the_pallas_kernel_in_interpret_mode(self, W, rng):
+        (jowner, jbw, jpw, jpl, towner, tbw, tpw,
+         tpl) = self._case("wrap", W, 64, rng)
+        recs = TH.slot_records(towner, tbw)
+        for mr in (2, None):
+            jout = JH.probe_slot_table(jowner, jbw, jpw, jpl, max_rounds=mr,
+                                       engine="pallas")
+            tout = TH.probe_slot_records(recs, tpw, tpl, max_rounds=mr)
+            _assert_same(jout, tout, ("found", "slot"))
+
+    def test_records_of_a_full_table(self, rng):
+        """Records are W + 1 packed words a slot; a table with no empty
+        slot has bound 0 (read as S) and every walk covers the whole
+        table."""
+        jw, tw = _raw_words(2, 8, rng)
+        live = np.ones(8, bool)
+        jowner, _, _ = JH.build_slot_table(jw, jnp.asarray(live), 8)
+        towner, _, _ = TH.build_slot_table(tw, torch.from_numpy(live), 8)
+        assert (towner.numpy() != 8).all()
+        recs = TKer.slot_table_records(towner, tw)
+        assert recs.rec.shape == (8, 3) and int(recs.bound[0]) == 0
+        pj, pt = _raw_words(2, 30, rng)
+        pj = [jnp.concatenate([a, b]) for a, b in zip(jw, pj)]
+        pt = [torch.cat([a, b]) for a, b in zip(tw, pt)]
+        pl = np.ones(38, bool)
+        jout = JH.probe_slot_table(jowner, jw, pj, jnp.asarray(pl))
+        tout = TKer.slot_table_probe_records(recs, pt, torch.from_numpy(pl))
+        _assert_same(jout, tout, ("found", "slot"))
+        assert tout[0].numpy()[:8].all()

@@ -60,7 +60,8 @@ def test_onehot_groupby_matches_plain(dev, domain, mi, mf):
     b, pi, pf = b.to(dev), pi.to(dev), pf.to(dev)
     KER.reset_launches()
     oi, of = KER.onehot_groupby_parts(b, pi, pf, domain)
-    assert KER.launches["onehot_groupby"] == 1
+    assert KER.launches["onehot_groupby_parts"] == 1
+    assert KER.launches["onehot_groupby"] == 0
     ri, rf = KER.onehot_groupby_parts_plain(b, pi, pf, domain)
     assert torch.equal(oi, ri)
     _, rabs = KER.onehot_groupby_parts_plain(b, pi, pf.abs(), domain)
@@ -287,3 +288,165 @@ def test_partition_scatter_mapped_matches_plain(dev, case):
     assert placed == int(ok.sum())
     if case == "three_rounds":
         assert r_hi - r_lo + 1 >= 3
+
+
+def _key_words(kind, keys, dev, live=None):
+    """Key words of ``keys`` as an int32 column (W 2), an int64 column
+    (W 3) or two int64 columns (W 6)."""
+    keys = np.asarray(keys, np.int64)
+    v = (torch.ones(len(keys), dtype=torch.bool, device=dev) if live is None
+         else torch.as_tensor(np.asarray(live, bool), device=dev))
+    if kind == "int32":
+        cols = [Column(torch.as_tensor(keys.astype(np.int32), device=dev), v,
+                       TT.INT32)]
+    else:
+        k = torch.as_tensor(keys, device=dev)
+        cols = [Column(k, v, TT.INT64)]
+        if kind == "two_int64":
+            cols.append(Column(k * 7 + 1, v, TT.INT64))
+    return RK.batch_radix_keys(cols, equality=True, nulls_first=False), v
+
+
+def _wrapping(kind, S, rng, count):
+    """``count`` distinct keys whose first candidate is one of the last
+    two slots: their chains cross slot S - 1."""
+    out = []
+    while len(out) < count:
+        cand = rng.integers(0, 1 << 30, 1 << 14)
+        words, _ = _key_words(kind, cand, "cpu")
+        c0 = (KER.fold_hash(words) & (S - 1)).numpy()
+        out.extend(cand[c0 >= S - 2].tolist())
+    return np.unique(np.array(out[:count]))
+
+
+@pytest.mark.parametrize("kind", ["int32", "int64", "two_int64"])
+@pytest.mark.parametrize("S", [64, 4096, 8192])
+def test_slot_records_and_walk_match_plain(dev, kind, S):
+    """Records and bound against their plain version; the probe against
+    the reference formulation at several max_rounds and on chains
+    crossing S - 1, with the table on both sides of the shared-memory
+    limit (48 KB: S 64 is in, S 4096 of 12-byte records (an int32 key)
+    is in and of 16- and 28-byte records out, S 8192 out)."""
+    rng = np.random.default_rng(S + len(kind))
+    wrap = _wrapping(kind, S, rng, 10)
+    fill = rng.integers(1 << 30, 1 << 31, int(S * 0.6))
+    keys = np.concatenate([wrap, fill])
+    words, lv = _key_words(kind, keys, dev)
+    n = len(keys)
+    owner, _, ovf = KER.slot_table_build(words, lv, S)
+    assert not bool(ovf)
+    KER.reset_launches()
+    recs = KER.slot_table_records(owner, words)
+    assert KER.launches["slot_table_records"] == 1
+    ref = KER.slot_table_records_plain(owner, words)
+    assert torch.equal(recs.rec, ref.rec) and torch.equal(recs.bound,
+                                                          ref.bound)
+    occ = (owner != n).cpu().numpy()
+    assert occ[-1] and occ[0]  # a run crosses slot S - 1
+    cb = int(ref.bound[0]) or S
+    probe = np.concatenate([keys[::2], rng.integers(1 << 31, 1 << 32, 3000),
+                            _wrapping(kind, S, rng, 30)])
+    plive = rng.random(len(probe)) > 0.1
+    pw, pl = _key_words(kind, probe, dev, plive)
+    for mr in sorted({1, 2, 3, 5, 7, max(cb - 1, 1), cb}) + [None]:
+        KER.reset_launches()
+        got = KER.slot_table_probe_records(recs, pw, pl, mr)
+        assert KER.launches["slot_table_probe"] == 1
+        want = KER.slot_table_probe_plain(owner, words, pw, pl,
+                                          S if mr is None else mr)
+        _same(got, want)
+    assert got[0].dtype == torch.bool
+    assert got[0].cpu().numpy()[:len(keys[::2])][plive[:len(keys[::2])]] \
+        .all()
+
+
+def _onehot_inputs(dev, rng, n, K, extreme=False, dead=0.2, oob=0.0):
+    """Key (int32), row mask and four referenced columns: v int64 and i
+    int32 (int sums), p and q f64 (float sums), each with nulls."""
+    key = rng.integers(0, K, n)
+    if oob:
+        bad = rng.random(n) < oob
+        key[bad] = rng.choice([-5, K, K + 3], int(bad.sum()))
+    if extreme:
+        v = rng.choice(np.array([-(2**63), 2**63 - 1, -1, 0, 1,
+                                 2**62 + 12345, -(2**62)], np.int64), n)
+    else:
+        v = rng.integers(-(2**40), 2**40, n)
+    i = rng.integers(-(2**31), 2**31, n).astype(np.int32)
+    p = (rng.random(n) - 0.3) * 1e6
+    q = rng.standard_normal(n) * 1e-3
+    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    val = lambda s: to(rng.random(n) > s)  # noqa: E731
+    cols = [(to(v), val(0.1)), (to(i), val(0.2)), (to(p), val(0.05)),
+            (to(q), val(0.3))]
+    return (to(key.astype(np.int32)), val(0.1), to(rng.random(n) >= dead),
+            cols)
+
+
+def _onehot_check(key, kv, live, cols, K):
+    KER.reset_launches()
+    got = KER.onehot_groupby_columns(key, kv, live, cols, [0, 1], [2, 3], K)
+    assert KER.launches["onehot_groupby"] == 1
+    ref = KER.onehot_groupby_columns_plain(key, kv, live, cols, [0, 1],
+                                           [2, 3], K)
+    assert torch.equal(got[0], ref[0])
+    assert bool(got[2]) == bool(ref[2])
+    absc = [(d.abs() if d.is_floating_point() else d, v) for d, v in cols]
+    rabs = KER.onehot_groupby_columns_plain(key, kv, live, absc, [0, 1],
+                                            [2, 3], K)[1]
+    for j in range(2):
+        a = got[1][:, 3 * j:3 * j + 3].sum(1)
+        b = ref[1][:, 3 * j:3 * j + 3].sum(1)
+        scale = rabs[:, 3 * j:3 * j + 3].sum(1)
+        assert ((a - b).abs() <= RTOL * scale).all()
+    return got
+
+
+# a block's partials of these columns (2 u64 sums, 1 + 4 u32 counts,
+# 2 x 3 f32 limbs) take 60 bytes a bucket, so 48 KB hold 819 buckets:
+# K = 819 (820 buckets) needs two tiles over gridDim.y
+@pytest.mark.parametrize("K", [1, 100, 48 * 1024 // (8 * 2 + 4 * 5 + 12 * 2)])
+def test_onehot_columns_matches_plain(dev, K):
+    rng = np.random.default_rng(K)
+    key, kv, live, cols = _onehot_inputs(dev, rng, (1 << 20) + 3, K)
+    _onehot_check(key, kv, live, cols, K)
+
+
+@pytest.mark.parametrize("case", ["extreme_int64", "all_dead",
+                                  "ragged_n_and_overflow", "int64_key",
+                                  "every_row_live"])
+def test_onehot_columns_edges(dev, case):
+    rng = np.random.default_rng(len(case))
+    n, K = 1_000_003, 101
+    key, kv, live, cols = _onehot_inputs(
+        dev, rng, n, K, extreme=case == "extreme_int64",
+        dead=1.0 if case == "all_dead" else 0.2,
+        oob=0.01 if case in ("ragged_n_and_overflow", "all_dead") else 0.0)
+    if case == "int64_key":
+        key = key.to(torch.int64)
+    got = _onehot_check(key, kv, None if case == "every_row_live" else live,
+                        cols, K)
+    if case == "all_dead":
+        assert not got[0].any() and not got[1].any() and not bool(got[2])
+    if case == "ragged_n_and_overflow":
+        assert bool(got[2])
+
+
+def test_onehot_columns_one_launch_per_group_by_and_no_stack(dev):
+    """The q6 one-hot step on the card: one K1 launch, no payload
+    build (no aten::stack)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_jni_tpu_torch import config, pipelines as PL
+
+    b = PL.example_batch(1 << 16, device=dev)
+    config.set("q6_group_path", "onehot")
+    try:
+        PL.q6_step(b)
+        KER.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            PL.q6_step(b)
+    finally:
+        config.reset("q6_group_path")
+    assert KER.launches["onehot_groupby"] == 1
+    assert not any(e.key == "aten::stack" for e in prof.key_averages())

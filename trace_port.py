@@ -21,9 +21,32 @@ two-line summary.  It measures, at the main path's shapes:
   int32 packing of its key words alone, and the profiler's count of
   kernel launches and device time inside one build.
 
-With ``--stream-reps N`` it only times N whole streamed exchanges of the
-2^24-row fact table (512 morsels); run it for two trees in turns to
-compare them.
+* the slot-table probe at both main-path shapes (the 2^24 fact keys into
+  the dim1 table, S 2^22, and the rows of the q95 hash join's first join
+  into dim2's 25-row table, S 64): the wrapper call, its per-call pieces
+  on a tree whose wrapper packs words (owner-word gather, probe-word
+  pack, ``live``/``found`` casts), the per-table slot-record build on a
+  tree that has one, the kernels' device time, ``chain_bound`` and the
+  probe side of ``hash_join`` over a prebuilt table;
+* the one-hot group-by at q6 (2^24 rows, domain 100) and at q95's seg
+  group-by: the payload build alone where the tree has one, the kernel,
+  and ``_domain_partials`` whole with the profiler's launches, device
+  time and ``aten::stack`` calls.
+
+* the steps and plans these kernels serve (q6 one-hot, q95, the q95 hash
+  join, ``plan.execute`` of q6 one-hot, q95 and q9): CUDA events over 3
+  calls after a warm-up.
+* what ``plan.execute`` of q6 on the one-hot path adds to the hand-fused
+  step: both timed (CUDA events and host clock), the plan's cache lookup
+  (``compile_plan`` on a hit) and its compiled call apart, and one
+  profiled call of each — kernel launches, device busy time, host reads
+  and the ``aten`` and CUDA runtime calls the plan makes that the step
+  does not.
+
+``--only probe,onehot`` runs only those sections (the names: ``map``,
+``stream``, ``build``, ``probe``, ``onehot``, ``steps``, ``plan``).  With ``--stream-reps N``
+it only times N whole streamed exchanges of the 2^24-row fact table (512
+morsels); run it for two trees in turns to compare them.
 """
 
 from __future__ import annotations
@@ -102,12 +125,245 @@ def whole_stream(replays, P, reps):
     return runs
 
 
+def slot_kernels(fn, reps=5):
+    """``{kernel: [launches per call, device ms per launch]}`` of the
+    slot-table and one-hot kernels in ``reps`` calls of ``fn``, the
+    device's busy ms per call and the ``aten::stack`` calls per call."""
+    wall, busy, kern, cpu_ops = profile(lambda: [fn() for _ in range(reps)])
+    mine = {k: [c / reps, ms / c] for k, (c, ms) in kern.items()
+            if "slot" in k or "onehot" in k}
+    return {"kernels_per_call": mine,
+            "kernel_launches_per_call": sum(c for c, _ in kern.values())
+            / reps,
+            "device_busy_ms_per_call": busy / reps,
+            "wall_ms_per_call": wall / reps,
+            "aten_stack_per_call": cpu_ops.get("aten::stack", 0) / reps}
+
+
+def trace_probe(fact, dim1, dim2):
+    """The slot-table probe at both main-path shapes, as the q95 hash
+    join makes it: the exchanged fact rows into the dim1 table, and the
+    first join's rows, exchanged on ``wh``, into dim2's table."""
+    import torch
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+    from spark_rapids_jni_tpu_torch.parallel.partition import exchange_local
+    from spark_rapids_jni_tpu_torch.relational import hashtable as H
+    from spark_rapids_jni_tpu_torch.relational import join as JN
+    from spark_rapids_jni_tpu_torch.relational import keys as RK
+    from spark_rapids_jni_tpu_torch._u32 import to_i32
+
+    dev = fact["k"].data.device
+    ones = torch.ones(fact.num_rows, dtype=torch.bool, device=dev)
+    staged = exchange_local(fact, "k", ones, PL.P)
+    j1, c1 = JN.hash_join(staged, dim1, ["k"], ["k"])
+    j1_live = torch.arange(j1.num_rows, device=dev) < c1
+    staged2 = exchange_local(j1, "wh", j1_live, PL.P)
+    res = {}
+    for name, (left, right, key, llive) in {
+            "fact_into_dim1": (staged, dim1, "k", ones),
+            "j1_into_dim2": (staged2, dim2, "wh", j1_live)}.items():
+        nr = right.num_rows
+        rkeys = RK.batch_radix_keys([right[key]], equality=True,
+                                    nulls_first=False)
+        lkeys = RK.batch_radix_keys([left[key]], equality=True,
+                                    nulls_first=False)
+        live = left[key].validity & llive
+        tree = JN._hash_build(rkeys, nr)
+        owner = tree[0]
+        bound = H.chain_bound(owner, nr)
+
+        def join():
+            return JN.hash_join(left, right, [key], [key], left_valid=llive,
+                                prebuilt=tree)
+
+        def contract():
+            return H.probe_slot_table(owner, rkeys, lkeys, live, bound)
+
+        r = {"m": live.shape[0], "S": owner.shape[0], "n_build": nr,
+             "W": len(lkeys), "chain_bound": bound,
+             "hit_rate": contract()[0].float().mean().item(),
+             "chain_bound_ms": ev_ms(lambda: H.chain_bound(owner, nr)),
+             "contract_call_ms": ev_ms(contract),
+             "contract_profile": slot_kernels(contract),
+             "join_prebuilt_ms": ev_ms(join, reps=5),
+             "join_prebuilt_profile": slot_kernels(join)}
+        if hasattr(KER, "slot_table_records"):
+            recs = KER.slot_table_records(owner, rkeys)
+            r["record_build_ms"] = ev_ms(
+                lambda: KER.slot_table_records(owner, rkeys))
+            r["probe_records_ms"] = ev_ms(
+                lambda: KER.slot_table_probe_records(recs, lkeys, live))
+        else:  # the per-call pieces of a wrapper that packs words
+            oc = owner.to(torch.int64).clamp(0, nr - 1)
+            u8 = live.to(torch.uint8)
+            r["owner_word_gather_ms"] = ev_ms(lambda: to_i32(torch.stack(
+                [w[oc] for w in rkeys], dim=1)).contiguous())
+            r["probe_word_pack_ms"] = ev_ms(lambda: to_i32(torch.stack(
+                list(lkeys), dim=1)).contiguous())
+            r["live_found_casts_ms"] = ev_ms(
+                lambda: (live.to(torch.uint8).contiguous(),
+                         u8.to(torch.bool)))
+        res[name] = r
+    return res
+
+
+def trace_onehot(fact, dim1, dim2, rows):
+    """The one-hot group-by at q6 (2^24 rows, domain 100) and at q95's seg
+    group-by, through ``_domain_partials`` as the steps call it; the q6
+    one-hot step whole."""
+    import torch
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+    from spark_rapids_jni_tpu_torch.relational import aggregate as AGG
+
+    q6b = PL.example_batch(rows)
+    mask = q6b["price"].data < 50.0
+    j2, c2 = PL._q95_prefix(fact, dim1, dim2, "join2")
+    live2 = torch.arange(j2.num_rows, device=c2.device) < c2
+    res = {}
+    for name, (b, key, aggs, K, rv) in {
+            "q6": (q6b, "k", list(PL.Q6_AGGS), 100, mask),
+            "q95_seg": (j2, "seg", list(PL.Q95_AGGS), PL.Q95_SEG,
+                        live2)}.items():
+
+        def partials():
+            return AGG._domain_partials(b, key, aggs, K, rv)
+
+        r = {"n": b.num_rows, "domain": K + 1,
+             "partials_ms": ev_ms(partials),
+             "partials_profile": slot_kernels(partials)}
+        payload = getattr(AGG, "_onehot_payload", None)
+        if payload is not None:  # a tree that builds the payload first
+            bucket, X8, F, _, _ = payload(b, key, aggs, K, rv, "f32x3")
+            r["payload_ms"] = ev_ms(lambda: payload(b, key, aggs, K, rv,
+                                                    "f32x3"))
+            r["parts_kernel_ms"] = ev_ms(
+                lambda: KER.onehot_groupby_parts(bucket, X8, F, K + 1))
+        res[name] = r
+    config.set("q6_group_path", "onehot")
+    try:
+        res["q6_onehot_step_ms"] = ev_ms(lambda: PL.q6_step(q6b), reps=5)
+        res["q6_onehot_step_profile"] = slot_kernels(lambda: PL.q6_step(q6b))
+    finally:
+        config.reset("q6_group_path")
+    return res
+
+
+def trace_steps(fact, dim1, dim2, rows):
+    """ms of the steps and plans the slot-table probe and the one-hot
+    group-by serve, at the main path's sizes."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch import plan as PLAN
+    from spark_rapids_jni_tpu_torch.plan import queries as Q
+
+    q6b = PL.example_batch(rows)
+    q95_in = {"fact": fact, "dim1": dim1, "dim2": dim2}
+    config.set("q6_group_path", "onehot")
+    try:
+        return {
+            "q6_onehot": ev_ms(lambda: PL.q6_step(q6b), reps=3, warmup=1),
+            "plan_q6_onehot": ev_ms(lambda: PLAN.execute(
+                Q.q6_plan(), {"batch": q6b}), reps=3, warmup=1),
+            "q95": ev_ms(lambda: PL.q95_step(fact, dim1, dim2), reps=3,
+                         warmup=1),
+            "q95_hashjoin": ev_ms(lambda: PL.q95_hashjoin_step(
+                fact, dim1, dim2), reps=3, warmup=1),
+            "plan_q95_auto": ev_ms(lambda: PLAN.execute(
+                Q.q95_plan(), q95_in), reps=3, warmup=1),
+            "plan_q9": ev_ms(lambda: PLAN.execute(Q.q9_plan(), q95_in),
+                             reps=3, warmup=1)}
+    finally:
+        config.reset("q6_group_path")
+
+
+def host_ms(fn, reps=20):
+    """Host time of one call, no synchronise inside the timed loop."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / reps
+
+
+def trace_plan(rows):
+    """``plan.execute(q6_plan())`` on the one-hot path against
+    ``pipelines.q6_step``: where the plan's extra time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch import plan as PLAN
+    from spark_rapids_jni_tpu_torch.plan import queries as Q
+
+    q6b = PL.example_batch(rows)
+    inputs = {"batch": q6b}
+
+    def calls(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        cpu, launches, busy = {}, 0, 0.0
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0.0)
+            if "CUDA" in str(getattr(e, "device_type", "")) and dev_us > 0:
+                launches += e.count
+                busy += dev_us / 1e3
+            else:
+                cpu[e.key] = e.count / reps
+        return {"kernel_launches": launches / reps,
+                "device_busy_ms": busy / reps,
+                "host_reads": cpu.get("aten::_local_scalar_dense", 0),
+                "stream_syncs": cpu.get("cudaStreamSynchronize", 0)}, cpu
+
+    config.set("q6_group_path", "onehot")
+    try:
+        step = lambda: PL.q6_step(q6b)  # noqa: E731
+        plan = lambda: PLAN.execute(Q.q6_plan(), inputs)  # noqa: E731
+        plan()
+        cp = PLAN.compile_plan(Q.q6_plan(), inputs)
+        res = {"step_ms": ev_ms(step), "plan_ms": ev_ms(plan),
+               "step_host_ms": host_ms(step), "plan_host_ms": host_ms(plan),
+               "lookup_host_ms": host_ms(
+                   lambda: PLAN.compile_plan(Q.q6_plan(), inputs)),
+               "compiled_call_ms": ev_ms(lambda: cp(inputs)),
+               "compiled_call_host_ms": host_ms(lambda: cp(inputs))}
+        res["step_profile"], step_ops = calls(step)
+        res["plan_profile"], plan_ops = calls(plan)
+    finally:
+        config.reset("q6_group_path")
+    res["plan_extra_calls"] = {
+        k: plan_ops.get(k, 0) - step_ops.get(k, 0)
+        for k in set(plan_ops) | set(step_ops)
+        if plan_ops.get(k, 0) != step_ops.get(k, 0)}
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--root", default=None)
     ap.add_argument("--out", default="trace_out")
     ap.add_argument("--morsels", type=int, default=20)
+    ap.add_argument("--rows", type=int, default=1 << 24,
+                    help="fact and q6 rows (the main path's 2^24)")
+    ap.add_argument("--only",
+                    default="map,stream,build,probe,onehot,steps,plan",
+                    help="comma-separated sections to run")
     ap.add_argument("--stream-reps", type=int, default=0,
                     help="only time the whole 512-morsel stream this many "
                     "times (after one warm-up run)")
@@ -143,7 +399,7 @@ def main() -> int:
         os.path.abspath(PL.__file__)), "card": smi,
         "build_s": _build.build_all()}
     P = 8
-    fact, dim1, _ = PL.q95_batches(1 << 24)
+    fact, dim1, dim2 = PL.q95_batches(args.rows)
     src = MorselSource.from_batch(fact, ShardMesh(P))
     replays = list(src)
     os.makedirs(args.out, exist_ok=True)
@@ -155,140 +411,150 @@ def main() -> int:
         print(json.dumps(out, default=str))
         return 0
 
-    # -- the map step of one morsel, split --------------------------------
-    mb, rv = replays[0]()
-    n = mb.num_rows
-    pid0 = spark_partition_id([mb["k"]], P, rv)
-    pid, oob = route_out_of_range(pid0, P)
-    shard = torch.arange(n, device=pid.device) // (n // P)
-    key = shard * (P + 1) + pid.to(torch.int64)
-    perm = torch.sort(key, stable=True).indices
-    counts = torch.bincount(key, minlength=P * (P + 1)).reshape(
-        P, P + 1)[:, :P]
-    split = {
-        "replay_ms": ev_ms(replays[0]),
-        "murmur3_pid_ms": ev_ms(lambda: spark_partition_id([mb["k"]], P,
-                                                           rv)),
-        "route_out_of_range_ms": ev_ms(lambda: route_out_of_range(pid0, P)),
-        "sort_key_ms": ev_ms(lambda: shard * (P + 1) + pid.to(torch.int64)),
-        "sort_ms": ev_ms(lambda: torch.sort(key, stable=True)),
-        "bincount_ms": ev_ms(lambda: torch.bincount(
-            key, minlength=P * (P + 1)).reshape(P, P + 1)[:, :P]),
-        "gather_leaves_ms": ev_ms(lambda: gather_batch(mb, perm)),
-        "host_read_ms": ev_ms(lambda: SVC._host_counts(counts, oob, P)),
-        "map_keys_whole_ms": ev_ms(lambda: SVC._map_keys(mb, ["k"], rv, P)),
-    }
-    if hasattr(SVC, "_route_count"):  # the stream's map, no regroup
-        split["map_stream_whole_ms"] = ev_ms(lambda: SVC._route_count(
-            SVC._key_pid(mb, ["k"], rv, P), P))
-    out["map_step"] = split
-
-    # -- the stream over a few morsels, profiled ------------------------
-    few = replays[:args.morsels]
-    svc = ShuffleService(ShardMesh(P), registry=ShuffleRegistry())
-    svc.exchange_stream(few, key_names=["k"])  # warm
-    KER.reset_launches()
-    res = {}
-    wall, busy, kern, cpu_ops = profile(
-        lambda: res.setdefault("r", svc.exchange_stream(few,
-                                                        key_names=["k"])))
-    r = res["r"]
-    launches = dict(KER.launches)
-    nk = sum(c for c, _ in kern.values())
-    out["stream_profile"] = {
-        "morsels": r.morsels, "scatters": r.scatters,
-        "k4_launches": launches["partition_scatter"], "wall_ms": wall,
-        "device_busy_ms": busy, "idle_share": 1 - busy / wall,
-        "kernel_launches_per_morsel": nk / max(r.morsels, 1),
-        "decode_ms": r.decode_ms, "sync_ms": r.sync_ms,
-        "drain_ms": r.drain_ms,
-        "sort_calls": cpu_ops.get("aten::sort", 0),
-        "index_select_calls": cpu_ops.get("aten::index_select", 0),
-        "top_kernels": dict(sorted(kern.items(), key=lambda kv: -kv[1][1])
-                            [:15])}
-    k4 = [(k, v) for k, v in kern.items() if "scatter" in k.lower()
-          and "part" in k.lower()]
-    out["k4_device"] = {
-        k: {"count": c, "device_ms_each": ms / max(c, 1)} for k, (c, ms)
-        in k4}
-    # host time of the scatter wrapper calls, as the stream makes them
-    # (perf_counter around each call, no synchronise)
-    spent = {}
-    for name in ("partition_scatter", "partition_scatter_mapped"):
-        fn = getattr(SVC, name, None)
-        if fn is None:
-            continue
-
-        def timed(*a, _fn=fn, _name=name, **kw):
-            t0 = time.perf_counter()
-            try:
-                return _fn(*a, **kw)
-            finally:
-                c, s = spent.get(_name, (0, 0.0))
-                spent[_name] = (c + 1, s + time.perf_counter() - t0)
-        setattr(SVC, name, timed)
-    cls = getattr(KER, "PartitionScatter", None)
-    if cls is not None:
-        call = cls.__call__
-
-        def timed_call(self, *a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return call(self, *a, **kw)
-            finally:
-                c, s = spent.get("PartitionScatter", (0, 0.0))
-                spent["PartitionScatter"] = (c + 1,
-                                             s + time.perf_counter() - t0)
-        cls.__call__ = timed_call
-    try:
-        svc.exchange_stream(few, key_names=["k"])
-    finally:
-        for name in spent:
-            if name == "PartitionScatter":
-                cls.__call__ = call
-            else:
-                setattr(SVC, name, getattr(KER, name))
-    out["k4_host_call_ms"] = {k: s * 1e3 / c for k, (c, s)
-                              in spent.items()}
-
-    # -- the slot-table builds at both main-path shapes -----------------
+    only = set(args.only.split(","))
     dev = fact["k"].data.device
-    q6b = PL.example_batch(1 << 24)
-    mask = q6b["price"].data < 50.0
-    rk1 = RK.batch_radix_keys([dim1["k"]], equality=True, nulls_first=False)
-    ones1 = torch.ones(dim1.num_rows, dtype=torch.bool, device=dev)
-    gk = RK.batch_radix_keys([q6b["k"]], equality=True, nulls_first=True)
-    builds = {}
-    for name, words, live, S, mr in (
-            ("join_dim1", rk1, ones1, H.next_pow2(2 * dim1.num_rows), None),
-            ("groupby_q6", gk, mask, 4096,
-             AD.bound_build_rounds(q6b.num_rows, 4096))):
-        whole = ev_ms(lambda: KER.slot_table_build(words, live, S, mr),
-                      reps=5)
-        pack = ev_ms(lambda: to_i32(torch.stack(list(words), dim=1))
-                     .contiguous(), reps=5)
-        wall, busy, kern, _ = profile(
-            lambda: KER.slot_table_build(words, live, S, mr))
-        builds[name] = {
-            "n": live.shape[0], "S": S, "W": len(words), "ms": whole,
-            "word_pack_ms": pack, "profiled_wall_ms": wall,
-            "device_busy_ms": busy,
-            "kernel_launches": sum(c for c, _ in kern.values()),
-            "kernels": kern}
-    out["slot_table_build"] = builds
+    if "map" in only:
+        mb, rv = replays[0]()
+        n = mb.num_rows
+        pid0 = spark_partition_id([mb["k"]], P, rv)
+        pid, oob = route_out_of_range(pid0, P)
+        shard = torch.arange(n, device=pid.device) // (n // P)
+        key = shard * (P + 1) + pid.to(torch.int64)
+        perm = torch.sort(key, stable=True).indices
+        counts = torch.bincount(key, minlength=P * (P + 1)).reshape(
+            P, P + 1)[:, :P]
+        split = {
+            "replay_ms": ev_ms(replays[0]),
+            "murmur3_pid_ms": ev_ms(lambda: spark_partition_id([mb["k"]], P,
+                                                               rv)),
+            "route_out_of_range_ms": ev_ms(lambda: route_out_of_range(pid0, P)),
+            "sort_key_ms": ev_ms(lambda: shard * (P + 1) + pid.to(torch.int64)),
+            "sort_ms": ev_ms(lambda: torch.sort(key, stable=True)),
+            "bincount_ms": ev_ms(lambda: torch.bincount(
+                key, minlength=P * (P + 1)).reshape(P, P + 1)[:, :P]),
+            "gather_leaves_ms": ev_ms(lambda: gather_batch(mb, perm)),
+            "host_read_ms": ev_ms(lambda: SVC._host_counts(counts, oob, P)),
+            "map_keys_whole_ms": ev_ms(lambda: SVC._map_keys(mb, ["k"], rv, P)),
+        }
+        if hasattr(SVC, "_route_count"):  # the stream's map, no regroup
+            split["map_stream_whole_ms"] = ev_ms(lambda: SVC._route_count(
+                SVC._key_pid(mb, ["k"], rv, P), P))
+        out["map_step"] = split
+
+    if "stream" in only:
+        few = replays[:args.morsels]
+        svc = ShuffleService(ShardMesh(P), registry=ShuffleRegistry())
+        svc.exchange_stream(few, key_names=["k"])  # warm
+        KER.reset_launches()
+        res = {}
+        wall, busy, kern, cpu_ops = profile(
+            lambda: res.setdefault("r", svc.exchange_stream(few,
+                                                            key_names=["k"])))
+        r = res["r"]
+        launches = dict(KER.launches)
+        nk = sum(c for c, _ in kern.values())
+        out["stream_profile"] = {
+            "morsels": r.morsels, "scatters": r.scatters,
+            "k4_launches": launches["partition_scatter"], "wall_ms": wall,
+            "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+            "kernel_launches_per_morsel": nk / max(r.morsels, 1),
+            "decode_ms": r.decode_ms, "sync_ms": r.sync_ms,
+            "drain_ms": r.drain_ms,
+            "sort_calls": cpu_ops.get("aten::sort", 0),
+            "index_select_calls": cpu_ops.get("aten::index_select", 0),
+            "top_kernels": dict(sorted(kern.items(), key=lambda kv: -kv[1][1])
+                                [:15])}
+        k4 = [(k, v) for k, v in kern.items() if "scatter" in k.lower()
+              and "part" in k.lower()]
+        out["k4_device"] = {
+            k: {"count": c, "device_ms_each": ms / max(c, 1)} for k, (c, ms)
+            in k4}
+        # host time of the scatter wrapper calls, as the stream makes them
+        # (perf_counter around each call, no synchronise)
+        spent = {}
+        for name in ("partition_scatter", "partition_scatter_mapped"):
+            fn = getattr(SVC, name, None)
+            if fn is None:
+                continue
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    c, s = spent.get(_name, (0, 0.0))
+                    spent[_name] = (c + 1, s + time.perf_counter() - t0)
+            setattr(SVC, name, timed)
+        cls = getattr(KER, "PartitionScatter", None)
+        if cls is not None:
+            call = cls.__call__
+
+            def timed_call(self, *a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return call(self, *a, **kw)
+                finally:
+                    c, s = spent.get("PartitionScatter", (0, 0.0))
+                    spent["PartitionScatter"] = (c + 1,
+                                                 s + time.perf_counter() - t0)
+            cls.__call__ = timed_call
+        try:
+            svc.exchange_stream(few, key_names=["k"])
+        finally:
+            for name in spent:
+                if name == "PartitionScatter":
+                    cls.__call__ = call
+                else:
+                    setattr(SVC, name, getattr(KER, name))
+        out["k4_host_call_ms"] = {k: s * 1e3 / c for k, (c, s)
+                                  in spent.items()}
+
+    if "build" in only:
+        q6b = PL.example_batch(args.rows)
+        mask = q6b["price"].data < 50.0
+        rk1 = RK.batch_radix_keys([dim1["k"]], equality=True, nulls_first=False)
+        ones1 = torch.ones(dim1.num_rows, dtype=torch.bool, device=dev)
+        gk = RK.batch_radix_keys([q6b["k"]], equality=True, nulls_first=True)
+        builds = {}
+        for name, words, live, S, mr in (
+                ("join_dim1", rk1, ones1, H.next_pow2(2 * dim1.num_rows), None),
+                ("groupby_q6", gk, mask, 4096,
+                 AD.bound_build_rounds(q6b.num_rows, 4096))):
+            whole = ev_ms(lambda: KER.slot_table_build(words, live, S, mr),
+                          reps=5)
+            pack = ev_ms(lambda: to_i32(torch.stack(list(words), dim=1))
+                         .contiguous(), reps=5)
+            wall, busy, kern, _ = profile(
+                lambda: KER.slot_table_build(words, live, S, mr))
+            builds[name] = {
+                "n": live.shape[0], "S": S, "W": len(words), "ms": whole,
+                "word_pack_ms": pack, "profiled_wall_ms": wall,
+                "device_busy_ms": busy,
+                "kernel_launches": sum(c for c, _ in kern.values()),
+                "kernels": kern}
+        out["slot_table_build"] = builds
+
+    if "probe" in only:
+        out["slot_table_probe"] = trace_probe(fact, dim1, dim2)
+    if "onehot" in only:
+        out["onehot_groupby"] = trace_onehot(fact, dim1, dim2, args.rows)
+    if "steps" in only:
+        out["steps_ms"] = trace_steps(fact, dim1, dim2, args.rows)
+    if "plan" in only:
+        out["plan_q6_onehot"] = trace_plan(args.rows)
 
     with open(path, "w") as f:
         json.dump(out, f, indent=1, default=str)
-    print(json.dumps({k: out[k] for k in ("tag", "card", "map_step",
-                                          "k4_device", "k4_host_call_ms")},
-                     default=str))
-    print(json.dumps({"stream": {k: v for k, v in
-                                 out["stream_profile"].items()
-                                 if k != "top_kernels"},
-                      "builds": {k: {kk: vv for kk, vv in v.items()
-                                     if kk != "kernels"}
-                                 for k, v in builds.items()}}, default=str))
+    verbose = ("top_kernels", "kernels")
+    print(json.dumps(_trim(out, verbose), default=str))
     return 0
+
+
+def _trim(obj, drop):
+    """``obj`` without the (nested) keys in ``drop``."""
+    if isinstance(obj, dict):
+        return {k: _trim(v, drop) for k, v in obj.items() if k not in drop}
+    return obj
 
 
 if __name__ == "__main__":
