@@ -16,7 +16,9 @@ Phases, each printing one JSON line:
    version, a library call where one computes the same function, and the
    least time the card could take; the one-hot group-by's fused entry
    at q6 and q95's seg and its contract entry at q6; the slot-table
-   probe's record build and probe at both of the q95 hash join's shapes;
+   build at the joins' and group-bys' shapes, the q6str group-by's
+   (W = 8) among them; the slot-table probe's record build and probe at
+   both of the q95 hash join's shapes and the string join's (W = 8);
 4. q6 on the one-hot path (one profiled step: one K1 launch, no
    ``aten::stack``), 5. q6 on the slot-table hash engine,
 6. q95 (dense joins + one-hot group-by) and q95 through the hash join
@@ -30,7 +32,19 @@ Phases, each printing one JSON line:
    held against the hand-fused ``pipelines`` step and the numpy oracle,
    a second call checked to be a plan-cache hit with no new compile (q9's
    without a build or record build of its broadcast table), then timed;
-8. the streaming exchange: the q95 plan's first stage,
+8. relational breadth, each at 2^24 rows against its numpy oracle:
+   ``q6str`` (q6 over a 24-byte string key on the slot-table engine: one
+   build launch over W = 8 key words) and ``q6str_sort`` (the sort
+   engine, equal to it bit for bit on ints and counts); ``plan_q6str``
+   (``q6_plan()`` on the string batch); ``q3`` (a dense dimension join,
+   then one fused one-hot group-by launch); ``q67`` (a partitioned rank
+   and running sum, top 100); ``plan_sort`` (``Sort(Filter(...))``: the
+   live rows in ``np.lexsort`` order, dead rows last); ``join_str`` (an
+   inner and a left hash join of the q6str fact on a 100-row string
+   dimension: two builds, two record builds and two probes at W = 8);
+   ``join_kinds`` (semi, anti and full joins of the q95 fact on dim2
+   with both sides' live masks);
+9. the streaming exchange: the q95 plan's first stage,
    ``Exchange(Scan("fact"), "k")`` over a ``MorselSource`` of 8 shards
    with ``shuffle_stream`` on, checked lossless, routed, order-keeping,
    with one partition-scatter launch per morsel and no sort or gather in
@@ -48,6 +62,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -557,7 +572,7 @@ def k4_case(name, leaves, cnts, C, rounds):
             "library_ms": None}
 
 
-def phase_kernels(q6b, fact, dim1, dim2):
+def phase_kernels(q6b, fact, dim1, dim2, q6s, sdim):
     """Every kernel case; returns ``{kernel: [case, ...]}`` (main shape
     first).  A case that raises is recorded and left out."""
     from spark_rapids_jni_tpu_torch import config
@@ -634,6 +649,27 @@ def phase_kernels(q6b, fact, dim1, dim2):
             run("slot_table_probe", label, k3_case, label, owner, bw, pk,
                 left[key].validity & llive,
                 H.chain_bound(owner, bw[0].shape[0]), rec[1])
+
+    # W = 8: the q6str group-by's build (2^24 rows, S 4096, the
+    # adaptive round bound), and the string join's 100-row dimension
+    # table (S 256, 9-word records in shared memory) probed by the
+    # 2^24-row fact
+    smask = q6s["price"].data < 50.0
+    sk = RK.batch_radix_keys([q6s["k"]], equality=True, nulls_first=True)
+    run("slot_table_build", "groupby_q6str", k2_case, "groupby_q6str", sk,
+        smask, 4096, AD.bound_build_rounds(q6s.num_rows, 4096))
+    (fk,), (dk,) = RK.align_string_key_columns([q6s["k"]], [sdim["k"]])
+    sbw = RK.batch_radix_keys([dk], equality=True, nulls_first=False)
+    sowner = H.build_slot_table(sbw, torch.ones(
+        sdim.num_rows, dtype=torch.bool, device=dev),
+        H.next_pow2(2 * sdim.num_rows))[0]
+    rec = run("slot_table_records", "join_str", k3_records_case, "join_str",
+              sowner, sbw)
+    if rec is not None:
+        spk = RK.batch_radix_keys([fk], equality=True, nulls_first=False)
+        run("slot_table_probe", "join_str", k3_case, "join_str", sowner, sbw,
+            spk, fk.validity.clone(), H.chain_bound(sowner, sdim.num_rows),
+            rec[1])
 
     # the stream's scatter, map order: a fact morsel (8 shards x 4096
     # rows, C 2^16) across a round boundary; one whose shards end in
@@ -772,6 +808,248 @@ def phase_path(name, fn, args, rows, verify, needs, stages=None,
     if stages is not None:
         line["stages"] = stages()
     emit(line)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# relational breadth: string keys, sort, window, the other join kinds
+# ---------------------------------------------------------------------------
+
+def phase_run(name, fn, rows, verify, needs=(), exact=None, info=None):
+    """Drive ``fn()`` once with every launch count at 0 (checked), verify
+    its output (``verify`` returns extra fields for the line), then time
+    it."""
+    out, counts, first_s = driven(fn)
+    extra = verify(out) or {}
+    check_counts(name, counts, needs, exact)
+    ms = time_ms(fn, reps=3)
+    emit({"phase": name, "rows": rows, "launches": counts,
+          "first_run_s": first_s, "ms": ms,
+          "mrows_per_s": rows / (ms * 1e-3) / 1e6, **(info or {}), **extra})
+    return counts, out
+
+
+def no_kernels():
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+
+    return {k: 0 for k in KER.launches}
+
+
+def check_q6str(res, ng, arrays, label):
+    """q6str's groups against the oracle: the 100 string keys in order,
+    sums and counts exact, avg(price) rel ``FLOAT_RTOL``."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
+    kidx, _, v, price = arrays
+    keys, sums, cnts, avgs = PL.q6str_oracle(kidx, v, price)
+    got = PL.result_groups(res, ng, "k")
+    check(list(got) == keys, f"{label}: groups differ")
+    worst = 0.0
+    for k, sm, c, a in zip(keys, sums, cnts, avgs):
+        g = got.get(k, {})
+        check(g.get("sum_v") == int(sm), f"{label}: sum(v) of {k}")
+        check(g.get("cnt") == int(c), f"{label}: count of {k}")
+        if g.get("avg_price") is not None:
+            worst = max(worst, abs(g["avg_price"] - a) / abs(a))
+    check(worst <= FLOAT_RTOL, f"{label}: avg(price) rel err {worst}")
+    return {"avg_price_max_rel_err": worst}
+
+
+def same_string_groups(a, b, label):
+    """Two q6str results equal bit for bit on keys, ints and counts."""
+    (ra, na), (rb, nb) = a, b
+    g = int(na)
+    check(g == int(nb), f"{label}: {g} vs {int(nb)} groups")
+    for buf in ("chars", "lengths", "validity"):
+        check(torch.equal(getattr(ra["k"], buf)[:g],
+                          getattr(rb["k"], buf)[:g]),
+              f"{label}: key {buf} differ")
+    for c in ("sum_v", "cnt"):
+        check(torch.equal(ra[c].data[:g], rb[c].data[:g]),
+              f"{label}: {c} differs")
+    da, db = ra["avg_price"].data[:g], rb["avg_price"].data[:g]
+    check(bool(((da - db).abs() <= FLOAT_RTOL * db.abs()).all().item()),
+          f"{label}: avg(price) beyond rel {FLOAT_RTOL}")
+
+
+def check_q3(res, ng, arrays):
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
+    rev, cnt = PL.q3_oracle(arrays)
+    got = PL.result_groups(res, ng, "seg")
+    check(int(ng) == PL.Q3_SEG, f"q3: {int(ng)} groups")
+    for sg in range(PL.Q3_SEG):
+        g = got.get(sg, {})
+        check(g.get("rev") == int(rev[sg]), f"q3: rev[{sg}]")
+        check(g.get("cnt") == int(cnt[sg]), f"q3: cnt[{sg}]")
+
+
+def check_q67(out, arrays):
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
+    order, rank, run = PL.q67_oracle(*arrays)
+    check(np.array_equal(out["sorted_row"].data.cpu().numpy(), order),
+          "q67: the sort permutation differs")
+    check(np.array_equal(out["rk"].data.cpu().numpy(), rank),
+          "q67: ranks differ")
+    check(np.array_equal(out["run_sales"].data.cpu().numpy(), run),
+          "q67: running sums differ")
+    top = rank <= PL.Q67_TOP
+    for c in ("rk", "run_sales", "cat", "sales"):
+        check(np.array_equal(out[c].validity.cpu().numpy(), top),
+              f"q67: the top-{PL.Q67_TOP} mask of {c} differs")
+    return {"partitions": PL.Q67_CATS, "rows_kept": int(top.sum())}
+
+
+def phase_plan_sort(q6b, arrays):
+    """``Sort(Filter(Scan("batch"), "price", "<", 50.0), ("k", "v"))``
+    over the q6 batch: the live rows first, in ``np.lexsort`` order of
+    (k, v), the dead rows after them; a second call hits the cache."""
+    from spark_rapids_jni_tpu_torch import plan as PLAN
+    from spark_rapids_jni_tpu_torch.plan.ir import Filter, Scan, Sort
+
+    def make():
+        return Sort(Filter(Scan("batch"), "price", "<", 50.0), ("k", "v"))
+
+    inputs = {"batch": q6b}
+    PLAN.reset_plan_cache()
+
+    def verify(out):
+        batch, live = out
+        k, v, price = arrays
+        idx = np.flatnonzero(price < 50.0)
+        want = idx[np.lexsort((v[idx], k[idx]))]
+        m = int(live.sum().item())
+        check(m == len(idx), f"plan_sort: {m} live rows, want {len(idx)}")
+        check(bool(live[:m].all().item()) and not bool(live[m:].any()
+                                                         .item()),
+              "plan_sort: the live rows are no prefix")
+        for c, host in (("k", k), ("v", v), ("price", price)):
+            got = batch[c].data[:m].cpu().numpy()
+            check(np.array_equal(got, host[want]),
+                  f"plan_sort: column {c} out of order")
+        check(bool((batch["price"].data[m:] >= 50.0).all().item()),
+              "plan_sort: a live row sorted among the dead")
+        return {"live_rows": m}
+
+    counts, _ = phase_run("plan_sort", lambda: PLAN.execute(make(), inputs),
+                          q6b.num_rows, verify, (), no_kernels())
+    t0 = PLAN.trace_count()
+    cp = PLAN.compile_plan(make(), inputs)
+    check(cp.last_lookup == "hit", "plan_sort: second call missed the cache")
+    check(PLAN.trace_count() == t0, "plan_sort: second call compiled")
+    return counts
+
+
+def phase_join_str(q6s, arrays, sdim):
+    """Inner and left hash joins of the q6str fact on the 100-row string
+    dimension (width 21, aligned to 24: W = 8 words): two builds, two
+    record builds, two probes; rows checked against numpy."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.relational import join as JN
+
+    kidx, _, v, _ = arrays
+    n = len(kidx)
+    dev = q6s["v"].data.device
+    hit_h = kidx < 90
+    dv_h = np.arange(len(PL.Q6STR_DIM_KEYS), dtype=np.int64) * 37 % 1000
+    hit = torch.from_numpy(hit_h).to(dev)
+    vd = torch.from_numpy(v).to(dev)
+    want_dv = torch.from_numpy(dv_h[kidx]).to(dev)
+
+    def both():
+        return (JN.hash_join(q6s, sdim, ["k"], ["k"], "inner"),
+                JN.hash_join(q6s, sdim, ["k"], ["k"], "left"))
+
+    def verify(out):
+        (ri, ci), (rl, cl) = out
+        m = int(hit_h.sum())
+        check(int(ci) == m, f"join_str: inner count {int(ci)}, want {m}")
+        check(torch.equal(ri["v"].data[:m], vd[hit]), "join_str: inner v")
+        check(torch.equal(ri["dv"].data[:m], want_dv[hit]),
+              "join_str: inner dv")
+        check(torch.equal(ri["k"].chars[:m], q6s["k"].chars[hit]),
+              "join_str: inner keys")
+        check(bool(ri["dv"].validity[:m].all().item()),
+              "join_str: inner null dv")
+        check(int(cl) == n, f"join_str: left count {int(cl)}, want {n}")
+        check(torch.equal(rl["v"].data, vd), "join_str: left v")
+        check(torch.equal(rl["dv"].validity, hit),
+              "join_str: left null pattern")
+        check(torch.equal(rl["dv"].data[hit], want_dv[hit]),
+              "join_str: left dv")
+        return {"inner_rows": m, "left_null_rows": n - m}
+
+    from spark_rapids_jni_tpu_torch.relational import keys as RK
+
+    (fk,), _ = RK.align_string_key_columns([q6s["k"]], [sdim["k"]])
+    W = len(RK.batch_radix_keys([fk], equality=True, nulls_first=False))
+    counts, _ = phase_run(
+        "join_str", both, n, verify,
+        ("slot_table_build", "slot_table_records", "slot_table_probe"),
+        {"slot_table_build": 2, "slot_table_records": 2,
+         "slot_table_probe": 2},
+        {"key_words": W, "dim_rows": sdim.num_rows})
+    return counts
+
+
+def phase_join_kinds(fact, dim2, arrays):
+    """Semi, anti and full joins of the q95 fact on dim2 (``wh``), the
+    fact's rows with wh 3 dead and dim2's rows with wh >= 20 dead: each
+    kind's rows against numpy; a build, a record build and a probe each."""
+    from spark_rapids_jni_tpu_torch.relational import join as JN
+
+    wh = arrays["fact"]["wh"]
+    v = arrays["fact"]["v"]
+    d2 = arrays["dim2"]["d2"]
+    dev = fact["wh"].data.device
+    lv = fact["wh"].data != 3
+    rv = dim2["wh"].data < 20
+    live_h = wh != 3
+    semi_rows = np.flatnonzero(live_h & (wh < 20))
+    anti_rows = np.flatnonzero(live_h & (wh >= 20))
+
+    def kinds():
+        return {how: JN.hash_join(fact, dim2, ["wh"], ["wh"], how,
+                                  left_valid=lv, right_valid=rv)
+                for how in ("semi", "anti", "full")}
+
+    def rows_of(batch, count, want, label):
+        check(int(count) == len(want),
+              f"join_kinds: {label} count {int(count)}, want {len(want)}")
+        m = len(want)
+        for c, host in (("wh", wh), ("v", v)):
+            check(torch.equal(batch[c].data[:m],
+                              torch.from_numpy(host[want]).to(dev)),
+                  f"join_kinds: {label} column {c}")
+
+    def verify(out):
+        rows_of(*out["semi"], semi_rows, "semi")
+        rows_of(*out["anti"], anti_rows, "anti")
+        full, cf = out["full"]
+        live_rows = np.flatnonzero(live_h)
+        lc = len(live_rows)
+        check(int(cf) == lc + 1, f"join_kinds: full count {int(cf)}, "
+              f"want {lc + 1} (the live rows and dim2's wh 3)")
+        check(torch.equal(full["v"].data[:lc],
+                          torch.from_numpy(v[live_rows]).to(dev)),
+              "join_kinds: full left rows")
+        matched = torch.from_numpy(wh[live_rows] < 20).to(dev)
+        check(torch.equal(full["wh_r"].validity[:lc], matched),
+              "join_kinds: full null pattern")
+        check(torch.equal(full["d2"].data[:lc][matched], torch.from_numpy(
+            d2[wh[live_rows]]).to(dev)[matched]), "join_kinds: full d2")
+        check(int(full["wh_r"].data[lc].item()) == 3
+              and not bool(full["v"].validity[lc].item()),
+              "join_kinds: full appended row")
+        return {"semi_rows": len(semi_rows), "anti_rows": len(anti_rows),
+                "full_rows": lc + 1}
+
+    counts, _ = phase_run(
+        "join_kinds", kinds, fact.num_rows, verify,
+        ("slot_table_build", "slot_table_records", "slot_table_probe"),
+        {"slot_table_build": 3, "slot_table_records": 3,
+         "slot_table_probe": 3})
     return counts
 
 
@@ -971,6 +1249,7 @@ def main() -> int:
         return 2
     from spark_rapids_jni_tpu_torch import config
     from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
     from spark_rapids_jni_tpu_torch.ops import _build
 
     kind = torch.cuda.get_device_name(0)
@@ -992,7 +1271,15 @@ def main() -> int:
     q95_arrays = PL.q95_arrays(N_FACT)
     fact, dim1, dim2 = PL.q95_batches(N_FACT)
 
-    cases = guarded("kernels", phase_kernels, q6b, fact, dim1, dim2) or {}
+    q6s_arrays = PL.q6str_arrays(N_FACT)
+    ones = np.ones(N_FACT, np.bool_)
+    q6s = batch_from_numpy({"k": (q6s_arrays[1], ones, "string"),
+                            "v": (q6s_arrays[2], ones, "int64"),
+                            "price": (q6s_arrays[3], ones, "float64")})
+    sdim = PL.q6str_dim()
+
+    cases = guarded("kernels", phase_kernels, q6b, fact, dim1, dim2, q6s,
+                    sdim) or {}
 
     total = {k: 0 for k in REPLACES}
 
@@ -1069,6 +1356,60 @@ def main() -> int:
                "onehot_groupby": 1},
               {"slot_table_records": 0, "slot_table_build": 0,
                "slot_table_probe": 1})
+
+    # relational breadth at 2^24 rows
+    def breadth(name, fn, *args):
+        counts = guarded(name, fn, *args)
+        if isinstance(counts, tuple):
+            counts = counts[0]
+        for k in total:
+            total[k] += (counts or {}).get(k, 0)
+
+    def q6str_run(name, engine):
+        config.set("groupby_engine", engine)
+        try:
+            return phase_run(
+                name, lambda: PL.q6str_step(q6s), N_FACT,
+                lambda o: check_q6str(*o, q6s_arrays, name),
+                ("slot_table_build",) if engine == "kernel" else (),
+                {"slot_table_build": 1} if engine == "kernel"
+                else no_kernels(),
+                {"engine": engine, "key_words": len(RK.batch_radix_keys(
+                    [q6s["k"]], equality=True, nulls_first=True))})
+        finally:
+            config.reset("groupby_engine")
+
+    from spark_rapids_jni_tpu_torch.relational import keys as RK
+
+    q6str_out = {}
+    for name, engine in (("q6str", "kernel"), ("q6str_sort", "sort")):
+        got = guarded(name, q6str_run, name, engine)
+        if got is not None:
+            q6str_out[engine] = got[1]
+            for k in total:
+                total[k] += got[0].get(k, 0)
+    if len(q6str_out) == 2:
+        same_string_groups(q6str_out["sort"], q6str_out["kernel"],
+                           "q6str_sort vs q6str")
+    plan_path("plan_q6str", {}, Q.q6_plan, {"batch": q6s},
+              vs_step(PL.q6str_step, (q6s,), "k", ("avg_price",),
+                      lambda r, g: check_q6str(r, g, q6s_arrays,
+                                               "plan_q6str")
+                      ["avg_price_max_rel_err"]),
+              ("slot_table_build",), {"slot_table_build": 1},
+              {"slot_table_build": 1})
+    q3_arrays = PL.q3_arrays(N_FACT)
+    q3f, q3d = PL.q3_batches(N_FACT)
+    breadth("q3", phase_run, "q3", lambda: PL.q3_step(q3f, q3d), N_FACT,
+            lambda o: check_q3(*o, q3_arrays), ("onehot_groupby",),
+            {"onehot_groupby": 1, "slot_table_build": 0})
+    q67_arrays = PL.q67_arrays(N_FACT)
+    q67b = PL.q67_batch(N_FACT)
+    breadth("q67", phase_run, "q67", lambda: PL.q67_step(q67b), N_FACT,
+            lambda o: check_q67(o, q67_arrays), (), no_kernels())
+    breadth("plan_sort", phase_plan_sort, q6b, q6_arrays)
+    breadth("join_str", phase_join_str, q6s, q6s_arrays, sdim)
+    breadth("join_kinds", phase_join_kinds, fact, dim2, q95_arrays)
 
     k4_main = (cases.get("partition_scatter") or [None])[0]
     counts = guarded("stream_exchange", phase_stream, fact, k4_main)

@@ -1,7 +1,8 @@
 """Columns and column batches as torch tensors."""
 
 from . import types
-from .column import Column, ColumnBatch, batch_from_numpy, batch_to_numpy
+from .column import (Column, ColumnBatch, StringColumn, batch_from_numpy,
+                     batch_to_numpy, string_arrays)
 
-__all__ = ["types", "Column", "ColumnBatch", "batch_from_numpy",
-           "batch_to_numpy"]
+__all__ = ["types", "Column", "ColumnBatch", "StringColumn",
+           "batch_from_numpy", "batch_to_numpy", "string_arrays"]

@@ -1,14 +1,22 @@
-"""Fixed-width columns and column batches as torch tensors.
+"""Columns and column batches as torch tensors.
 
-Counterpart of ``spark_rapids_jni_tpu/columnar/column.py`` for plain
-fixed-width columns: ``data`` is a tensor of the type's torch dtype and
-``validity`` a ``bool`` tensor, one lane per row, both on one device.
+Counterpart of ``spark_rapids_jni_tpu/columnar/column.py``:
+
+* :class:`Column` — a fixed-width column: ``data`` is a tensor of the
+  type's torch dtype and ``validity`` a ``bool`` tensor, one lane per row;
+* :class:`StringColumn` — a padded string column: ``chars uint8[n,
+  max_len]`` (bytes past each row's length are zero), ``lengths
+  int32[n]`` and ``validity``, the reference's bucketed-padding layout.
+
 Like the reference, operators keep static shapes where it matters to
 them: filters and joins return padded batches plus a live-row count.
 
 :func:`batch_from_numpy` carries a batch across from host arrays — the
 form a reference ``ColumnBatch`` takes after ``np.asarray`` on each
 buffer — so the same data can be fed to both packages.
+:func:`string_arrays` builds a string column's host arrays from a small
+table of distinct values and a code per row, without a Python string
+per row.
 """
 
 from __future__ import annotations
@@ -35,14 +43,109 @@ class Column:
     def num_rows(self) -> int:
         return self.data.shape[0]
 
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
     def __repr__(self):
         return f"Column({self.dtype!r}, n={self.num_rows}, {self.data.device})"
+
+
+@dataclasses.dataclass
+class StringColumn:
+    """Padded string column: ``chars uint8[n, max_len]`` (zero past each
+    row's length), ``lengths int32[n]``, ``validity bool[n]``."""
+
+    chars: torch.Tensor
+    lengths: torch.Tensor
+    validity: torch.Tensor
+    dtype: T.SparkType = T.STRING
+
+    @property
+    def num_rows(self) -> int:
+        return self.lengths.shape[0]
+
+    @property
+    def max_len(self) -> int:
+        return self.chars.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.chars.device
+
+    @staticmethod
+    def from_pylist(values: Sequence[Optional[str]],
+                    max_len: Optional[int] = None, pad_to_multiple: int = 1,
+                    device=None) -> "StringColumn":
+        """Build from host strings (UTF-8); ``None`` becomes a null.  The
+        width rules are the reference's: ``max_len`` defaults to the
+        longest value, rounds up to ``pad_to_multiple`` and is at least
+        1.  ``device=None`` means the GPU."""
+        encoded = [v.encode("utf-8") if v is not None else b""
+                   for v in values]
+        need = max((len(b) for b in encoded), default=0)
+        if max_len is None:
+            max_len = need
+        if pad_to_multiple > 1:
+            max_len = -(-max(max_len, 1) // pad_to_multiple) * pad_to_multiple
+        max_len = max(max_len, 1)
+        if need > max_len:
+            raise ValueError(f"string of {need} bytes exceeds "
+                             f"max_len={max_len}")
+        chars = np.zeros((len(encoded), max_len), dtype=np.uint8)
+        lengths = np.zeros((len(encoded),), dtype=np.int32)
+        for i, b in enumerate(encoded):
+            chars[i, :len(b)] = np.frombuffer(b, dtype=np.uint8)
+            lengths[i] = len(b)
+        valid = np.array([v is not None for v in values], dtype=np.bool_)
+        return _string_column(chars, lengths, valid, resolve_device(device))
+
+    def to_pylist(self) -> list:
+        chars = self.chars.cpu().numpy()
+        lengths = self.lengths.cpu().numpy()
+        valid = self.validity.cpu().numpy()
+        return [bytes(chars[i, :lengths[i]]).decode("utf-8", "replace")
+                if valid[i] else None for i in range(lengths.shape[0])]
+
+    def __repr__(self):
+        return (f"StringColumn(n={self.num_rows}, max_len={self.max_len}, "
+                f"{self.chars.device})")
+
+
+AnyColumn = Union[Column, StringColumn]
+
+
+def _string_column(chars, lengths, valid, dev) -> StringColumn:
+    return StringColumn(torch.from_numpy(chars).to(dev),
+                        torch.from_numpy(lengths).to(dev),
+                        torch.from_numpy(valid).to(dev))
+
+
+def string_arrays(values: Sequence[str], codes: np.ndarray,
+                  max_len: Optional[int] = None):
+    """Host ``(chars uint8[n, max_len], lengths int32[n])`` of the strings
+    ``values[codes[i]]``: the small table is encoded once and rows take
+    its rows by code, so n rows cost one numpy gather, not n Python
+    strings.  The bytes are :meth:`StringColumn.from_pylist`'s for the
+    same strings and ``max_len``."""
+    enc = [v.encode("utf-8") for v in values]
+    need = max((len(b) for b in enc), default=0)
+    width = max(need if max_len is None else int(max_len), 1)
+    if need > width:
+        raise ValueError(f"string of {need} bytes exceeds max_len={width}")
+    table = np.zeros((len(enc), width), dtype=np.uint8)
+    tlen = np.zeros((len(enc),), dtype=np.int32)
+    for i, b in enumerate(enc):
+        table[i, :len(b)] = np.frombuffer(b, dtype=np.uint8)
+        tlen[i] = len(b)
+    codes = np.asarray(codes)
+    return table[codes], tlen[codes]
 
 
 class ColumnBatch:
     """An ordered, named collection of equal-length columns."""
 
-    def __init__(self, columns: Mapping[str, Column]):
+    def __init__(self, columns: Mapping[str, AnyColumn]):
         names = tuple(columns.keys())
         cols = tuple(columns.values())
         if cols:
@@ -66,7 +169,7 @@ class ColumnBatch:
     def num_rows(self) -> int:
         return self._cols[0].num_rows if self._cols else 0
 
-    def __getitem__(self, name: str) -> Column:
+    def __getitem__(self, name: str) -> AnyColumn:
         try:
             return self._cols[self._names.index(name)]
         except ValueError:
@@ -75,11 +178,17 @@ class ColumnBatch:
     def select(self, names: Sequence[str]) -> "ColumnBatch":
         return ColumnBatch({n: self[n] for n in names})
 
+    def with_column(self, name: str, col: AnyColumn) -> "ColumnBatch":
+        """This batch with ``name`` set to ``col`` (appended when new)."""
+        d = dict(zip(self._names, self._cols))
+        d[name] = col
+        return ColumnBatch(d)
+
     def __repr__(self):
         return f"ColumnBatch({list(self._names)}, n={self.num_rows})"
 
 
-HostColumn = Tuple[np.ndarray, np.ndarray, Union[str, T.SparkType]]
+HostColumn = Tuple[object, np.ndarray, Union[str, T.SparkType]]
 
 
 def batch_from_numpy(cols: Mapping[str, HostColumn],
@@ -88,17 +197,30 @@ def batch_from_numpy(cols: Mapping[str, HostColumn],
     """Build a :class:`ColumnBatch` from ``{name: (data, validity, type)}``.
 
     ``type`` is a :class:`types.SparkType` or its name (``'int32'``,
-    ``'int64'``, ``'float64'``, ``'boolean'``, ``'date'`` — the
-    reference type's ``repr``).  ``device=None`` means the GPU; without
-    one this raises unless ``device='cpu'`` is passed.
+    ``'float32'``, ``'string'``, ... — the reference type's ``repr``).
+    A fixed-width column's ``data`` is a 1-D array; a string column's is
+    the pair ``(chars uint8[n, max_len], lengths int32[n])``, carried bit
+    for bit.  ``device=None`` means the GPU; without one this raises
+    unless ``device='cpu'`` is passed.
     """
     dev = resolve_device(device)
     out = {}
     for name, (data, validity, typ) in cols.items():
         st = typ if isinstance(typ, T.SparkType) else T.from_name(str(typ))
         # copies: the source may be a read-only view (a reference array)
-        d = np.array(data, order="C")
         v = np.array(validity, dtype=np.bool_, order="C")
+        if st.kind is T.Kind.STRING:
+            chars, lengths = data
+            c = np.array(chars, dtype=np.uint8, order="C")
+            ln = np.array(lengths, dtype=np.int32, order="C")
+            if c.ndim != 2 or ln.shape != v.shape or c.shape[0] != \
+                    v.shape[0]:
+                raise ValueError(f"column {name!r}: chars {c.shape}, "
+                                 f"lengths {ln.shape} and validity "
+                                 f"{v.shape} disagree")
+            out[name] = _string_column(c, ln, v, dev)
+            continue
+        d = np.array(data, order="C")
         if d.ndim != 1 or v.shape != d.shape:
             raise ValueError(f"column {name!r}: data {d.shape} and validity "
                              f"{v.shape} must be equal 1-D shapes")
@@ -109,6 +231,13 @@ def batch_from_numpy(cols: Mapping[str, HostColumn],
 
 
 def batch_to_numpy(batch: ColumnBatch) -> dict:
-    """``{name: (data, validity)}`` host arrays (test and smoke helper)."""
-    return {n: (c.data.cpu().numpy(), c.validity.cpu().numpy())
-            for n, c in zip(batch.names, batch.columns)}
+    """``{name: (data, validity)}`` host arrays (test and smoke helper); a
+    string column's ``data`` is ``(chars, lengths)``."""
+    out = {}
+    for n, c in zip(batch.names, batch.columns):
+        if isinstance(c, StringColumn):
+            data = (c.chars.cpu().numpy(), c.lengths.cpu().numpy())
+        else:
+            data = c.data.cpu().numpy()
+        out[n] = (data, c.validity.cpu().numpy())
+    return out

@@ -1,8 +1,9 @@
 """Spark-exact shuffle partition assignment and the local regroup.
 
 Counterpart of ``spark_rapids_jni_tpu/parallel/partition.py``: Spark's
-``HashPartitioning`` is ``Pmod(Murmur3Hash(keys, 42), P)``, and the local
-leg of an exchange orders rows by partition id with a stable sort.
+``HashPartitioning`` is ``Pmod(Murmur3Hash(keys, 42), P)`` over any key
+column the row hash takes (plain and string columns), and the local leg
+of an exchange orders rows by partition id with a stable sort.
 """
 
 from __future__ import annotations

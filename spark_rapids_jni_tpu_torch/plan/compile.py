@@ -18,15 +18,17 @@ lowering rules, which are the hand-fused pipelines factored:
   resident prebuilt :class:`~..relational.join.BuildTable` pinned to the
   engine the plan decided.
 * Aggregate -> ``group_by_onehot`` / ``group_by_domain_or_sort`` /
-  ``group_by`` by the hand paths' dispatch.
+  ``group_by`` by the hand paths' dispatch (a string or other non-int
+  key takes the general ``group_by``).
+* Sort -> the stable multi-key sort, with dead rows sorted last through
+  an ``__occ`` key so the live rows form a prefix.
 
 The reference wraps the lowered plan in one ``jax.jit``; the port runs
 it eagerly.  Compiling resolves the adaptive decisions, the join plans
 and the broadcast build tables once; :class:`CompiledPlan` objects are
 cached in :mod:`.cache` keyed on (IR signature, input schema, knob
 fingerprint, decisions), and :func:`trace_count` counts compiles (plan
-cache misses), so a repeated shape compiles nothing.  ``Sort`` is
-ROADMAP.md queue 1, item 10.
+cache misses), so a repeated shape compiles nothing.
 """
 
 from __future__ import annotations
@@ -37,8 +39,7 @@ from typing import Optional
 import torch
 
 from .. import config
-from .._roadmap import not_ported
-from ..columnar.column import ColumnBatch
+from ..columnar.column import Column, ColumnBatch, StringColumn
 from . import adaptive, ir
 from .cache import get_plan_cache
 
@@ -57,15 +58,17 @@ def trace_count() -> int:
 
 def _schema_fingerprint(inputs: dict) -> tuple:
     """Hashable identity of the input schemas: every column's name, type,
-    shape, dtype and device type — any row-count, dtype or column-set
-    change misses the cache by construction."""
+    shape, dtype and device type — any row-count, width, dtype or
+    column-set change misses the cache by construction."""
     out = []
     for name in sorted(inputs):
         batch = inputs[name]
         out.append((name, tuple(
-            (cn, repr(c.dtype), type(c).__name__, tuple(c.data.shape),
-             str(c.data.dtype), c.data.device.type)
-            for cn, c in zip(batch.names, batch.columns))))
+            (cn, repr(c.dtype), type(c).__name__, tuple(buf.shape),
+             str(buf.dtype), buf.device.type)
+            for cn, c in zip(batch.names, batch.columns)
+            for buf in [c.chars if isinstance(c, StringColumn)
+                        else c.data])))
     return tuple(out)
 
 
@@ -117,12 +120,13 @@ _FILTER_OPS = {
 
 
 def _plain_int_key(col) -> bool:
-    return col.data.dtype in (torch.int32, torch.int64)
+    return isinstance(col, Column) and col.data.dtype in (torch.int32,
+                                                          torch.int64)
 
 
 def _ones(b: ColumnBatch) -> torch.Tensor:
     return torch.ones((b.num_rows,), dtype=torch.bool,
-                      device=b.columns[0].data.device)
+                      device=b.columns[0].device)
 
 
 def _prefix(n: int, live: torch.Tensor) -> torch.Tensor:
@@ -174,7 +178,7 @@ def _lower(node: ir.PlanNode, env: dict, prebuilts: tuple, st: _State):
         return staged, _prefix(staged.num_rows, live), True
 
     if isinstance(node, ir.Sort):
-        raise not_ported("Sort", 10)
+        return _lower_sort(node, env, prebuilts, st)
 
     if isinstance(node, ir.Join):
         return _lower_join(node, env, prebuilts, st)
@@ -183,6 +187,24 @@ def _lower(node: ir.PlanNode, env: dict, prebuilts: tuple, st: _State):
         return _lower_aggregate(node, env, prebuilts, st)
 
     raise TypeError(f"cannot lower {type(node).__name__}")
+
+
+def _lower_sort(node: ir.Sort, env, prebuilts, st):
+    """Ascending, nulls first on ``node.keys``; with a live mask in
+    flight, dead rows sort last (an ``__occ`` key first, descending) and
+    the live rows come out as a prefix."""
+    from ..columnar import types as T
+    from ..relational.sort import SortKey, sort_by
+
+    b, live, _pfx = _lower(node.child, env, prebuilts, st)
+    keys = [SortKey(k) for k in node.keys]
+    if live is None:
+        return sort_by(b, keys), None, True
+    occ = Column(live.to(torch.int32), torch.ones_like(live), T.INT32)
+    out = sort_by(b.with_column("__occ", occ),
+                  [SortKey("__occ", ascending=False)] + keys)
+    return (out.select([nm for nm in out.names if nm != "__occ"]),
+            _prefix(out.num_rows, live), True)
 
 
 def _lower_join(node: ir.Join, env, prebuilts, st):

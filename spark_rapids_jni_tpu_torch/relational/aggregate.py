@@ -21,14 +21,17 @@ pieces the q6 and q95 pipelines run:
   fits the domain and the general engine otherwise.
 
 Spark semantics (as in the reference): null keys form their own group;
-sum ignores nulls and an all-null group sums to null; count(col) counts
-non-nulls, count(*) rows; sum(int) is int64 wrapping mod 2^64, sum(float)
-and avg are float64.  Output batches are padded to the input row count
-with a ``num_groups`` count; groups are in key order, nulls first (the
-domain engine: key order, null group last).
+sum, min and max ignore nulls and an all-null group gives null;
+count(col) counts non-nulls, count(*) rows; sum(int) is int64 wrapping
+mod 2^64, sum(float) and avg are float64; min skips NaN unless a group
+holds nothing else, max takes it (one NaN, greatest).  Keys may be any
+mix of plain and string columns: the general engines key on their radix
+words (a string key: a null flag, its char words and its length word).
+Output batches are padded to the input row count with a ``num_groups``
+count; groups are in key order, nulls first (the domain engine: key
+order, null group last).
 
-min/max aggregates and decimal and string columns are ROADMAP.md queue 1,
-item 10.
+Decimal columns are ROADMAP.md queue 1, item 10b.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import torch
 from .. import config
 from .._roadmap import not_ported
 from ..columnar import types as T
-from ..columnar.column import Column, ColumnBatch
+from ..columnar.column import Column, ColumnBatch, StringColumn
 from . import keys as K
 from .gather import gather_column
 
@@ -63,7 +66,7 @@ class AggSpec:
 
 
 def _sum_dtype(dtype: T.SparkType) -> T.SparkType:
-    if dtype.kind in (T.Kind.BOOLEAN, T.Kind.INT32, T.Kind.INT64):
+    if dtype.kind is T.Kind.BOOLEAN or dtype.kind in T.INT_KINDS:
         return T.INT64
     if dtype.kind in T.FLOAT_KINDS:
         return T.FLOAT64
@@ -72,10 +75,12 @@ def _sum_dtype(dtype: T.SparkType) -> T.SparkType:
 
 def _check_aggs(batch: ColumnBatch, aggs: Sequence[AggSpec]) -> None:
     for spec in aggs:
-        if spec.op in ("min", "max"):
-            raise not_ported(f"{spec.op} aggregation", 10)
         if spec.column is not None:
             col = batch[spec.column]
+            if isinstance(col, StringColumn):
+                raise NotImplementedError(
+                    f"{spec.op} over {col.dtype!r} groups (the reference "
+                    "has none either)")
             if not isinstance(col, Column):
                 raise not_ported(f"aggregation over {type(col).__name__}",
                                  10)
@@ -130,6 +135,12 @@ def _segment_aggs(batch, aggs, row_live, seg, num_segments, per_group,
         col = batch[spec.column]
         valid = col.validity & row_live
         nn = seg_sum(valid.to(torch.int64))
+        if spec.op in ("min", "max"):
+            out[spec.out_name] = Column(
+                _segment_minmax(col.data, valid, seg, num_segments,
+                                spec.op, per_group, seg_sum),
+                out_valid & (nn > 0), col.dtype)
+            continue
         if spec.op == "sum":
             out_t = _sum_dtype(col.dtype)
         else:
@@ -141,6 +152,36 @@ def _segment_aggs(batch, aggs, row_live, seg, num_segments, per_group,
             s = s / nn.clamp(min=1).to(torch.float64)
         out[spec.out_name] = Column(s, out_valid & (nn > 0), out_t)
     return out
+
+
+def _segment_minmax(data, valid, seg, num_segments, op, per_group,
+                    seg_sum):
+    """Per-segment min or max of the valid rows with Spark's float rules:
+    NaNs are set aside, then max is NaN where a group holds one and min
+    only where it holds nothing else; bools as 0/1."""
+    was_bool = data.dtype == torch.bool
+    if was_bool:
+        data = data.to(torch.int64)
+    is_float = data.is_floating_point()
+    valid_num = valid & ~torch.isnan(data) if is_float else valid
+    if is_float:
+        fill = float("inf") if op == "min" else float("-inf")
+    else:
+        info = torch.iinfo(data.dtype)
+        fill = info.max if op == "min" else info.min
+    masked = torch.where(valid_num, data, torch.full_like(data, fill))
+    acc = torch.full((num_segments,), fill, dtype=data.dtype,
+                     device=data.device)
+    r = per_group(acc.scatter_reduce_(0, seg, masked,
+                                      reduce="amin" if op == "min"
+                                      else "amax"))
+    if is_float:
+        seg_nan = seg_sum((valid & torch.isnan(data)).to(torch.int64)) > 0
+        seg_num = seg_sum(valid_num.to(torch.int64)) > 0
+        nan = torch.full_like(r, float("nan"))
+        r = torch.where(seg_nan if op == "max" else seg_nan & ~seg_num,
+                        nan, r)
+    return r.to(torch.bool) if was_bool else r
 
 
 def group_by(batch: ColumnBatch, key_names: Sequence[str],
@@ -170,7 +211,7 @@ def group_by(batch: ColumnBatch, key_names: Sequence[str],
 def _group_by_sortscan(batch, key_names, aggs, row_valid, assume_grouped):
     """The sort engine: one stable lexicographic sort, then segment sums."""
     n = batch.num_rows
-    dev = batch[key_names[0]].data.device
+    dev = batch[key_names[0]].device
     karr = K.batch_radix_keys([batch[k] for k in key_names], equality=True,
                               nulls_first=True)
     have_rv = row_valid is not None
@@ -178,7 +219,7 @@ def _group_by_sortscan(batch, key_names, aggs, row_valid, assume_grouped):
         occ = row_valid.to(torch.bool)
         karr = [(~occ).to(torch.int64)] + [
             torch.where(occ, k, torch.zeros_like(k)) for k in karr]
-    sperm = _arange(n, dev) if assume_grouped else K.lexsort(karr)
+    sperm = _arange(n, dev) if assume_grouped else K.lexsort_u32(karr)
     skeys = [k[sperm] for k in karr]
     boundary = ~K.rows_equal_adjacent(skeys)
     sorted_occ = (skeys[0] == 0) if have_rv else torch.ones(
@@ -208,7 +249,7 @@ def _group_by_hash(batch, key_names, aggs, row_valid, num_slots):
     from ..plan import adaptive as _adaptive
 
     n = batch.num_rows
-    dev = batch[key_names[0]].data.device
+    dev = batch[key_names[0]].device
     karr = K.batch_radix_keys([batch[k] for k in key_names], equality=True,
                               nulls_first=True)
     row_live = (torch.ones((n,), dtype=torch.bool, device=dev)
@@ -235,7 +276,7 @@ def _scatter_groups(batch, key_names, aggs, karr, row_live, owner, slot, S):
     ops = [dead_slot.to(torch.int64)] + [
         torch.where(dead_slot, torch.zeros_like(oc), k[oc] if n else oc)
         for k in karr]
-    rank2slot = K.lexsort(ops)
+    rank2slot = K.lexsort_u32(ops)
     num_groups = (~dead_slot).sum()
     out_valid = _arange(n, dev) < num_groups
 
@@ -277,8 +318,12 @@ def _domain_partials(batch, key_name, aggs, domain, row_valid=None,
                      engine="auto", float_mode="f32x3"):
     """Additive per-bucket partials over buckets ``[0, K]`` (bucket K =
     null keys): ``star`` count(*) rows, ``cnt`` non-null counts, ``isum``
-    int sums and ``fsum`` float sums per referenced column."""
+    int sums and ``fsum`` float sums per referenced column.  min/max
+    are no additive partials: they stay on the general engines."""
     _check_aggs(batch, aggs)
+    if any(spec.op in ("min", "max") for spec in aggs):
+        raise ValueError("the domain engine computes sum/count/mean only; "
+                         "min/max run on the general group_by")
     if engine == "auto":
         engine = "kernel"
     if engine != "kernel":
@@ -295,6 +340,16 @@ def _domain_bucket_overflow(col: Column, live: torch.Tensor, K: int):
     overflow = (live & ((k < 0) | (k >= K))).any()
     bucket = torch.where(live, k.clamp(0, K - 1), torch.full_like(k, K))
     return bucket.to(torch.int32), overflow
+
+
+def _kernel_sum_dtype(data: torch.Tensor) -> torch.Tensor:
+    """A column as the one-hot kernel sums it: int8/int16 widened to
+    int32, float32 to float64 (exact; the sums are the same)."""
+    if data.dtype in (torch.int8, torch.int16):
+        return data.to(torch.int32)
+    if data.dtype == torch.float32:
+        return data.to(torch.float64)
+    return data
 
 
 def _domain_partials_onehot(batch, key_name, aggs, domain, row_valid,
@@ -325,7 +380,8 @@ def _domain_partials_onehot(batch, key_name, aggs, domain, row_valid,
     ints, floats, overflow = onehot_groupby_columns(
         col.data, col.validity,
         None if row_valid is None else row_valid.to(torch.bool),
-        [(batch[c].data, batch[c].validity) for c in names],
+        [(_kernel_sum_dtype(batch[c].data), batch[c].validity)
+         for c in names],
         [names.index(c) for c in int_cols],
         [names.index(c) for c in float_cols], int(domain))
     nc = len(names)
@@ -407,8 +463,9 @@ def group_by_domain_or_sort(batch: ColumnBatch, key_name: str,
     pad_to = max(n, K + 1)
     col = batch[key_name]
     if not isinstance(col, Column):
-        raise not_ported(f"domain group-by over {type(col).__name__}", 12)
-    row_live = (torch.ones((n,), dtype=torch.bool, device=col.data.device)
+        raise TypeError(f"the domain engine needs an integer key column, "
+                        f"not {type(col).__name__}")
+    row_live = (torch.ones((n,), dtype=torch.bool, device=col.device)
                 if row_valid is None else row_valid.to(torch.bool))
     _, overflow = _domain_bucket_overflow(col, col.validity & row_live, K)
     if bool(overflow.item()):

@@ -2,10 +2,13 @@
 
 Counterpart of ``spark_rapids_jni_tpu/relational/filter.py``: ``compact``
 keeps the input length and returns ``(batch, count)`` with the selected
-rows moved, stably, to the front and the tail nulled out.
+rows moved, stably, to the front and the tail nulled out;
+``apply_mask`` nulls the unselected rows in place of moving them.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -34,3 +37,11 @@ def compact(batch: ColumnBatch, mask: torch.Tensor) -> tuple:
     valid = torch.arange(idx.shape[0], device=idx.device) < count
     return gather_batch(batch, idx, valid), count
 
+
+def apply_mask(batch: ColumnBatch, mask: torch.Tensor) -> ColumnBatch:
+    """Null out rows where ``mask`` is False, moving nothing: shapes and
+    row positions stay, so it costs one AND a column."""
+    mask = mask.to(torch.bool)
+    return ColumnBatch({
+        name: dataclasses.replace(col, validity=col.validity & mask)
+        for name, col in zip(batch.names, batch.columns)})

@@ -1,9 +1,10 @@
-"""Row gather for plain columns.
+"""Row gather for plain and string columns.
 
 Counterpart of ``spark_rapids_jni_tpu/relational/gather.py``: one index
-vector applied to each column's buffers; rows where ``valid`` is False
-become nulls (padded filter and join outputs).  Encoded columns come
-with ROADMAP.md queue 1, item 12.
+vector applied to each column's buffers (a string column's whole padded
+char rows); rows where ``valid`` is False become nulls (padded filter and
+join outputs), and a null string row's length is zeroed as the
+reference does.  Encoded columns come with ROADMAP.md queue 1, item 12.
 """
 
 from __future__ import annotations
@@ -11,25 +12,34 @@ from __future__ import annotations
 import torch
 
 from .._roadmap import not_ported
-from ..columnar.column import Column, ColumnBatch
+from ..columnar.column import Column, ColumnBatch, StringColumn
 
 
-def gather_column(col: Column, idx: torch.Tensor, valid=None) -> Column:
+def gather_column(col, idx: torch.Tensor, valid=None):
     """Take rows ``idx`` (clipped into range)."""
-    if not isinstance(col, Column):
+    if not isinstance(col, (Column, StringColumn)):
         raise not_ported(f"gather of {type(col).__name__}", 12)
     n = col.num_rows
+    dev = col.device
     idx = idx.to(torch.int64).clamp(0, max(n - 1, 0))
+    m = idx.shape[0]
     if n == 0:
         # nothing to take from: every output row is a null
-        m = idx.shape[0]
-        return Column(torch.zeros((m,), dtype=col.data.dtype,
-                                  device=col.data.device),
-                      torch.zeros((m,), dtype=torch.bool,
-                                  device=col.data.device), col.dtype)
+        none = torch.zeros((m,), dtype=torch.bool, device=dev)
+        if isinstance(col, StringColumn):
+            return StringColumn(
+                torch.zeros((m, col.max_len), dtype=torch.uint8,
+                            device=dev),
+                torch.zeros((m,), dtype=torch.int32, device=dev), none,
+                col.dtype)
+        return Column(torch.zeros((m,), dtype=col.data.dtype, device=dev),
+                      none, col.dtype)
     v = col.validity[idx]
     if valid is not None:
         v = v & valid
+    if isinstance(col, StringColumn):
+        return StringColumn(col.chars[idx], col.lengths[idx] * v, v,
+                            col.dtype)
     return Column(col.data[idx], v, col.dtype)
 
 

@@ -1,30 +1,43 @@
-"""Inner equality joins with static-shape outputs.
+"""Equality joins with static-shape outputs, two engines.
 
-Counterpart of ``spark_rapids_jni_tpu/relational/join.py`` for the q95
-path:
+Counterpart of ``spark_rapids_jni_tpu/relational/join.py``:
 
-* :func:`hash_join` with ``how="inner"`` on the hash engine: the build
-  side's radix words go into a slot table (slot-table build kernel),
-  build rows are grouped by slot with one stable sort, the table's slot
-  records are built once (slot-record kernel), and each probe row walks
-  its chain over them (slot-table probe kernel); matches expand through the
-  offsets/searchsorted expansion, padded to a static ``capacity``.
-  Matches enumerate in original right-row order, bit-identical to the
-  reference's engines.
+* :func:`hash_join`, every join kind (inner, left, right, full, semi,
+  anti) over any mix of plain and string key columns (string widths
+  aligned across the sides), on two engines picked by the
+  ``join_engine`` knob:
+
+  - **kernel** (``auto``): the build side's radix words go into a slot
+    table (slot-table build kernel), build rows are grouped by slot with
+    one stable sort, the table's slot records are built once
+    (slot-record kernel) and each probe row walks its chain over them
+    (slot-table probe kernel);
+  - **sort**: the build side sorted by its words
+    (:func:`keys.lexsort_u32`) and a vectorized lexicographic bisection
+    per probe row (:func:`keys.equal_range`).
+
+  Matches enumerate in original right-row order and expand through the
+  offsets/searchsorted expansion, padded to a static ``capacity``: the
+  live rows are bit-identical to the reference's engines.
 * :func:`build_table`: a resident prebuilt build table for
   ``hash_join(prebuilt=)`` (the plan compiler's broadcast joins).
 * :func:`join_dense_or_hash`: when the build side's keys are unique ints
-  in ``[0, domain)`` (dense surrogate keys, every TPC-DS dimension) the
-  join is a rowid table plus gathers; otherwise the general
+  in ``[0, domain)`` (dense surrogate keys, every TPC-DS dimension) an
+  inner join is a rowid table plus gathers; otherwise the general
   :func:`hash_join`.  One host read of the density check picks.
 
-Spark semantics: a null key matches nothing; dead (padding) rows of
-either side never match.  Other join kinds (left, right, full, semi,
-anti) and the sort engine are ROADMAP.md queue 1, item 10.
+Spark semantics: a null key matches nothing (inner and semi drop
+null-keyed left rows, left and full keep them with a null right side,
+anti keeps them); dead (padding) rows of either side never match and
+produce no output.  ``right`` is the swapped left join (the right
+side's columns first); ``full`` keeps every right column, keys included,
+and appends the unmatched right rows after the left-join region (output
+capacity ``capacity + right.num_rows``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import torch
@@ -32,8 +45,9 @@ import torch
 from .. import config
 from .._roadmap import not_ported
 from ..columnar import types as T
-from ..columnar.column import Column, ColumnBatch
+from ..columnar.column import Column, ColumnBatch, StringColumn
 from . import keys as K
+from .filter import compact
 from .gather import gather_batch
 
 _HOWS = ("inner", "left", "right", "full", "semi", "anti")
@@ -46,16 +60,14 @@ def _resolve_join_engine(engine):
         engine = config.get("join_engine")
     if engine == "auto":
         return "kernel"
-    if engine == "sort":
-        raise not_ported("the sort join engine", 10)
-    if engine != "kernel":
+    if engine not in ("kernel", "sort"):
         raise ValueError(f"unknown join engine {engine!r} "
-                         "(use 'auto' or 'kernel')")
+                         "(use 'auto', 'kernel' or 'sort')")
     return engine
 
 
 def _hash_build(rkeys, nr: int):
-    """Hash-engine build product over the build side's radix words: the
+    """Kernel-engine build product over the build side's radix words: the
     tuple ``(owner, rslot, rperm, counts_slot, off_slot, records)`` that
     :func:`hash_join` takes as ``prebuilt``.
 
@@ -81,22 +93,44 @@ def _hash_build(rkeys, nr: int):
     return owner, rslot, rperm, counts_slot, off_slot, records
 
 
+def _sort_build(rkeys) -> tuple:
+    """Sort-engine build product: ``(*sorted_rkeys, rperm)``."""
+    rperm = K.lexsort_u32(rkeys)
+    return tuple(k[rperm] for k in rkeys) + (rperm,)
+
+
+def _build(rkeys, nr: int, engine: str) -> tuple:
+    return _hash_build(rkeys, nr) if engine == "kernel" else \
+        _sort_build(rkeys)
+
+
 def _one_null_row_like(batch: ColumnBatch) -> ColumnBatch:
     """A 1-row all-null batch with the same schema (empty-side pad)."""
     out = {}
     for name, col in zip(batch.names, batch.columns):
-        dev = col.data.device
-        out[name] = Column(torch.zeros((1,), dtype=col.data.dtype,
-                                       device=dev),
-                           torch.zeros((1,), dtype=torch.bool, device=dev),
-                           col.dtype)
+        dev = col.device
+        none = torch.zeros((1,), dtype=torch.bool, device=dev)
+        if isinstance(col, StringColumn):
+            out[name] = StringColumn(
+                torch.zeros((1, col.max_len), dtype=torch.uint8,
+                            device=dev),
+                torch.zeros((1,), dtype=torch.int32, device=dev), none,
+                col.dtype)
+        else:
+            out[name] = Column(torch.zeros((1,), dtype=col.data.dtype,
+                                           device=dev), none, col.dtype)
     return ColumnBatch(out)
 
 
-def _require_plain(cols: Sequence, what: str) -> None:
+def _require_keys(cols: Sequence, what: str) -> None:
     for c in cols:
-        if not isinstance(c, Column):
+        if not isinstance(c, (Column, StringColumn)):
             raise not_ported(f"{what} over {type(c).__name__}", 10)
+
+
+def _with_validity(cols, valid):
+    return [dataclasses.replace(c, validity=c.validity & valid)
+            for c in cols]
 
 
 def hash_join(left: ColumnBatch, right: ColumnBatch,
@@ -104,50 +138,68 @@ def hash_join(left: ColumnBatch, right: ColumnBatch,
               how: str = "inner", capacity: Optional[int] = None,
               suffixes: tuple = ("", "_r"), left_valid=None,
               right_valid=None, prebuilt=None, engine=None) -> tuple:
-    """Inner equality join; returns ``(result_batch, count)``.
+    """Equality join; returns ``(result_batch, count)``.
 
-    ``capacity`` is the static output row budget (default
-    ``left.num_rows``, exact for a key-unique build side); ``count`` is
-    the true match total, and ``count > capacity`` signals truncation.
-    ``left_valid`` / ``right_valid`` mark live rows.  The output keeps
-    the left columns, then the right side's non-key columns.
+    ``capacity`` is the static output row budget of the inner/left-join
+    region (default ``left.num_rows``, exact for a key-unique build
+    side); ``count`` is the true match total, and ``count > capacity``
+    signals truncation (a full join's count is then ``capacity +
+    right.num_rows + 1``).  semi/anti return the filtered left rows
+    compacted to the front, like ``compact``.  ``left_valid`` /
+    ``right_valid`` mark live rows.  The output keeps the left columns,
+    then the right side's non-key columns (``full``: every right
+    column); colliding names take ``suffixes``.
 
-    ``prebuilt`` skips the build: a :class:`BuildTable` from
-    :func:`build_table`, or its raw product (:func:`_hash_build`'s
-    tuple).  It must have been built from the same ``right`` /
-    ``right_on`` / ``right_valid``; nothing re-validates that.
+    ``engine``: ``'kernel' | 'sort' | 'auto'`` (default: the
+    ``join_engine`` knob).  ``prebuilt`` skips the build: a
+    :class:`BuildTable` from :func:`build_table` (probed under the
+    engine it was built with), or a raw build product of the engine
+    this call resolves to (:func:`_hash_build`'s tuple, or
+    ``(*sorted_rkeys, rperm)``).  It must have been built from the same
+    ``right`` / ``right_on`` / ``right_valid``; nothing re-validates
+    that.
     """
     if how not in _HOWS:
         raise ValueError(f"unknown join type {how!r}")
-    if how != "inner":
-        raise not_ported(f"how={how!r} joins", 10)
     if len(left_on) != len(right_on):
         raise ValueError("left_on/right_on length mismatch")
+    if how == "right":
+        if prebuilt is not None:
+            # the swap makes the left input the build side
+            raise ValueError("prebuilt build tables are not supported for "
+                             "how='right' (the swap changes the build side)")
+        return hash_join(right, left, right_on, left_on, "left",
+                         capacity=capacity,
+                         suffixes=(suffixes[1], suffixes[0]),
+                         left_valid=right_valid, right_valid=left_valid,
+                         engine=engine)
     if isinstance(prebuilt, BuildTable):
         return hash_join(left, right, left_on, right_on, how,
                          capacity=capacity, suffixes=suffixes,
                          left_valid=left_valid, right_valid=right_valid,
                          prebuilt=prebuilt.get(), engine=prebuilt.engine)
-    _resolve_join_engine(engine)
+    engine = _resolve_join_engine(engine)
     nl, nr = left.num_rows, right.num_rows
-    if nr == 0 and prebuilt is not None:
-        raise ValueError("prebuilt build table for an empty build side")
+    padded_right = nr == 0
     if nr == 0:
+        if prebuilt is not None:
+            raise ValueError("prebuilt build table for an empty build side")
         # one unmatchable null row keeps every gather in bounds
         right = _one_null_row_like(right)
         nr = 1
     if nl == 0:
+        # one dead row: no output except a full join's appended rows
         left = _one_null_row_like(left)
         nl = 1
         left_valid = torch.zeros((1,), dtype=torch.bool,
-                                 device=left[left_on[0]].data.device)
-    lcols = [left[k] for k in left_on]
-    rcols = [right[k] for k in right_on]
-    _require_plain(lcols + rcols, "hash_join keys")
+                                 device=left[left_on[0]].device)
+    lkcols = [left[k] for k in left_on]
+    rkcols = [right[k] for k in right_on]
+    _require_keys(lkcols + rkcols, "hash_join keys")
+    lcols, rcols = K.align_string_key_columns(lkcols, rkcols)
     if right_valid is not None:
-        rcols = [Column(c.data, c.validity & right_valid, c.dtype)
-                 for c in rcols]
-    dev = lcols[0].data.device
+        rcols = _with_validity(rcols, right_valid)
+    dev = lcols[0].device
 
     lkeys = K.batch_radix_keys(lcols, equality=True, nulls_first=False)
     l_null = torch.zeros((nl,), dtype=torch.bool, device=dev)
@@ -156,25 +208,45 @@ def hash_join(left: ColumnBatch, right: ColumnBatch,
     l_live = (torch.ones((nl,), dtype=torch.bool, device=dev)
               if left_valid is None else left_valid.to(torch.bool))
 
-    from . import hashtable as H
-
-    # null build keys sit in their own slot, which no valid probe's words
-    # equal; null and dead probe rows are masked.  The walk is bounded by
-    # the records' chain bound (result-identical to the full table), so
-    # the probe reads nothing back to the host.
+    # null build keys never match: under the kernel engine they sit in
+    # their own slot, which no valid probe's words equal; under the sort
+    # engine their flag word differs from every valid probe's.  Null and
+    # dead probe rows are masked.  Either way a probe row's matches are
+    # rperm[lo .. lo + counts), in original right-row order.
+    rkeys = None
     if prebuilt is None:
         rkeys = K.batch_radix_keys(rcols, equality=True, nulls_first=False)
-        prebuilt = _hash_build(rkeys, nr)
-    _owner, _rslot, rperm, counts_slot, off_slot, records = prebuilt
-    found, lslot = H.probe_slot_records(records, lkeys, ~l_null & l_live)
-    lslot = lslot.to(torch.int64)
-    counts = torch.where(found, counts_slot[lslot],
-                         torch.zeros_like(lslot))
-    lo = off_slot[lslot]
+        prebuilt = _build(rkeys, nr, engine)
+    if engine == "kernel":
+        from . import hashtable as H
 
-    cum = torch.cumsum(counts, 0)  # inclusive
+        # the walk is bounded by the records' chain bound (result-
+        # identical to the full table), so the probe reads nothing back
+        owner, rslot, rperm, counts_slot, off_slot, records = prebuilt
+        found, lslot = H.probe_slot_records(records, lkeys,
+                                            ~l_null & l_live)
+        lslot = lslot.to(torch.int64)
+        counts = torch.where(found, counts_slot[lslot],
+                             torch.zeros_like(lslot))
+        lo = off_slot[lslot]
+    else:
+        sorted_rkeys, rperm = list(prebuilt[:-1]), prebuilt[-1]
+        lo, hi = K.equal_range(sorted_rkeys, lkeys)
+        counts = torch.where(l_null | ~l_live, torch.zeros_like(lo),
+                             hi - lo)
+
+    if how == "semi":
+        return compact(left, (counts > 0) & l_live)
+    if how == "anti":
+        return compact(left, (counts == 0) & l_live)
+
+    outer = how in ("left", "full")
+    counts_out = (torch.where(l_live, counts.clamp(min=1),
+                              torch.zeros_like(counts))
+                  if outer else counts)
+    cum = torch.cumsum(counts_out, 0)  # inclusive
     total = cum[-1]
-    offsets = cum - counts
+    offsets = cum - counts_out
     cap = nl if capacity is None else int(capacity)
     j = torch.arange(cap, dtype=torch.int64, device=dev)
     li = torch.searchsorted(cum, j, right=True).clamp(0, nl - 1)
@@ -182,10 +254,76 @@ def hash_join(left: ColumnBatch, right: ColumnBatch,
     pos = (lo[li] + k).clamp(0, nr - 1)
     ri = rperm[pos]
     out_valid = j < total
+    matched = (counts[li] > 0) & out_valid
     lpart = gather_batch(left, li, out_valid)
-    right_names = [n for n in right.names if n not in right_on]
-    rpart = gather_batch(right.select(right_names), ri, out_valid)
+    right_names = (list(right.names) if how == "full"
+                   else [n for n in right.names if n not in right_on])
+    rpart = gather_batch(right.select(right_names), ri,
+                         matched if outer else out_valid)
+    if how == "full":
+        r_live = (torch.ones((nr,), dtype=torch.bool, device=dev)
+                  if right_valid is None else right_valid.to(torch.bool))
+        if padded_right:  # the empty build side's pad row is no right row
+            unmatched = torch.zeros_like(r_live)
+        elif engine == "kernel":
+            # a right row is matched iff a live non-null probe row found
+            # its slot (misses and dead probes carry slot S)
+            hit = torch.zeros((owner.shape[0] + 1,), dtype=torch.bool,
+                              device=dev)
+            hit[lslot[found]] = True
+            unmatched = ~hit[rslot.to(torch.int64)] & r_live
+        else:
+            unmatched = _unmatched_by_search(lkeys, lcols, rcols, rkeys,
+                                             l_live, left_valid, r_live)
+        lpart, rpart, total = _append_rows(
+            left, right.select(right_names), lpart, rpart, total, cap,
+            unmatched)
     return _merge_parts(lpart, rpart, suffixes), total
+
+
+def _unmatched_by_search(lkeys, lcols, rcols, rkeys, l_live, left_valid,
+                         r_live):
+    """The sort engine's unmatched right rows: the live right rows with a
+    null key or a key no live left row carries, found by probing the
+    sorted left keys with the right keys (dead left rows re-key as
+    nulls, which match nothing)."""
+    if left_valid is not None:
+        lkeys = K.batch_radix_keys(_with_validity(lcols, l_live),
+                                   equality=True, nulls_first=False)
+    if rkeys is None:  # a prebuilt table carries only the sorted keys
+        rkeys = K.batch_radix_keys(rcols, equality=True, nulls_first=False)
+    lperm = K.lexsort_u32(lkeys)
+    rlo, rhi = K.equal_range([k[lperm] for k in lkeys], rkeys)
+    r_null = torch.zeros_like(r_live)
+    for c in rcols:
+        r_null = r_null | ~c.validity
+    return r_live & (r_null | (rhi == rlo))
+
+
+def _append_rows(left, rsel, lpart, rpart, total, cap, unmatched):
+    """A full join's tail: the ``unmatched`` right rows (of ``rsel``, the
+    right columns the output keeps) appended after the left-join region
+    with a null left side, and pulled up against its live rows.  When
+    that region overflowed its budget the count becomes ``cap + nr + 1``,
+    which exceeds any output."""
+    nr = rsel.num_rows
+    dev = unmatched.device
+    n_un = unmatched.sum()
+    order = torch.sort((~unmatched).to(torch.int8), stable=True).indices
+    rpart = _concat_batches(rpart, gather_batch(
+        rsel, order, torch.arange(nr, device=dev) < n_un))
+    lpart = _concat_batches(lpart, gather_batch(
+        left, torch.zeros((nr,), dtype=torch.int64, device=dev),
+        torch.zeros((nr,), dtype=torch.bool, device=dev)))
+    emitted = total.clamp(max=cap)
+    total = torch.where(total > cap, torch.full_like(total, cap + nr + 1),
+                        total + n_un)
+    idx = torch.arange(cap + nr, dtype=torch.int64, device=dev)
+    src = torch.where(idx < emitted, idx, cap + idx - emitted).clamp(
+        0, cap + nr - 1)
+    live = idx < emitted + n_un
+    return (gather_batch(lpart, src, live), gather_batch(rpart, src, live),
+            total)
 
 
 def join_dense_or_hash(left: ColumnBatch, right: ColumnBatch, left_on: str,
@@ -198,7 +336,7 @@ def join_dense_or_hash(left: ColumnBatch, right: ColumnBatch, left_on: str,
     Same output contract either way: matches compacted in left-row order,
     ``(result, count)``."""
     lcol, rcol = left[left_on], right[right_on]
-    ints = (T.Kind.INT32, T.Kind.INT64, T.Kind.DATE)
+    ints = T.INT_KINDS + (T.Kind.DATE, T.Kind.TIMESTAMP)
     eligible = (how == "inner" and domain > 0
                 and isinstance(lcol, Column) and isinstance(rcol, Column)
                 and lcol.dtype.kind in ints and rcol.dtype.kind in ints
@@ -211,7 +349,7 @@ def join_dense_or_hash(left: ColumnBatch, right: ColumnBatch, left_on: str,
     nl, nr = left.num_rows, right.num_rows
     K1 = int(domain)
     cap = nl if capacity is None else int(capacity)
-    dev = lcol.data.device
+    dev = lcol.device
     rv = (torch.ones((nr,), dtype=torch.bool, device=dev)
           if right_valid is None else right_valid.to(torch.bool))
     lv = (torch.ones((nl,), dtype=torch.bool, device=dev)
@@ -269,14 +407,29 @@ def _merge_parts(lpart: ColumnBatch, rpart: ColumnBatch,
     return ColumnBatch(merged)
 
 
+def _concat_col(a, b):
+    if isinstance(a, StringColumn):
+        (a,), (b,) = K.align_string_key_columns([a], [b])
+        return StringColumn(torch.cat([a.chars, b.chars]),
+                            torch.cat([a.lengths, b.lengths]),
+                            torch.cat([a.validity, b.validity]), a.dtype)
+    return Column(torch.cat([a.data, b.data]),
+                  torch.cat([a.validity, b.validity]), a.dtype)
+
+
+def _concat_batches(a: ColumnBatch, b: ColumnBatch) -> ColumnBatch:
+    return ColumnBatch({n: _concat_col(a[n], b[n]) for n in a.names})
+
+
 # ---------------------------------------------------------------------------
 # resident build tables (the broadcast join's prebuilt side)
 # ---------------------------------------------------------------------------
 
 class BuildTable:
     """A join build table over ``right[right_on]``, resident on the
-    device until closed: the counterpart of the reference's
-    ``SpillableBuildTable`` without spill (a spill-registered table that
+    device until closed, over any number of plain key columns (its
+    slot records carry all their words): the counterpart of the
+    reference's ``SpillableBuildTable`` without spill (a spill-registered table that
     is dropped under pressure and rebuilt on read is ROADMAP.md queue 1,
     item 13).  ``engine`` is pinned at construction.
 
@@ -305,12 +458,15 @@ class BuildTable:
         if right.num_rows == 0:
             raise ValueError("cannot pre-build an empty build side")
         rcols = [right[k] for k in self.right_on]
-        _require_plain(rcols, "build table keys")
+        _require_keys(rcols, "build table keys")
+        if any(isinstance(c, StringColumn) for c in rcols):
+            raise ValueError(
+                "string join keys cannot be pre-built: their key width "
+                "depends on the probe side (align_string_key_columns)")
         if self._right_valid is not None:
-            rcols = [Column(c.data, c.validity & self._right_valid, c.dtype)
-                     for c in rcols]
+            rcols = _with_validity(rcols, self._right_valid)
         rkeys = K.batch_radix_keys(rcols, equality=True, nulls_first=False)
-        self._tree = _hash_build(rkeys, right.num_rows)
+        self._tree = _build(rkeys, right.num_rows, self.engine)
         self.source = right
         return self
 

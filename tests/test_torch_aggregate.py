@@ -17,10 +17,12 @@ from spark_rapids_jni_tpu import config as jconfig
 from spark_rapids_jni_tpu.columnar import types as JT
 from spark_rapids_jni_tpu.columnar.column import Column as JColumn
 from spark_rapids_jni_tpu.columnar.column import ColumnBatch as JBatch
+from spark_rapids_jni_tpu.columnar.column import StringColumn as JString
 from spark_rapids_jni_tpu.relational import aggregate as JAgg
 
 from spark_rapids_jni_tpu_torch import config as tconfig
-from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+from spark_rapids_jni_tpu_torch.columnar.column import (StringColumn,
+                                                        batch_from_numpy)
 from spark_rapids_jni_tpu_torch.ops import kernels as TKer
 from spark_rapids_jni_tpu_torch.relational import aggregate as TAgg
 
@@ -34,9 +36,15 @@ def _reset_config():
     tconfig.reset()
 
 
+def _host(c):
+    if isinstance(c, JString):
+        return (np.asarray(c.chars), np.asarray(c.lengths))
+    return np.asarray(c.data)
+
+
 def to_port(jb):
     return batch_from_numpy(
-        {n: (np.asarray(c.data), np.asarray(c.validity), repr(c.dtype))
+        {n: (_host(c), np.asarray(c.validity), repr(c.dtype))
          for n, c in zip(jb.names, jb.columns)}, device="cpu")
 
 
@@ -70,11 +78,14 @@ def assert_results_match(jres, jng, tres, tng, floats=FLOATS):
     assert int(tng) == g
     assert list(tres.names) == list(jres.names)
     for name in jres.names:
-        jd = np.asarray(jres[name].data)[:g]
         jv = np.asarray(jres[name].validity)[:g]
-        td = tres[name].data[:g].numpy()
         tv = tres[name].validity[:g].numpy()
         np.testing.assert_array_equal(tv, jv, err_msg=name)
+        if isinstance(tres[name], StringColumn):
+            assert tres[name].to_pylist()[:g] == jres[name].to_pylist()[:g]
+            continue
+        jd = np.asarray(jres[name].data)[:g]
+        td = tres[name].data[:g].numpy()
         if name in floats:
             np.testing.assert_allclose(td[jv], jd[jv], rtol=RTOL,
                                        err_msg=name)
@@ -297,9 +308,15 @@ class TestGroupByEngines:
         assert_results_match(jr, jng, tr, tng, floats=())
 
     def test_min_max_not_ported(self):
-        jb = _batch(np.random.default_rng(13), 10, 3)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TAgg.group_by(to_port(jb), ["k"], [TAgg.AggSpec("min", "v", "m")])
+        """Once item 10's gap, min/max now match the reference."""
+        jb = _batch(np.random.default_rng(13), 200, 7)
+        aggs = [("min", "v", "m"), ("max", "p", "x")]
+        jr, jng = jax.jit(lambda b: JAgg.group_by(
+            b, ["k"], [JAgg.AggSpec(*a) for a in aggs],
+            engine="sort"))(jb)
+        tr, tng = TAgg.group_by(to_port(jb), ["k"],
+                                [TAgg.AggSpec(*a) for a in aggs])
+        assert_results_match(jr, jng, tr, tng, floats=())
 
     def test_engine_knob(self):
         tconfig.set("groupby_engine", "pallas")
@@ -347,3 +364,165 @@ class TestOnehotKernelWrapper:
                                                           dtype=torch.int8),
                                       torch.zeros((4, 0)), 2)
 
+
+
+def _minmax_batch(rng, n, K):
+    f = rng.random(n) * 100 - 50
+    f[rng.random(n) < 0.05] = np.nan
+    f[rng.random(n) < 0.05] = -0.0
+    g = (rng.random(n) * 10).astype(np.float32)
+    g[rng.random(n) < 0.1] = np.nan
+    kf = rng.integers(0, K, n)
+    f[kf == 0] = np.nan  # a group whose non-null values are all NaN
+    return JBatch({
+        "k": JColumn(jnp.asarray(kf.astype(np.int32)),
+                     jnp.asarray(rng.random(n) > 0.05), JT.INT32),
+        "f": JColumn(jnp.asarray(f), jnp.asarray(rng.random(n) > 0.1),
+                     JT.FLOAT64),
+        "g": JColumn(jnp.asarray(g), jnp.asarray(rng.random(n) > 0.1),
+                     JT.FLOAT32),
+        "b": JColumn(jnp.asarray(rng.random(n) > 0.7),
+                     jnp.asarray(rng.random(n) > 0.2), JT.BOOLEAN),
+        "i8": JColumn(jnp.asarray(rng.integers(-128, 128, n)
+                                  .astype(np.int8)),
+                      jnp.asarray((rng.random(n) > 0.2) & (kf != 1)),
+                      JT.INT8),
+        "i16": JColumn(jnp.asarray(rng.integers(-3000, 3000, n)
+                                   .astype(np.int16)),
+                       jnp.asarray(rng.random(n) > 0.2), JT.INT16),
+        "v": JColumn(jnp.asarray(rng.integers(-(2**62), 2**62, n)),
+                     jnp.asarray(rng.random(n) > 0.2), JT.INT64),
+    })
+
+
+MINMAX = [("min", "f", "fmin"), ("max", "f", "fmax"), ("min", "g", "gmin"),
+          ("max", "g", "gmax"), ("min", "b", "bmin"), ("max", "b", "bmax"),
+          ("min", "i8", "i8min"), ("max", "i8", "i8max"),
+          ("min", "i16", "i16min"), ("max", "v", "vmax"),
+          ("sum", "i8", "i8sum"), ("mean", "g", "gmean"),
+          ("count", None, "c")]
+
+
+def _assert_minmax_match(jr, jng, tr, tng):
+    """Floats of min/max compare as values (NaN equal to NaN, -0.0 to
+    0.0); everything else as assert_results_match."""
+    g = int(jng)
+    assert int(tng) == g
+    for name in jr.names:
+        jv = np.asarray(jr[name].validity)[:g]
+        np.testing.assert_array_equal(tr[name].validity[:g].numpy(), jv,
+                                      err_msg=name)
+        a = tr[name].data[:g].numpy()[jv]
+        b = np.asarray(jr[name].data)[:g][jv]
+        if name == "gmean":
+            np.testing.assert_allclose(a, b, rtol=RTOL, err_msg=name)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+class TestMinMax:
+    @pytest.mark.parametrize("engine", ["sort", "kernel"])
+    def test_nan_bools_narrow_ints_and_all_null_groups(self, engine):
+        rng = np.random.default_rng(31)
+        jb = _minmax_batch(rng, 1500, 9)
+        live = rng.random(1500) > 0.1
+        specs = [JAgg.AggSpec(*a) for a in MINMAX]
+        jr, jng = jax.jit(lambda b, lv: JAgg.group_by(
+            b, ["k"], specs, row_valid=lv, engine="sort"))(
+                jb, jnp.asarray(live))
+        tr, tng = TAgg.group_by(to_port(jb), ["k"],
+                                [TAgg.AggSpec(*a) for a in MINMAX],
+                                row_valid=torch.from_numpy(live),
+                                engine=engine)
+        _assert_minmax_match(jr, jng, tr, tng)
+        # group 0's values are NaN or null: max is NaN, and so is min
+        row0 = int(np.flatnonzero(tr["k"].data.numpy()[:int(tng)] == 0)[0])
+        assert np.isnan(tr["fmax"].data[row0].item())
+        assert np.isnan(tr["fmin"].data[row0].item())
+        # group 1's int8 values are all null: the min is null
+        row1 = int(np.flatnonzero(tr["k"].data.numpy()[:int(tng)] == 1)[0])
+        assert not bool(tr["i8min"].validity[row1])
+
+    def test_against_the_reference_scatter_engine(self):
+        rng = np.random.default_rng(32)
+        jb = _minmax_batch(rng, 800, 5)
+        specs = [JAgg.AggSpec(*a) for a in MINMAX]
+        jr, jng = jax.jit(lambda b: JAgg.group_by(
+            b, ["k"], specs, engine="scatter"))(jb)
+        tr, tng = TAgg.group_by(to_port(jb), ["k"],
+                                [TAgg.AggSpec(*a) for a in MINMAX])
+        _assert_minmax_match(jr, jng, tr, tng)
+
+    def test_domain_engine_sums_narrow_ints_and_float32(self):
+        rng = np.random.default_rng(37)
+        jb = _minmax_batch(rng, 900, 6)
+        aggs = [("sum", "i8", "s8"), ("mean", "i16", "m16"),
+                ("sum", "g", "sg"), ("count", "b", "cb"),
+                ("sum", "b", "sb")]
+        jr, jng, _ = jax.jit(lambda b: JAgg.group_by_onehot(
+            b, "k", [JAgg.AggSpec(*a) for a in aggs], 6,
+            float_mode="f32x3", engine="pallas"))(jb)
+        tr, tng, _ = TAgg.group_by_onehot(
+            to_port(jb), "k", [TAgg.AggSpec(*a) for a in aggs], 6)
+        assert_results_match(jr, jng, tr, tng, floats=("m16", "sg"))
+
+    def test_domain_engine_rejects_min_max(self):
+        jb = _batch(np.random.default_rng(33), 50, 3)
+        with pytest.raises(ValueError, match="min/max"):
+            TAgg.group_by_onehot(to_port(jb), "k",
+                                 [TAgg.AggSpec("min", "v", "m")], 4)
+
+
+def _string_key_batch(rng, n, K, width=24):
+    cats = [f"cat-{i:02d}-{'x' * 14}" for i in range(K)] + ["", "a",
+                                                          "a\x00"]
+    kidx = rng.integers(0, len(cats), n)
+    vals = [None if rng.random() < 0.05 else cats[i] for i in kidx]
+    return JBatch({
+        "s": JString.from_pylist(vals, max_len=width),
+        "k": JColumn(jnp.asarray(rng.integers(0, 3, n).astype(np.int32)),
+                     jnp.asarray(rng.random(n) > 0.1), JT.INT32),
+        "v": JColumn(jnp.asarray(rng.integers(-1000, 1000, n)),
+                     jnp.asarray(rng.random(n) > 0.1), JT.INT64),
+        "p": JColumn(jnp.asarray(rng.random(n) * 100.0),
+                     jnp.ones((n,), jnp.bool_), JT.FLOAT64),
+    })
+
+
+STR_AGGS = [("sum", "v", "sv"), ("count", None, "c"), ("mean", "p", "mp"),
+            ("min", "v", "mn"), ("max", "p", "mx")]
+
+
+class TestStringKeys:
+    @pytest.mark.parametrize("engine", ["sort", "kernel"])
+    @pytest.mark.parametrize("keys", [["s"], ["s", "k"], ["k", "s"]])
+    def test_string_and_multi_column_keys(self, engine, keys):
+        rng = np.random.default_rng(34)
+        jb = _string_key_batch(rng, 1200, 30)
+        live = rng.random(1200) > 0.2
+        jr, jng = jax.jit(lambda b, lv: JAgg.group_by(
+            b, keys, [JAgg.AggSpec(*a) for a in STR_AGGS], row_valid=lv,
+            engine="sort"))(jb, jnp.asarray(live))
+        tr, tng = TAgg.group_by(to_port(jb), keys,
+                                [TAgg.AggSpec(*a) for a in STR_AGGS],
+                                row_valid=torch.from_numpy(live),
+                                engine=engine)
+        assert_results_match(jr, jng, tr, tng, floats=("mp",))
+
+    def test_kernel_engine_overflow_falls_back_to_sort(self):
+        """100 distinct string keys cannot fit 64 slots: the sort engine's
+        result, unchanged."""
+        rng = np.random.default_rng(35)
+        jb = _string_key_batch(rng, 600, 100)
+        jr, jng = jax.jit(lambda b: JAgg.group_by(
+            b, ["s"], [JAgg.AggSpec(*a) for a in STR_AGGS],
+            engine="sort"))(jb)
+        tr, tng = TAgg.group_by(to_port(jb), ["s"],
+                                [TAgg.AggSpec(*a) for a in STR_AGGS],
+                                engine="kernel", num_slots=64)
+        assert_results_match(jr, jng, tr, tng, floats=("mp",))
+
+    def test_string_value_columns_are_refused_as_the_reference_does(self):
+        tb = to_port(_string_key_batch(np.random.default_rng(36), 20, 3))
+        with pytest.raises(NotImplementedError, match="string"):
+            TAgg.group_by(tb, ["k"], [TAgg.AggSpec("max", "s", "m")])

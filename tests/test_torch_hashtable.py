@@ -383,3 +383,56 @@ class TestSlotRecords:
         tout = TKer.slot_table_probe_records(recs, pt, torch.from_numpy(pl))
         _assert_same(jout, tout, ("found", "slot"))
         assert tout[0].numpy()[:8].all()
+
+
+class TestStringKeyWords:
+    """The slot table at W = 8: a 24-byte string key's null flag, six char
+    words and length word (the q6str group-by and the string join), on
+    keys that share every char word and differ only in their length."""
+
+    @staticmethod
+    def _string_words(rng, n, nulls_first):
+        from spark_rapids_jni_tpu.columnar.column import StringColumn as JS
+
+        from spark_rapids_jni_tpu_torch.columnar.column import StringColumn
+
+        cats = [f"cat-{i:02d}-{'x' * 14}" for i in range(40)]
+        # equal chars, lengths 21..23: only the length word tells them apart
+        cats += ["cat-00-" + "x" * 14 + "\x00" * j for j in (1, 2)]
+        vals = [None if rng.random() < 0.05 else cats[rng.integers(
+            0, len(cats))] for _ in range(n)]
+        j = JS.from_pylist(vals, max_len=24)
+        t = StringColumn.from_pylist(vals, max_len=24, device="cpu")
+        jw = JK.batch_radix_keys([j], equality=True, nulls_first=nulls_first)
+        tw = TK.batch_radix_keys([t], equality=True, nulls_first=nulls_first)
+        assert len(tw) == 8
+        return jw, tw
+
+    @pytest.mark.parametrize("engine", ["lax", "pallas"])
+    def test_build_at_w8(self, engine, rng):
+        jw, tw = self._string_words(rng, 400, True)
+        live = rng.random(400) > 0.1
+        jout = JH.build_slot_table(jw, jnp.asarray(live), 128, engine=engine)
+        tout = TH.build_slot_table(tw, torch.from_numpy(live), 128)
+        _assert_same(jout, tout, ("owner", "slot", "overflow"))
+        # 43 keys (the null one among them) own 43 slots
+        assert int((tout[0] != 400).sum()) == len(
+            set(map(tuple, torch.stack(tw, 1)[torch.from_numpy(live)]
+                    .tolist())))
+
+    @pytest.mark.parametrize("engine", ["lax", "pallas"])
+    def test_records_and_probe_at_w8(self, engine, rng):
+        bw_j, bw_t = self._string_words(rng, 100, False)
+        live_b = np.ones(100, bool)
+        jowner, _, _ = JH.build_slot_table(bw_j, jnp.asarray(live_b), 256)
+        towner, _, _ = TH.build_slot_table(bw_t, torch.from_numpy(live_b),
+                                           256)
+        pw_j, pw_t = self._string_words(rng, 700, False)
+        pl = rng.random(700) > 0.1
+        recs = TH.slot_records(towner, bw_t)
+        assert recs.rec.shape == (256, 9)
+        jout = JH.probe_slot_table(jowner, bw_j, pw_j, jnp.asarray(pl),
+                                   engine=engine)
+        tout = TH.probe_slot_records(recs, pw_t, torch.from_numpy(pl))
+        _assert_same(jout, tout, ("found", "slot"))
+        assert tout[0].any() and not tout[0].all()

@@ -1,6 +1,6 @@
-"""PyTorch port: inner hash join and the dense-or-hash join, against the
-JAX package's hash engine.  Live output rows and the match count must be
-bit-identical."""
+"""PyTorch port: hash_join (every kind, both engines, plain, string and
+multi-column keys) and the dense-or-hash join, against the JAX package's
+engines.  Live output rows and the match count must be bit-identical."""
 
 import jax
 import jax.numpy as jnp
@@ -12,10 +12,12 @@ from spark_rapids_jni_tpu import config as jconfig
 from spark_rapids_jni_tpu.columnar import types as JT
 from spark_rapids_jni_tpu.columnar.column import Column as JColumn
 from spark_rapids_jni_tpu.columnar.column import ColumnBatch as JBatch
+from spark_rapids_jni_tpu.columnar.column import StringColumn as JString
 from spark_rapids_jni_tpu.relational import join as JJ
 
 from spark_rapids_jni_tpu_torch import config as tconfig
-from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+from spark_rapids_jni_tpu_torch.columnar.column import (StringColumn,
+                                                        batch_from_numpy)
 from spark_rapids_jni_tpu_torch.relational import join as TJ
 
 
@@ -26,9 +28,15 @@ def _reset_config():
     tconfig.reset()
 
 
+def _host(c):
+    if isinstance(c, JString):
+        return (np.asarray(c.chars), np.asarray(c.lengths))
+    return np.asarray(c.data)
+
+
 def to_port(jb):
     return batch_from_numpy(
-        {n: (np.asarray(c.data), np.asarray(c.validity), repr(c.dtype))
+        {n: (_host(c), np.asarray(c.validity), repr(c.dtype))
          for n, c in zip(jb.names, jb.columns)}, device="cpu")
 
 
@@ -52,9 +60,36 @@ def assert_join_match(jres, jcnt, tres, tcnt):
         np.testing.assert_array_equal(
             tres[name].validity[:m].numpy(),
             np.asarray(jres[name].validity)[:m], err_msg=name)
+        if isinstance(tres[name], StringColumn):
+            for buf in ("chars", "lengths"):
+                np.testing.assert_array_equal(
+                    getattr(tres[name], buf)[:m].numpy(),
+                    np.asarray(getattr(jres[name], buf))[:m],
+                    err_msg=f"{name}.{buf}")
+            continue
         np.testing.assert_array_equal(
             tres[name].data[:m].numpy().view(np.uint8),
             np.asarray(jres[name].data)[:m].view(np.uint8), err_msg=name)
+
+
+ENGINES = (("hash", "kernel"), ("sort", "sort"))
+
+
+def _both(left, right, lon, ron, how, jengine, tengine, lv=None, rv=None,
+          **kw):
+    """One join through both packages; asserts the live rows match."""
+    jr, jc = jax.jit(lambda a, b, x, y: JJ.hash_join(
+        a, b, lon, ron, how, left_valid=x, right_valid=y, engine=jengine,
+        **kw))(left, right, None if lv is None else jnp.asarray(lv),
+               None if rv is None else jnp.asarray(rv))
+    tr, tc = TJ.hash_join(to_port(left), to_port(right), lon, ron, how,
+                          left_valid=None if lv is None
+                          else torch.from_numpy(lv),
+                          right_valid=None if rv is None
+                          else torch.from_numpy(rv),
+                          engine=tengine, **kw)
+    assert_join_match(jr, jc, tr, tc)
+    return tr, tc
 
 
 class TestHashJoinInner:
@@ -131,17 +166,115 @@ class TestHashJoinInner:
     @pytest.mark.parametrize("how", ["left", "right", "full", "semi",
                                      "anti"])
     def test_other_kinds_not_ported(self, how):
+        """Once item 10's gap, every other kind now matches the
+        reference's hash engine."""
         rng = np.random.default_rng(5)
-        b = to_port(_side(rng, 5, np.arange(5, dtype=np.int64)))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TJ.hash_join(b, b, ["key"], ["key"], how)
+        right = _side(rng, 40, rng.integers(0, 30, 40).astype(np.int64))
+        left = _side(rng, 60, rng.integers(-5, 35, 60).astype(np.int64))
+        _both(left, right, ["key"], ["key"], how, "hash", "kernel",
+              capacity=200)
 
     def test_sort_engine_not_ported(self):
+        """Once item 10's gap, the sort engine now matches the
+        reference's (the ``join_engine`` knob picks it)."""
         tconfig.set("join_engine", "sort")
         rng = np.random.default_rng(6)
-        b = to_port(_side(rng, 5, np.arange(5, dtype=np.int64)))
-        with pytest.raises(NotImplementedError, match="sort join"):
-            TJ.hash_join(b, b, ["key"], ["key"])
+        right = _side(rng, 40, rng.integers(0, 30, 40).astype(np.int64))
+        left = _side(rng, 60, rng.integers(-5, 35, 60).astype(np.int64))
+        _both(left, right, ["key"], ["key"], "inner", "sort", None,
+              capacity=200)
+
+
+def _str_side(rng, n, codes, width, valid=0.9):
+    vals = [None if not ok else f"s{c:03d}" + "z" * (c % 5)
+            for c, ok in zip(codes, rng.random(n) < valid)]
+    return JBatch({
+        "s": JString.from_pylist(vals, max_len=width),
+        "i": JColumn(jnp.asarray(rng.integers(0, 3, n).astype(np.int32)),
+                     jnp.asarray(rng.random(n) > 0.05), JT.INT32),
+        "x": JColumn(jnp.asarray(rng.integers(-99, 99, n)),
+                     jnp.asarray(rng.random(n) > 0.1), JT.INT64)})
+
+
+class TestJoinKinds:
+    @pytest.mark.parametrize("how", ["inner", "left", "right", "full",
+                                     "semi", "anti"])
+    @pytest.mark.parametrize("jeng,teng", ENGINES)
+    def test_every_kind_with_nulls_duplicates_and_dead_rows(self, how, jeng,
+                                                            teng):
+        rng = np.random.default_rng(20)
+        right = _side(rng, 120, rng.integers(0, 60, 120).astype(np.int64))
+        left = _side(rng, 200, rng.integers(-10, 70, 200).astype(np.int64))
+        lv = rng.random(200) > 0.15
+        rv = rng.random(120) > 0.15
+        _both(left, right, ["key"], ["key"], how, jeng, teng, lv, rv,
+              capacity=600)
+
+    @pytest.mark.parametrize("how", ["inner", "left", "full", "anti"])
+    @pytest.mark.parametrize("jeng,teng", ENGINES)
+    def test_multi_key_strings_of_mismatched_widths(self, how, jeng, teng):
+        rng = np.random.default_rng(21)
+        right = _str_side(rng, 90, rng.integers(0, 40, 90), 12)
+        left = _str_side(rng, 150, rng.integers(0, 50, 150), 9)
+        tr, _ = _both(left, right, ["s", "i"], ["s", "i"], how, jeng, teng,
+                      capacity=400)
+        if how in ("inner", "left"):
+            assert {"x", "x_r"} <= set(tr.names)
+
+    @pytest.mark.parametrize("jeng,teng", ENGINES)
+    def test_suffixes_and_truncated_full_join(self, jeng, teng):
+        rng = np.random.default_rng(22)
+        right = _side(rng, 80, rng.integers(0, 10, 80).astype(np.int64))
+        left = _side(rng, 100, rng.integers(0, 12, 100).astype(np.int64))
+        tr, tc = _both(left, right, ["key"], ["key"], "full", jeng, teng,
+                       capacity=50, suffixes=("_l", "_r"))
+        assert int(tc) == 50 + 80 + 1  # the left-join region overflowed
+        assert "key_l" in tr.names and "key_r" in tr.names
+
+    @pytest.mark.parametrize("how", ["left", "full", "anti", "semi"])
+    @pytest.mark.parametrize("nl,nr", [(0, 10), (10, 0)])
+    def test_empty_sides_every_kind(self, how, nl, nr):
+        rng = np.random.default_rng(23)
+        left = _side(rng, nl, np.arange(nl, dtype=np.int64))
+        right = _side(rng, nr, np.arange(nr, dtype=np.int64))
+        for jeng, teng in ENGINES:
+            _both(left, right, ["key"], ["key"], how, jeng, teng)
+
+    def test_prebuilt_tables_on_both_engines(self):
+        rng = np.random.default_rng(24)
+        jright = _side(rng, 50, rng.integers(0, 30, 50).astype(np.int64))
+        jright = JBatch(dict(zip(jright.names, jright.columns),
+                             k2=JColumn(jnp.asarray(rng.integers(0, 4, 50)),
+                                        jnp.ones((50,), jnp.bool_),
+                                        JT.INT64)))
+        jleft = _side(rng, 90, rng.integers(0, 35, 90).astype(np.int64))
+        jleft = JBatch(dict(zip(jleft.names, jleft.columns),
+                            k2=JColumn(jnp.asarray(rng.integers(0, 4, 90)),
+                                       jnp.ones((90,), jnp.bool_),
+                                       JT.INT64)))
+        right = to_port(jright)
+        for jeng, teng in ENGINES:
+            bt = TJ.build_table(right, ["key", "k2"], engine=teng)
+            assert bt.engine == teng
+            jr, jc = jax.jit(lambda a, b: JJ.hash_join(
+                a, b, ["key", "k2"], ["key", "k2"], "full", capacity=300,
+                engine=jeng))(jleft, jright)
+            tr, tc = TJ.hash_join(to_port(jleft), right, ["key", "k2"],
+                                  ["key", "k2"], "full", capacity=300,
+                                  prebuilt=bt)
+            assert_join_match(jr, jc, tr, tc)
+        with pytest.raises(ValueError, match="how='right'"):
+            TJ.hash_join(to_port(jleft), right, ["key"], ["key"], "right",
+                         prebuilt=bt)
+        srt = to_port(_str_side(rng, 10, np.arange(10), 8))
+        with pytest.raises(ValueError, match="string join keys"):
+            TJ.build_table(srt, ["s"])
+
+    def test_key_type_mismatch(self):
+        rng = np.random.default_rng(25)
+        s = to_port(_str_side(rng, 10, np.arange(10), 8))
+        with pytest.raises(TypeError, match="key type mismatch"):
+            TJ.hash_join(s, s, ["s"], ["i"])
 
 
 class TestDenseOrHash:

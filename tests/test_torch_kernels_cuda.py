@@ -450,3 +450,76 @@ def test_onehot_columns_one_launch_per_group_by_and_no_stack(dev):
         config.reset("q6_group_path")
     assert KER.launches["onehot_groupby"] == 1
     assert not any(e.key == "aten::stack" for e in prof.key_averages())
+
+
+def _string_key_words(dev, n, rng, nulls_first, prefix_only=False,
+                      null=0.05):
+    """Radix words of a 24-byte string key (W = 8: null flag, six char
+    words, length word).  ``prefix_only``: every key has the same chars
+    and the keys differ only in their length word."""
+    from spark_rapids_jni_tpu_torch.columnar.column import (StringColumn,
+                                                            string_arrays)
+
+    if prefix_only:
+        table = ["cat-00-" + "x" * 14 + "\x00" * j for j in range(4)]
+    else:
+        table = [f"cat-{i:02d}-{'x' * 14}" for i in range(100)]
+    codes = rng.integers(0, len(table), n)
+    chars, lengths = string_arrays(table, codes, 24)
+    valid = rng.random(n) > null
+    col = StringColumn(torch.from_numpy(chars).to(dev),
+                       torch.from_numpy(lengths).to(dev),
+                       torch.from_numpy(valid).to(dev))
+    words = RK.batch_radix_keys([col], equality=True,
+                                nulls_first=nulls_first)
+    assert len(words) == 8
+    return words
+
+
+@pytest.mark.parametrize("case", ["q6str", "length_word_only", "join_build"])
+def test_slot_table_build_at_w8_matches_plain(dev, case):
+    rng = np.random.default_rng(11)
+    if case == "join_build":  # the string dim's build: S = 2n, all live
+        n, S, prefix = 100, 256, False
+    else:
+        n, S, prefix = 1 << 20, 4096, case == "length_word_only"
+    words = _string_key_words(dev, n, rng, case != "join_build", prefix)
+    live = torch.as_tensor(rng.random(n) > 0.5, device=dev) \
+        if case == "q6str" else torch.ones(n, dtype=torch.bool, device=dev)
+    mr = None if case == "join_build" else 64
+    KER.reset_launches()
+    got = KER.slot_table_build(words, live, S, mr)
+    assert KER.launches["slot_table_build"] == 1
+    ref = KER.slot_table_build_plain(words, live, S, S if mr is None else mr)
+    _same(got, ref)
+    assert not bool(got[2])
+    if prefix:  # four lengths and the null key: five owners
+        assert int((got[0] != n).sum()) == 5
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+def test_slot_records_and_probe_at_w8_match_plain(dev, prefix):
+    """The string join's table (a 100-row dim at S 256: 9-word records,
+    9 KB, walked from shared memory) and a 2^20-row probe."""
+    rng = np.random.default_rng(12)
+    bw = _string_key_words(dev, 100, rng, False, prefix, null=0.0)
+    S = 256
+    owner = KER.slot_table_build(
+        bw, torch.ones(100, dtype=torch.bool, device=dev), S)[0]
+    KER.reset_launches()
+    recs = KER.slot_table_records(owner, bw)
+    ref = KER.slot_table_records_plain(owner, bw)
+    assert KER.launches["slot_table_records"] == 1
+    assert recs.rec.shape == (S, 9) and S * 9 * 4 <= 48 * 1024
+    assert torch.equal(recs.rec, ref.rec)
+    assert torch.equal(recs.bound, ref.bound)
+    m = 1 << 20
+    pw = _string_key_words(dev, m, rng, False, prefix)
+    pl = torch.as_tensor(rng.random(m) > 0.1, device=dev)
+    cb = H.chain_bound(owner, 100)
+    for rounds in (None, cb, 1):
+        got = KER.slot_table_probe_records(recs, pw, pl, rounds)
+        want = KER.slot_table_probe_plain(owner, bw, pw, pl,
+                                          S if rounds is None else rounds)
+        _same(got, want)
+    assert KER.launches["slot_table_probe"] == 3

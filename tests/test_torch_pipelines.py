@@ -1,6 +1,6 @@
-"""PyTorch port: the whole q6 and q95 steps against the JAX package's
-``__graft_entry__`` steps on the same seeded data, and the port's
-isolation from JAX.
+"""PyTorch port: the whole q6, q95, q6str, q3 and q67 steps against the JAX
+package's ``__graft_entry__`` steps on the same seeded data and against
+their numpy oracles, and the port's isolation from JAX.
 
 Ints and counts bit-identical; float means rel 1e-5 (the reference's f32x3
 tolerance).  The JAX steps run as the reference's own tests run them on
@@ -16,6 +16,7 @@ import pytest
 
 import __graft_entry__ as ge
 from spark_rapids_jni_tpu import config as jconfig
+from spark_rapids_jni_tpu.columnar.column import StringColumn as JString
 
 from spark_rapids_jni_tpu_torch import config as tconfig
 from spark_rapids_jni_tpu_torch import pipelines as TP
@@ -33,9 +34,15 @@ def _reset_config():
     tconfig.reset()
 
 
+def _host(c):
+    if isinstance(c, JString):
+        return (np.asarray(c.chars), np.asarray(c.lengths))
+    return np.asarray(c.data)
+
+
 def to_port(jb):
     return batch_from_numpy(
-        {n: (np.asarray(c.data), np.asarray(c.validity), repr(c.dtype))
+        {n: (_host(c), np.asarray(c.validity), repr(c.dtype))
          for n, c in zip(jb.names, jb.columns)}, device="cpu")
 
 
@@ -120,6 +127,61 @@ def test_q95_stage_prefixes_match_reference(upto):
     for name in jb.names:
         np.testing.assert_array_equal(tb[name].data[:m].numpy(),
                                       np.asarray(jb[name].data)[:m])
+
+
+@pytest.mark.parametrize("engine", ["auto", "sort"])
+def test_q6str_step_matches_reference(engine):
+    jconfig.set("groupby_engine", "sort")
+    tconfig.set("groupby_engine", engine)
+    n = 4096
+    jres, jng = jit_fresh(ge._q6str_step)(ge._q6str_batch(n, seed=5))
+    tb = TP.q6str_batch(n, seed=5, device="cpu")
+    tres, tng = TP.q6str_step(tb)
+    assert int(tng) == int(jng) == 100
+    assert tres["k"].to_pylist()[:100] == jres["k"].to_pylist()[:100]
+    for name in ("sum_v", "cnt"):
+        np.testing.assert_array_equal(tres[name].data[:100].numpy(),
+                                      np.asarray(jres[name].data)[:100])
+    np.testing.assert_allclose(tres["avg_price"].data[:100].numpy(),
+                               np.asarray(jres["avg_price"].data)[:100],
+                               rtol=RTOL)
+    kidx, _, v, price = TP.q6str_arrays(n, seed=5)
+    keys, sums, cnts, avgs = TP.q6str_oracle(kidx, v, price)
+    got = TP.result_groups(tres, tng, "k")
+    assert list(got) == keys
+    for k, sm, c, a in zip(keys, sums, cnts, avgs):
+        assert got[k]["sum_v"] == int(sm) and got[k]["cnt"] == int(c)
+        assert abs(got[k]["avg_price"] - a) <= RTOL * abs(a)
+
+
+def test_q3_step_matches_reference():
+    jf, jd = ge._q3_batches(4096, seed=23)
+    jres, jng = jit_fresh(ge._q3_step)(jf, jd)
+    tf, td = TP.q3_batches(4096, seed=23, device="cpu")
+    tres, tng = TP.q3_step(tf, td)
+    assert_groups_match(jres, jng, tres, tng)
+    rev, cnt = TP.q3_oracle(TP.q3_arrays(4096, 23))
+    got = TP.result_groups(tres, tng, "seg")
+    assert [got[s]["rev"] for s in range(TP.Q3_SEG)] == rev.tolist()
+    assert [got[s]["cnt"] for s in range(TP.Q3_SEG)] == cnt.tolist()
+
+
+def test_q67_step_matches_reference():
+    n = 3000
+    jout = jit_fresh(ge._q67_step)(ge._q67_batch(n, seed=17))
+    tout = TP.q67_step(TP.q67_batch(n, seed=17, device="cpu"))
+    assert list(tout.names) == list(jout.names)
+    for name in jout.names:
+        jv = np.asarray(jout[name].validity)
+        np.testing.assert_array_equal(tout[name].validity.numpy(), jv)
+        np.testing.assert_array_equal(tout[name].data.numpy()[jv],
+                                      np.asarray(jout[name].data)[jv])
+    order, rank, run = TP.q67_oracle(*TP.q67_arrays(n, seed=17))
+    np.testing.assert_array_equal(tout["sorted_row"].data.numpy(), order)
+    top = rank <= TP.Q67_TOP
+    np.testing.assert_array_equal(tout["rk"].validity.numpy(), top)
+    np.testing.assert_array_equal(tout["rk"].data.numpy(), rank)
+    np.testing.assert_array_equal(tout["run_sales"].data.numpy(), run)
 
 
 def test_cpu_runs_launch_no_kernel():

@@ -18,6 +18,7 @@ import torch
 import __graft_entry__ as ge
 from spark_rapids_jni_tpu import config as jconfig
 from spark_rapids_jni_tpu import plan as jplan
+from spark_rapids_jni_tpu.columnar.column import StringColumn as JString
 from spark_rapids_jni_tpu.parallel import data_mesh, shard_batch
 from spark_rapids_jni_tpu.plan import queries as jq
 from spark_rapids_jni_tpu.shuffle import MorselSource as JMorselSource
@@ -25,7 +26,8 @@ from spark_rapids_jni_tpu.shuffle import MorselSource as JMorselSource
 from spark_rapids_jni_tpu_torch import config as tconfig
 from spark_rapids_jni_tpu_torch import pipelines as TP
 from spark_rapids_jni_tpu_torch import plan as tplan
-from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+from spark_rapids_jni_tpu_torch.columnar.column import (StringColumn,
+                                                        batch_from_numpy)
 from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
 from spark_rapids_jni_tpu_torch.plan import queries as tq
 from spark_rapids_jni_tpu_torch.shuffle import MorselSource
@@ -56,9 +58,15 @@ def _fresh():
     tplan.reset_plan_cache()
 
 
+def _host(c):
+    if isinstance(c, JString):
+        return (np.asarray(c.chars), np.asarray(c.lengths))
+    return np.asarray(c.data)
+
+
 def to_port(jb):
     return batch_from_numpy(
-        {n: (np.asarray(c.data), np.asarray(c.validity), repr(c.dtype))
+        {n: (_host(c), np.asarray(c.validity), repr(c.dtype))
          for n, c in zip(jb.names, jb.columns)}, device="cpu")
 
 
@@ -68,9 +76,15 @@ def assert_groups_match(jres, jng, tres, tng, floats=()):
     assert list(tres.names) == list(jres.names)
     for name in jres.names:
         jv = np.asarray(jres[name].validity)[:g]
-        jd = np.asarray(jres[name].data)[:g]
         np.testing.assert_array_equal(tres[name].validity[:g].numpy(), jv,
                                       err_msg=name)
+        if isinstance(tres[name], StringColumn):
+            for buf in ("chars", "lengths"):
+                np.testing.assert_array_equal(
+                    getattr(tres[name], buf)[:g].numpy(),
+                    np.asarray(getattr(jres[name], buf))[:g], err_msg=name)
+            continue
+        jd = np.asarray(jres[name].data)[:g]
         td = tres[name].data[:g].numpy()
         if name in floats:
             np.testing.assert_allclose(td[jv], jd[jv], rtol=RTOL,
@@ -340,7 +354,79 @@ def test_result_key_needs_snapshots(_fresh):
 
 
 def test_sort_is_not_ported(_fresh):
+    """Once item 10's gap: a root Sort over a scan now runs, and matches
+    the reference's permutation row for row."""
+    from spark_rapids_jni_tpu.plan.ir import Scan as JScan
+    from spark_rapids_jni_tpu.plan.ir import Sort as JSort
     from spark_rapids_jni_tpu_torch.plan.ir import Scan, Sort
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tplan.execute(Sort(Scan("batch"), ("k",)), _q6_input(0, 64))
+    jb = ge._example_batch(512, seed=4)
+    jout = jplan.execute(JSort(JScan("batch"), ("k", "v")), {"batch": jb})
+    tout = tplan.execute(Sort(Scan("batch"), ("k", "v")),
+                         {"batch": to_port(jb)})
+    for name in jout.names:
+        np.testing.assert_array_equal(tout[name].data.numpy(),
+                                      np.asarray(jout[name].data))
+
+
+@pytest.mark.parametrize("with_nulls", [False, True])
+def test_sort_with_a_live_mask_puts_dead_rows_last(_fresh, with_nulls):
+    """``_lower_sort`` under a filter: the live rows sorted by the keys
+    form a prefix (``__occ`` trick), equal to the reference's and to
+    ``np.lexsort`` of the live rows."""
+    from spark_rapids_jni_tpu.columnar.column import Column as JColumn
+    from spark_rapids_jni_tpu.columnar.column import ColumnBatch as JBatch
+    from spark_rapids_jni_tpu.plan.ir import Filter as JFilter
+    from spark_rapids_jni_tpu.plan.ir import Scan as JScan
+    from spark_rapids_jni_tpu.plan.ir import Sort as JSort
+    from spark_rapids_jni_tpu_torch.plan.ir import Filter, Scan, Sort
+
+    n = 700
+    jb = ge._example_batch(n, seed=5)
+    if with_nulls:
+        rng = np.random.default_rng(5)
+        k = jb["k"]
+        jb = JBatch(dict(zip(jb.names, jb.columns), k=JColumn(
+            k.data, np.asarray(rng.random(n) > 0.1), k.dtype)))
+    jplan_ = JSort(JFilter(JScan("batch"), "price", "<", 50.0), ("k", "v"))
+    tplan_ = Sort(Filter(Scan("batch"), "price", "<", 50.0), ("k", "v"))
+    jout, jlive = jplan.execute(jplan_, {"batch": jb})
+    tout, tlive = tplan.execute(tplan_, {"batch": to_port(jb)})
+    np.testing.assert_array_equal(tlive.numpy(), np.asarray(jlive))
+    m = int(tlive.sum())
+    assert list(tout.names) == ["k", "v", "price"]
+    for name in jout.names:
+        np.testing.assert_array_equal(tout[name].data[:m].numpy(),
+                                      np.asarray(jout[name].data)[:m])
+        np.testing.assert_array_equal(tout[name].validity[:m].numpy(),
+                                      np.asarray(jout[name].validity)[:m])
+    if not with_nulls:
+        k, v, p = (np.asarray(jb[c].data) for c in ("k", "v", "price"))
+        live = np.flatnonzero(p < 50.0)
+        want = live[np.lexsort((v[live], k[live]))]
+        np.testing.assert_array_equal(tout["v"].data[:m].numpy(), v[want])
+        np.testing.assert_array_equal(tout["k"].data[:m].numpy(), k[want])
+
+
+@pytest.mark.parametrize("engine", ["sort", "kernel"])
+def test_q6_plan_on_the_string_batch(_fresh, engine):
+    """q6_plan over q6str: a string key routes to the general group_by
+    on both engines; equal to the reference's plan, to the port's
+    q6str_step and to the numpy oracle."""
+    _fresh("groupby_engine", "sort")
+    tconfig.set("groupby_engine", engine)
+    n = 1500
+    jb = ge._q6str_batch(n)
+    jr, jng = jplan.execute(jq.q6_plan(), {"batch": jb})
+    tb = TP.q6str_batch(n, device="cpu")
+    tr, tng = tplan.execute(tq.q6_plan(), {"batch": tb})
+    assert_groups_match(jr, jng, tr, tng, floats=("avg_price",))
+    sr, sng = TP.q6str_step(tb)
+    assert TP.result_groups(tr, tng, "k").keys() == \
+        TP.result_groups(sr, sng, "k").keys()
+    kidx, _, v, price = TP.q6str_arrays(n)
+    keys, sums, cnts, _ = TP.q6str_oracle(kidx, v, price)
+    got = TP.result_groups(tr, tng, "k")
+    assert list(got) == keys
+    assert [got[k]["sum_v"] for k in keys] == [int(x) for x in sums]
+    assert [got[k]["cnt"] for k in keys] == [int(x) for x in cnts]

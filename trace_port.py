@@ -43,8 +43,16 @@ two-line summary.  It measures, at the main path's shapes:
   and the ``aten`` and CUDA runtime calls the plan makes that the step
   does not.
 
+* the relational-breadth steps (q67's window, q6str on both group-by
+  engines, the ``Sort`` plan over the q6 batch, the string inner join):
+  ``torch.profiler`` over one call after a warm-up — wall and device
+  busy ms, the device's idle share, and device time by kind of kernel
+  (sort passes, gathers and index writes, scans, the port's kernels,
+  the rest) with the top kernels.
+
 ``--only probe,onehot`` runs only those sections (the names: ``map``,
-``stream``, ``build``, ``probe``, ``onehot``, ``steps``, ``plan``).  With ``--stream-reps N``
+``stream``, ``build``, ``probe``, ``onehot``, ``steps``, ``plan``,
+``breadth``; the default runs all but ``breadth``).  With ``--stream-reps N``
 it only times N whole streamed exchanges of the 2^24-row fact table (512
 morsels); run it for two trees in turns to compare them.
 """
@@ -353,6 +361,68 @@ def trace_plan(rows):
     return res
 
 
+_KINDS = (("sort", ("sort", "radix")),
+          ("gather_index", ("index", "gather", "take")),
+          ("scan", ("scan", "cum")),
+          ("port_kernels", ("slot", "onehot", "part_scatter")))
+
+
+def kernel_kinds(kernels: dict) -> dict:
+    """Device ms by kind of kernel (first kind whose words the name
+    holds, else ``other``)."""
+    out = {k: 0.0 for k, _ in _KINDS}
+    out["other"] = 0.0
+    for name, (_c, ms) in kernels.items():
+        low = name.lower()
+        kind = next((k for k, words in _KINDS
+                     if any(w in low for w in words)), "other")
+        out[kind] += ms
+    return out
+
+
+def trace_breadth(rows):
+    """One profiled call of each relational-breadth step at ``rows``."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch import plan as PLAN
+    from spark_rapids_jni_tpu_torch.plan.ir import Filter, Scan, Sort
+    from spark_rapids_jni_tpu_torch.relational.join import hash_join
+
+    q67b = PL.q67_batch(rows)
+    q6s = PL.q6str_batch(rows)
+    sdim = PL.q6str_dim()
+    q6b = PL.example_batch(rows)
+    sort_plan = Sort(Filter(Scan("batch"), "price", "<", 50.0), ("k", "v"))
+
+    def q6str_sort():
+        config.set("groupby_engine", "sort")
+        try:
+            return PL.q6str_step(q6s)
+        finally:
+            config.reset("groupby_engine")
+
+    steps = {
+        "q67": lambda: PL.q67_step(q67b),
+        "q6str_kernel": lambda: PL.q6str_step(q6s),
+        "q6str_sort": q6str_sort,
+        "plan_sort": lambda: PLAN.execute(sort_plan, {"batch": q6b}),
+        "join_str_inner": lambda: hash_join(q6s, sdim, ["k"], ["k"]),
+    }
+    out = {}
+    for name, fn in steps.items():
+        fn()  # warm: the plan compiles, the allocator fills
+        wall, busy, kern, cpu_ops = profile(fn)
+        out[name] = {
+            "wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall,
+            "kernel_launches": sum(c for c, _ in kern.values()),
+            "aten_sort_calls": cpu_ops.get("aten::sort", 0),
+            "device_ms_by_kind": kernel_kinds(kern),
+            "top_kernels": dict(sorted(kern.items(),
+                                       key=lambda kv: -kv[1][1])[:8])}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="tree")
@@ -542,6 +612,8 @@ def main() -> int:
         out["steps_ms"] = trace_steps(fact, dim1, dim2, args.rows)
     if "plan" in only:
         out["plan_q6_onehot"] = trace_plan(args.rows)
+    if "breadth" in only:
+        out["breadth"] = trace_breadth(args.rows)
 
     with open(path, "w") as f:
         json.dump(out, f, indent=1, default=str)
