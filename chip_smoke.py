@@ -15,7 +15,10 @@ Phases, each printing one JSON line:
    of |x|, the reference's f32x3 tolerance), timed beside the plain
    version, a library call where one computes the same function, and the
    least time the card could take; the one-hot group-by's fused entry
-   at q6 and q95's seg and its contract entry at q6; the slot-table
+   at q6 and q95's seg and its contract entry at q6, and with decimal
+   lanes at gb_dec and gb_dec_signed (lanes bit-identical, its device
+   time, the bound and ``index_add_`` of the four lanes) and the
+   contract entry over gb_dec's decimal payload; the slot-table
    build at the joins' and group-bys' shapes, the q6str group-by's
    (W = 8) among them; the slot-table probe's record build and probe at
    both of the q95 hash join's shapes and the string join's (W = 8);
@@ -44,11 +47,30 @@ Phases, each printing one JSON line:
    dimension: two builds, two record builds and two probes at W = 8);
    ``join_kinds`` (semi, anti and full joins of the q95 fact on dim2
    with both sides' live masks);
-9. the streaming exchange: the q95 plan's first stage,
+9. decimals, each against a numpy/Python-int oracle, exactly: ``gb_dec``
+   (the reference's ``group_by_decimal_sum``: sum of a decimal(38,2) by
+   100 keys at 2^24 rows on the kernel engine, K2, and ``gb_dec_sort``
+   equal to it bit for bit; ``gb_dec_onehot``: sum, mean and count
+   through K1's decimal lanes); ``gb_dec_signed`` (signed values over
+   the decimal(38) range, 1% null, groups whose sums pass +-10^38 null,
+   and a decimal(7,2) revenue column, on K2 and through K1);
+   ``gb_dec_key`` (a decimal(7,2) key of 10^4 prices, K2 over its key
+   words at W = 3, the sort engine equal bit for bit); ``q3dec`` (TPC-H
+   q3's revenue ``price * (1 - discount)`` over the q3 shape: the dense
+   join, then K1's decimal lanes; ``q3dec_hashjoin`` through K2 and K3
+   carrying the decimal payload); ``dec_arith`` (the reference's
+   ``decimal128_multiply`` at 2^20 rows plus add, subtract, divide and
+   remainder, every row bit-identical to the CPU result, and a 4096-row
+   sample equal to Python decimal arithmetic with Spark's HALF_UP and
+   nulls for overflow and division by zero);
+10. the streaming exchange: the q95 plan's first stage,
    ``Exchange(Scan("fact"), "k")`` over a ``MorselSource`` of 8 shards
    with ``shuffle_stream`` on, checked lossless, routed, order-keeping,
    with one partition-scatter launch per morsel and no sort or gather in
-   its per-morsel path, and the map step's time split.
+   its per-morsel path, and the map step's time split; then
+   ``stream_str``: the q6str fact with a decimal(38,2) column, keyed by
+   its 24-byte string, 512 morsels, lossless, routed and order-keeping
+   with one K4 launch a morsel over the chars and limbs leaves.
 
 It then prints one ``kernels`` line and, last, ``{"ok": true, "device":
 ...}``.  Any mismatch or exception exits nonzero without that line, as
@@ -157,44 +179,48 @@ def nvidia_smi_line() -> str:
 
 def onehot_inputs(batch, key, aggs, row_valid):
     """The fused one-hot group-by's arguments as ``_domain_partials``
-    passes them: the key, the row mask, every referenced column, the int
-    and float sum columns."""
+    passes them: ``(key, key_valid, row_live, cols, int_sums,
+    float_sums)``, and the decimal sum columns' indices."""
     from spark_rapids_jni_tpu_torch.columnar import types as T
+    from spark_rapids_jni_tpu_torch.columnar.column import Decimal128Column
 
-    names, ints, floats = [], [], []
+    names, ints, floats, decs = [], [], [], []
     for a in aggs:
         if a.column is None:
             continue
         if a.column not in names:
             names.append(a.column)
         if a.op in ("sum", "mean"):
-            fl = batch[a.column].dtype.kind in T.FLOAT_KINDS
-            tgt = floats if fl else ints
+            col = batch[a.column]
+            tgt = (decs if isinstance(col, Decimal128Column) else
+                   floats if col.dtype.kind in T.FLOAT_KINDS else ints)
             if names.index(a.column) not in tgt:
                 tgt.append(names.index(a.column))
-    cols = [(batch[c].data, batch[c].validity) for c in names]
+    cols = [(batch[c].limbs if isinstance(batch[c], Decimal128Column)
+             else batch[c].data, batch[c].validity) for c in names]
     return (batch[key].data, batch[key].validity, row_valid, cols, ints,
-            floats)
+            floats), decs
 
 
 def k1_case(name, batch, key, aggs, K, row_valid):
     """The fused one-hot group-by on the raw columns the main path gives
     it, against its plain path (the reference's payload, per-bucket sums
-    and limb rebuild): ints and counts exact, floats rel 1e-5 of the sum
-    of |x|, the overflow flag equal."""
+    and limb rebuild): ints, counts and decimal lanes exact, floats rel
+    1e-5 of the sum of |x|, the overflow flag equal."""
+    from spark_rapids_jni_tpu_torch._u32 import M32
     from spark_rapids_jni_tpu_torch.ops import kernels as KER
 
-    args = onehot_inputs(batch, key, aggs, row_valid)
+    args, decs = onehot_inputs(batch, key, aggs, row_valid)
     kd, kv, live, cols, ints, floats = args
     n = kd.shape[0]
     KER.reset_launches()
-    oi, of, ovf = KER.onehot_groupby_columns(*args, K)
+    oi, of, ovf = KER.onehot_groupby_columns(*args, K, decs)
     check(KER.launches["onehot_groupby"] == 1
           and KER.launches["onehot_groupby_parts"] == 0,
           f"onehot_groupby[{name}]: {KER.launches['onehot_groupby']} fused "
           f"and {KER.launches['onehot_groupby_parts']} payload launches for "
           "one group-by")
-    ri, rf, rovf = KER.onehot_groupby_columns_plain(*args, K)
+    ri, rf, rovf = KER.onehot_groupby_columns_plain(*args, K, decs)
     torch.cuda.synchronize()
     check(torch.equal(oi, ri), f"onehot_groupby[{name}]: ints differ")
     check(bool(ovf.item()) == bool(rovf.item()),
@@ -204,7 +230,7 @@ def k1_case(name, batch, key, aggs, K, row_valid):
         absc = [(d.abs() if d.is_floating_point() else d, v)
                 for d, v in cols]
         rabs = KER.onehot_groupby_columns_plain(kd, kv, live, absc, ints,
-                                                floats, K)[1]
+                                                floats, K, decs)[1]
         rel = 0.0
         for j in range(len(floats)):
             a = of[:, 3 * j:3 * j + 3].sum(1)
@@ -214,50 +240,66 @@ def k1_case(name, batch, key, aggs, K, row_valid):
             rel = max(rel, ((a - b).abs() / scale).max().item())
         check(rel <= FLOAT_RTOL,
               f"onehot_groupby[{name}]: float sums off by {rel} of sum|x|")
-    ms = time_ms(lambda: KER.onehot_groupby_columns(*args, K))
-    plain = time_ms(lambda: KER.onehot_groupby_columns_plain(*args, K))
+    ms = time_ms(lambda: KER.onehot_groupby_columns(*args, K, decs))
+    plain = time_ms(lambda: KER.onehot_groupby_columns_plain(*args, K,
+                                                             decs))
 
-    # yardstick: index_add_ of the same columns by bucket, the bucket and
-    # the widened columns made outside the timed region
+    # yardstick: index_add_ of the same columns by bucket (a decimal
+    # column as its four u32 lanes), the bucket and the widened columns
+    # made outside the timed region
     bucket = KER.onehot_payload(kd, kv, live, [], [], [], K)[0]
     idx = torch.where(bucket >= 0, bucket, K + 1).to(torch.int64)
     vi = torch.stack([torch.ones_like(kd, dtype=torch.int64)]
                      + [v.to(torch.int64) for _, v in cols]
                      + [cols[i][0].to(torch.int64) for i in ints], 1)
+    vd = [torch.where(cols[i][1][:, None], cols[i][0], 0).view(torch.int32)
+          .to(torch.int64) & M32 for i in decs]
     vf = (torch.stack([cols[i][0] for i in floats], 1) if floats else None)
 
     def library():
         torch.zeros((K + 2, vi.shape[1]), dtype=torch.int64,
                     device=kd.device).index_add_(0, idx, vi)
+        for lanes in vd:
+            torch.zeros((K + 2, 4), dtype=torch.int64,
+                        device=kd.device).index_add_(0, idx, lanes)
         if vf is not None:
             torch.zeros((K + 2, vf.shape[1]), dtype=torch.float64,
                         device=kd.device).index_add_(0, idx, vf)
 
     lib = time_ms(library)
     # the raw columns read once: key and its validity, the row mask, each
-    # column's validity, each sum column's data; the partials written once
+    # column's validity, each sum column's data (a decimal's 16 bytes);
+    # the partials written once
     nbytes = n * (kd.element_size() + 1 + (1 if live is not None else 0)
                   + len(cols)
-                  + sum(cols[i][0].element_size() for i in ints + floats)) \
+                  + sum(cols[i][0].element_size()
+                        * cols[i][0][0].numel()
+                        for i in ints + floats + decs)) \
         + (K + 1) * (oi.shape[1] + of.shape[1]) * 8
     mi, mf = oi.shape[1], of.shape[1]
     b, by = bound_ms(nbytes, n * (mi + 3 * mf))
-    return {"shape": name, "form": "fused_columns", "n": n, "domain": K + 1,
-            "int_partials": mi, "float_partials": mf,
-            "overflow": bool(ovf.item()), "max_abs_err": err, "ms": ms,
-            "plain_ms": plain, "bound_ms": b, "bound_by": by,
-            "library_ms": lib}
+    out = {"shape": name, "form": "fused_columns", "n": n, "domain": K + 1,
+           "int_partials": mi, "float_partials": mf,
+           "decimal_columns": len(decs), "overflow": bool(ovf.item()),
+           "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b,
+           "bound_by": by, "library_ms": lib}
+    if decs:
+        out["device_ms"] = device_ms(
+            lambda: KER.onehot_groupby_columns(*args, K, decs),
+            "onehot_columns")
+    return out
 
 
 def k1_contract_case(name, batch, key, aggs, K, row_valid):
-    """The reference's contract entry (a built int8/f32 payload) on the
-    payload kernel, against its plain version."""
+    """The reference's contract entry (a built int8/f32 payload: a
+    decimal column's 16 offset byte limbs and negative flag among it) on
+    the payload kernel, against its plain version."""
     from spark_rapids_jni_tpu_torch.ops import kernels as KER
 
-    kd, kv, live, cols, ints, floats = onehot_inputs(batch, key, aggs,
-                                                     row_valid)
+    (kd, kv, live, cols, ints, floats), decs = onehot_inputs(
+        batch, key, aggs, row_valid)
     bucket, X8, F, _ = KER.onehot_payload(kd, kv, live, cols, ints, floats,
-                                          K)
+                                          K, decs)
     n, mi = X8.shape
     mf = F.shape[1]
     dom = K + 1
@@ -412,9 +454,11 @@ def k4_morsel(fact, j, invalid_tail):
     reference's form of the scatter's input)."""
     from spark_rapids_jni_tpu_torch.shuffle import service as SVC
 
+    from spark_rapids_jni_tpu_torch.shuffle.buffers import batch_leaves
+
     mb, rv = fact_morsel(fact, j, invalid_tail)
     regrouped, counts, _ = SVC._map_keys(mb, ["k"], rv, P_SHARDS)
-    return SVC._leaves(regrouped), counts.to(torch.int32).contiguous()
+    return batch_leaves(regrouped), counts.to(torch.int32).contiguous()
 
 
 def device_ms(fn, kernel_substr, reps=20):
@@ -455,12 +499,13 @@ def k4_mapped_case(name, fact, j, invalid_tail, C, base_of):
     in one launch — against the plain version on the same rounds."""
     from spark_rapids_jni_tpu_torch.ops import kernels as KER
     from spark_rapids_jni_tpu_torch.shuffle import service as SVC
+    from spark_rapids_jni_tpu_torch.shuffle.buffers import batch_leaves
 
     P = S = P_SHARDS
     mb, rv = fact_morsel(fact, j, invalid_tail)
     pid, counts, _, _ = SVC._route_count(SVC._key_pid(mb, ["k"], rv, P),
                                          P)
-    leaves = [x.contiguous() for x in SVC._leaves(mb)]
+    leaves = [x.contiguous() for x in batch_leaves(mb)]
     base = base_of(counts).to(torch.int64).contiguous()
     M = leaves[0].shape[0] // S
     nz = counts > 0
@@ -572,7 +617,7 @@ def k4_case(name, leaves, cnts, C, rounds):
             "library_ms": None}
 
 
-def phase_kernels(q6b, fact, dim1, dim2, q6s, sdim):
+def phase_kernels(q6b, fact, dim1, dim2, q6s, sdim, dec):
     """Every kernel case; returns ``{kernel: [case, ...]}`` (main shape
     first).  A case that raises is recorded and left out."""
     from spark_rapids_jni_tpu_torch import config
@@ -602,6 +647,21 @@ def phase_kernels(q6b, fact, dim1, dim2, q6s, sdim):
     # the reference's contract entry over a built payload, at q6
     run("onehot_groupby", "q6_contract", k1_contract_case, "q6_contract",
         q6b, "k", list(PL.Q6_AGGS), 100, mask)
+    # decimal lanes: gb_dec's sum/mean/count of decimal(38,2) (2^24 rows,
+    # 100 keys), gb_dec_signed's two decimal columns with nulls and
+    # negatives, and the contract entry over gb_dec's decimal payload
+    from spark_rapids_jni_tpu_torch.relational.aggregate import AggSpec
+
+    dec_aggs = [AggSpec("sum", "d", "s"), AggSpec("mean", "d", "m"),
+                AggSpec("count", "d", "c")]
+    gbd = dec["gb_dec"][1]
+    run("onehot_groupby", "gb_dec", k1_case, "gb_dec", gbd, "k", dec_aggs,
+        100, None)
+    run("onehot_groupby", "gb_dec_signed", k1_case, "gb_dec_signed",
+        dec["gb_dec_signed"][1], "k",
+        dec_aggs + [AggSpec("sum", "p", "sp")], 100, None)
+    run("onehot_groupby", "gb_dec_contract", k1_contract_case,
+        "gb_dec_contract", gbd, "k", dec_aggs, 100, None)
 
     # the join build over dim1 (S = 2 x rows, no round bound) and the
     # group-by build over q6 (S = 4096, the adaptive round bound)
@@ -1242,6 +1302,602 @@ def phase_stream(fact, k4):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# decimals: group-bys, decimal keys, q3's revenue, arithmetic, and the
+# string/decimal stream
+# ---------------------------------------------------------------------------
+
+DEC_ARITH_ROWS = 1 << 20    # the reference's decimal128_multiply row count
+DEC_SAMPLE_ROWS = 4096      # rows held against Python decimal arithmetic
+Q3_DOMAIN = 5
+
+
+def _limbs_u64(lo, hi=None):
+    """uint64[n, 2] decimal limbs from a low limb and a signed high limb
+    (default: the low limb's sign extension of a nonnegative value)."""
+    out = np.zeros((lo.shape[0], 2), np.uint64)
+    out[:, 0] = lo.astype(np.uint64)
+    if hi is not None:
+        out[:, 1] = hi.astype(np.int64).view(np.uint64)
+    return out
+
+
+def gb_dec_arrays(n, seed=70):
+    """The reference's ``group_by_decimal_sum`` rows (bench.py:2841):
+    decimal(38,2) with the low limb in [0, 2^50), then keys in [0, 100),
+    drawn in its order."""
+    r = np.random.default_rng(seed)
+    lo = r.integers(0, 1 << 50, n, dtype=np.uint64)
+    k = r.integers(0, 100, n).astype(np.int32)
+    return {"k": k, "d": _limbs_u64(lo)}
+
+
+def gb_dec_signed_arrays(n, seed=71):
+    """Signed decimal(38,2) values, about 1% null: keys 0-9 draw high
+    limbs in [2^61, 2^62) (sums pass +10^38), 10-19 in [-2^62, -2^61)
+    (sums pass -10^38), 20-59 the whole range |v| < 2^126 < 10^38 (sums
+    of about 1.7e5 such values pass 10^38 too), 60-99 |v| < 2^62 (sums
+    stay in range); and a TPC-DS revenue column decimal(7,2)."""
+    r = np.random.default_rng(seed)
+    k = r.integers(0, 100, n).astype(np.int32)
+    hi = r.integers(-(1 << 62), 1 << 62, n)
+    hi = np.where(k < 10, r.integers(1 << 61, 1 << 62, n), hi)
+    hi = np.where((k >= 10) & (k < 20), r.integers(-(1 << 62), -(1 << 61),
+                                                   n), hi)
+    lo = r.integers(0, 1 << 63, n).astype(np.uint64) * np.uint64(2) \
+        + r.integers(0, 2, n).astype(np.uint64)
+    small = r.integers(-(1 << 62), 1 << 62, n)
+    lo = np.where(k >= 60, small.view(np.uint64), lo)
+    hi = np.where(k >= 60, np.where(small < 0, -1, 0), hi)
+    return {"k": k, "d": _limbs_u64(lo, hi),
+            "d_valid": r.random(n) >= 0.01,
+            "p": r.integers(-(10 ** 7 - 1), 10 ** 7, n),
+            "p_valid": r.random(n) >= 0.01}
+
+
+def gb_dec_key_arrays(n, seed=72):
+    """A decimal(7,2) price key of 10^4 distinct values (1% null), an
+    int64 ``v`` and a signed decimal(38,2) ``d`` (2% null)."""
+    r = np.random.default_rng(seed)
+    price = r.integers(0, 10 ** 4, n) * 7 + 100
+    lo = r.integers(0, 1 << 63, n).astype(np.uint64) * np.uint64(2)
+    return {"p": price, "p_valid": r.random(n) >= 0.01,
+            "v": r.integers(-1000, 1000, n),
+            "d": _limbs_u64(lo, r.integers(-(1 << 62), 1 << 62, n)),
+            "d_valid": r.random(n) >= 0.02}
+
+
+def q3dec_arrays(n, seed=11):
+    """``_q3_batches``' recipe (__graft_entry__.py:387: keys into a dense
+    dim of n / 4 rows, five segments) with TPC-H lineitem's money
+    columns: ``l_extendedprice`` decimal(12,2) in [900.00, 105000.00)
+    and ``l_discount`` decimal(12,2) in [0.00, 0.10]."""
+    r = np.random.default_rng(seed)
+    nd = max(n // 4, 1)
+    return {"k": r.integers(0, nd, n).astype(np.int32),
+            "seg": r.integers(0, Q3_DOMAIN, n).astype(np.int32),
+            "price": r.integers(90_000, 10_500_000, n),
+            "disc": r.integers(0, 11, n), "nd": nd,
+            "dv": r.integers(0, 10, nd)}
+
+
+def dec_batches(device=None):
+    """Every decimal phase's batch at its size."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+
+    n = int(config.get("bench_rows_tpu"))
+    out = {}
+    a = gb_dec_arrays(n)
+    ones = np.ones(n, np.bool_)
+    out["gb_dec"] = (a, batch_from_numpy({
+        "k": (a["k"], ones, "int32"), "d": (a["d"], ones, "decimal(38,2)")},
+        device))
+    a = gb_dec_signed_arrays(n)
+    out["gb_dec_signed"] = (a, batch_from_numpy({
+        "k": (a["k"], ones, "int32"),
+        "d": (a["d"], a["d_valid"], "decimal(38,2)"),
+        "p": (_limbs_u64(a["p"], a["p"] >> 63), a["p_valid"],
+              "decimal(7,2)")}, device))
+    a = gb_dec_key_arrays(n)
+    out["gb_dec_key"] = (a, batch_from_numpy({
+        "p": (_limbs_u64(a["p"]), a["p_valid"], "decimal(7,2)"),
+        "v": (a["v"], ones, "int64"),
+        "d": (a["d"], a["d_valid"], "decimal(38,2)")}, device))
+    a = q3dec_arrays(n)
+    nd = a["nd"]
+    fact = batch_from_numpy({
+        "k": (a["k"], ones, "int32"), "seg": (a["seg"], ones, "int32"),
+        "price": (_limbs_u64(a["price"]), ones, "decimal(12,2)"),
+        "disc": (_limbs_u64(a["disc"]), ones, "decimal(12,2)")}, device)
+    dim = batch_from_numpy({
+        "k": (np.arange(nd, dtype=np.int32), np.ones(nd, np.bool_),
+              "int32"),
+        "dv": (a["dv"], np.ones(nd, np.bool_), "int64")}, device)
+    out["q3dec"] = (a, (fact, dim))
+    return out
+
+
+def group_sums(keys, limbs, valid, G):
+    """Exact per-group sums of decimal limbs (uint64[n, 2]) as Python
+    ints: each 16-bit chunk of the unsigned 128-bit pattern summed by
+    bincount (exact in float64: below 2^40), less 2^128 per negative."""
+    w = valid.astype(np.float64)
+    total = [0] * G
+    for j in range(8):
+        chunk = ((limbs[:, j // 4] >> np.uint64(16 * (j % 4)))
+                 & np.uint64(0xFFFF)).astype(np.float64)
+        s = np.bincount(keys, weights=chunk * w, minlength=G)
+        for g in range(G):
+            total[g] += int(s[g]) << (16 * j)
+    neg = np.bincount(keys, weights=((limbs[:, 1] >> np.uint64(63))
+                                     .astype(np.float64) * w), minlength=G)
+    return [total[g] - (int(neg[g]) << 128) for g in range(G)]
+
+
+def spark_sum(s, precision):
+    """A decimal(p, s) sum as Spark gives it: null past 10^min(38, p+10)."""
+    return s if abs(s) < 10 ** min(38, precision + 10) else None
+
+
+def spark_avg(s, cnt, precision):
+    """Spark's avg over decimal(p, 2) sums: bounded(p + 4, 6), HALF_UP."""
+    if cnt == 0:
+        return None
+    p_res = min(precision + 4, 38)
+    q, r = divmod(abs(s) * 10 ** 4, cnt)
+    q += 2 * r >= cnt
+    return (-q if s < 0 else q) if q < 10 ** p_res else None
+
+
+def decimal_groups(res, ng, key):
+    """``{key: {column: value}}`` over the live groups; decimals as their
+    unscaled Python ints."""
+    from spark_rapids_jni_tpu_torch.columnar.column import Decimal128Column
+
+    g = int(ng)
+    vals = {}
+    for name, c in zip(res.names, res.columns):
+        if isinstance(c, Decimal128Column):
+            vals[name] = Decimal128Column(c.limbs[:g], c.validity[:g],
+                                          c.dtype).to_pylist()
+        else:
+            d, v = c.data[:g].tolist(), c.validity[:g].tolist()
+            vals[name] = [x if ok else None for x, ok in zip(d, v)]
+    return {kk: {n: vals[n][i] for n in vals if n != key}
+            for i, kk in enumerate(vals[key])}
+
+
+def check_groups(got, want, label):
+    check(list(got) == list(want),
+          f"{label}: groups {list(got)[:5]}... differ from "
+          f"{list(want)[:5]}...")
+    bad = [k for k in want if got.get(k) != want[k]]
+    check(not bad, f"{label}: {len(bad)} groups differ, e.g. {bad[:3]}: "
+          f"{[got.get(k) for k in bad[:1]]} vs {[want[k] for k in bad[:1]]}")
+
+
+def same_batches(a, b, label):
+    """Two results equal bit for bit on their first rows, every leaf."""
+    from spark_rapids_jni_tpu_torch.shuffle.buffers import batch_leaves
+
+    (ra, na), (rb, nb) = a, b
+    g = int(na)
+    check(g == int(nb), f"{label}: {g} vs {int(nb)} groups")
+    for x, y in zip(batch_leaves(ra), batch_leaves(rb)):
+        check(torch.equal(x[:g], y[:g]), f"{label}: a column differs")
+
+
+def phase_gb_dec(arrays, b):
+    """``group_by_decimal_sum``: sum(d) by k on the kernel (K2) and sort
+    engines, and sum/mean/count through the fused K1's decimal lanes."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch.relational.aggregate import (
+        AggSpec, group_by, group_by_onehot)
+
+    n = b.num_rows
+    sums = group_sums(arrays["k"], arrays["d"], np.ones(n, bool), 100)
+    cnt = np.bincount(arrays["k"], minlength=100)
+    want = {g: {"s": spark_sum(sums[g], 38)} for g in range(100)}
+    counts = {}
+    outs = {}
+    for engine, needs in (("kernel", {"slot_table_build": 1}),
+                          ("sort", no_kernels())):
+        name = "gb_dec" if engine == "kernel" else "gb_dec_sort"
+        config.set("groupby_engine", engine)
+        try:
+            c, out = phase_run(
+                name, lambda: group_by(b, ["k"], [AggSpec("sum", "d", "s")]),
+                n, lambda o, nm=name: check_groups(
+                    decimal_groups(*o, "k"), want, nm),
+                ("slot_table_build",) if engine == "kernel" else (), needs,
+                {"engine": engine})
+        finally:
+            config.reset("groupby_engine")
+        counts[name], outs[engine] = c, out
+    same_batches(outs["kernel"], outs["sort"], "gb_dec_sort vs gb_dec")
+    aggs = [AggSpec("sum", "d", "s"), AggSpec("mean", "d", "m"),
+            AggSpec("count", "d", "c")]
+    want1 = {g: {"s": spark_sum(sums[g], 38),
+                 "m": spark_avg(sums[g], int(cnt[g]), 38),
+                 "c": int(cnt[g])} for g in range(100)}
+
+    def onehot():
+        res, ng, ovf = group_by_onehot(b, "k", aggs, 100)
+        return res, ng
+
+    counts["gb_dec_onehot"], _ = phase_run(
+        "gb_dec_onehot", onehot, n,
+        lambda o: check_groups(decimal_groups(*o, "k"), want1,
+                               "gb_dec_onehot"),
+        ("onehot_groupby",), {"onehot_groupby": 1, "slot_table_build": 0})
+    return counts
+
+
+def phase_gb_dec_signed(arrays, b):
+    """Signed values over the decimal(38,2) range with nulls (sums past
+    +-10^38 null) and a decimal(7,2) revenue column (sum decimal(17,2)),
+    on the kernel engine (K2) and through K1's decimal lanes."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch.relational.aggregate import (
+        AggSpec, group_by, group_by_onehot)
+
+    n = b.num_rows
+    k = arrays["k"]
+    sd = group_sums(k, arrays["d"], arrays["d_valid"], 100)
+    p_limbs = _limbs_u64(arrays["p"], arrays["p"] >> 63)
+    sp = group_sums(k, p_limbs, arrays["p_valid"], 100)
+    cd = np.bincount(k, weights=arrays["d_valid"], minlength=100)
+    cp = np.bincount(k, weights=arrays["p_valid"], minlength=100)
+    aggs = [AggSpec("sum", "d", "sd"), AggSpec("sum", "p", "sp"),
+            AggSpec("mean", "d", "md"), AggSpec("mean", "p", "mp"),
+            AggSpec("count", "d", "cd")]
+    want = {g: {"sd": spark_sum(sd[g], 38), "sp": spark_sum(sp[g], 7),
+                "md": spark_avg(sd[g], int(cd[g]), 38),
+                "mp": spark_avg(sp[g], int(cp[g]), 7), "cd": int(cd[g])}
+            for g in range(100)}
+    nulled = sum(w["sd"] is None for w in want.values())
+    check(0 < nulled < 100, f"gb_dec_signed: {nulled} overflowing groups")
+    info = {"overflow_groups": nulled}
+    counts = {}
+    config.set("groupby_engine", "kernel")
+    try:
+        counts["gb_dec_signed"], _ = phase_run(
+            "gb_dec_signed", lambda: group_by(b, ["k"], aggs), n,
+            lambda o: check_groups(decimal_groups(*o, "k"), want,
+                                   "gb_dec_signed"),
+            ("slot_table_build",), {"slot_table_build": 1}, info)
+    finally:
+        config.reset("groupby_engine")
+
+    def onehot():
+        res, ng, ovf = group_by_onehot(b, "k", aggs, 100)
+        return res, ng
+
+    counts["gb_dec_signed_onehot"], _ = phase_run(
+        "gb_dec_signed_onehot", onehot, n,
+        lambda o: check_groups(decimal_groups(*o, "k"), want,
+                               "gb_dec_signed_onehot"),
+        ("onehot_groupby",), {"onehot_groupby": 1}, info)
+    return counts
+
+
+def _minmax128(keys_sorted_idx, starts, hi, lo, op):
+    """Per-segment signed 128-bit min or max of (hi, lo) pairs taken in
+    ``keys_sorted_idx`` order, segments starting at ``starts``."""
+    h = hi[keys_sorted_idx]
+    lo_ = lo[keys_sorted_idx]
+    red = np.minimum if op == "min" else np.maximum
+    best_h = red.reduceat(h, starts)
+    seg = np.repeat(np.arange(len(starts)), np.diff(np.append(starts,
+                                                              len(h))))
+    fill = np.uint64(2 ** 64 - 1) if op == "min" else np.uint64(0)
+    best_l = red.reduceat(np.where(h == best_h[seg], lo_, fill), starts)
+    return [(int(x) << 64) | int(y) for x, y in zip(best_h, best_l)]
+
+
+def phase_gb_dec_key(arrays, b):
+    """Group by a decimal(7,2) key of 10^4 prices: count, sum(v) and
+    min/max of a decimal(38,2); K2 over the key words (W = 3), the sort
+    engine equal bit for bit, both against numpy."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch.relational import keys as RK
+    from spark_rapids_jni_tpu_torch.relational.aggregate import (AggSpec,
+                                                                 group_by)
+
+    n = b.num_rows
+    pv, p = arrays["p_valid"], arrays["p"]
+    # the oracle's groups: the null key first, then prices ascending
+    gid = np.where(pv, p, -1)
+    uniq, inv = np.unique(gid, return_inverse=True)
+    G = len(uniq)
+    cnt = np.bincount(inv, minlength=G)
+    sv = np.bincount(inv, weights=arrays["v"].astype(np.float64),
+                     minlength=G)
+    dv = arrays["d_valid"]
+    rows = np.flatnonzero(dv)
+    order = rows[np.argsort(inv[rows], kind="stable")]
+    gs, starts = np.unique(inv[order], return_index=True)
+    hi = arrays["d"][:, 1].view(np.int64)
+    lo = arrays["d"][:, 0]
+    mins = dict(zip(gs, _minmax128(order, starts, hi, lo, "min")))
+    maxs = dict(zip(gs, _minmax128(order, starts, hi, lo, "max")))
+    want = {(None if u < 0 else int(u)): {
+        "c": int(cnt[g]), "sv": int(sv[g]),
+        "nd": mins.get(g), "xd": maxs.get(g)} for g, u in enumerate(uniq)}
+    aggs = [AggSpec("count", None, "c"), AggSpec("sum", "v", "sv"),
+            AggSpec("min", "d", "nd"), AggSpec("max", "d", "xd")]
+    S = 1 << 15  # 10^4 keys: the default 4096 slots would overflow
+    counts, outs = {}, {}
+    W = len(RK.batch_radix_keys([b["p"]], equality=True, nulls_first=True))
+    for name, engine, needs, exact in (
+            ("gb_dec_key", "kernel", ("slot_table_build",),
+             {"slot_table_build": 1}),
+            ("gb_dec_key_sort", "sort", (), no_kernels())):
+        config.set("groupby_engine", engine)
+        try:
+            c, out = phase_run(
+                name, lambda: group_by(b, ["p"], aggs, num_slots=S), n,
+                lambda o, nm=name: check_groups(
+                    decimal_groups(*o, "p"), want, nm),
+                needs, exact, {"engine": engine, "key_words": W,
+                               "groups": G})
+        finally:
+            config.reset("groupby_engine")
+        counts[name], outs[engine] = c, out
+    same_batches(outs["kernel"], outs["sort"], "gb_dec_key_sort vs gb_dec_key")
+    return counts
+
+
+def q3dec_step(fact, dim, join="dense"):
+    """TPC-H q3's revenue over the q3 shape: ``rev = l_extendedprice * (1
+    - l_discount)`` at Spark's scales (1 - disc at scale 2, the product
+    at 4; an overflowing row null), the fact joined to the dim on ``k``
+    (``join_dense_or_hash``, or the hash join through K2/K3), then sum(rev)
+    and count(*) per ``seg`` (``group_by_domain_or_sort``: K1's decimal
+    lanes)."""
+    from spark_rapids_jni_tpu_torch.columnar import types as T
+    from spark_rapids_jni_tpu_torch.columnar.column import Decimal128Column
+    from spark_rapids_jni_tpu_torch.ops import decimal as D
+    from spark_rapids_jni_tpu_torch.relational.aggregate import (
+        AggSpec, group_by_domain_or_sort)
+    from spark_rapids_jni_tpu_torch.relational.join import (
+        hash_join, join_dense_or_hash)
+
+    n = fact.num_rows
+    dev = fact["k"].device
+    one = Decimal128Column(
+        torch.tensor([[1, 0]], dtype=torch.int64, device=dev).expand(n, 2),
+        torch.ones((n,), dtype=torch.bool, device=dev),
+        T.SparkType.decimal(1, 0))
+    one_minus = D.null_on_overflow(*D.sub_decimal128(one, fact["disc"], 2))
+    rev = D.null_on_overflow(*D.multiply_decimal128(fact["price"],
+                                                     one_minus, 4))
+    fact = fact.with_column("rev", rev)
+    if join == "dense":
+        joined, count = join_dense_or_hash(fact, dim, "k", "k",
+                                           dim.num_rows)
+    else:
+        joined, count = hash_join(fact, dim, ["k"], ["k"], engine="kernel")
+    live = torch.arange(joined.num_rows, device=dev) < count
+    return group_by_domain_or_sort(
+        joined, "seg", [AggSpec("sum", "rev", "rev"),
+                        AggSpec("count", None, "cnt")], Q3_DOMAIN,
+        row_valid=live)
+
+
+def phase_q3dec(arrays, fact, dim):
+    """q3's revenue, dense join then hash join (K2 build, K3 records and
+    probe carrying the decimal payload), each against the Python-int
+    oracle: sum(price * (100 - disc)) per segment, exact."""
+    seg = arrays["seg"]
+    rev = arrays["price"] * (100 - arrays["disc"])
+    sums = np.bincount(seg, weights=rev.astype(np.float64),
+                       minlength=Q3_DOMAIN)  # < 2^53: exact
+    cnt = np.bincount(seg, minlength=Q3_DOMAIN)
+    want = {g: {"rev": int(sums[g]), "cnt": int(cnt[g])}
+            for g in range(Q3_DOMAIN)}
+    counts = {}
+    for name, join, needs, exact in (
+            ("q3dec", "dense", ("onehot_groupby",),
+             {"onehot_groupby": 1, "slot_table_build": 0,
+              "slot_table_probe": 0}),
+            ("q3dec_hashjoin", "hash",
+             ("onehot_groupby", "slot_table_build", "slot_table_probe"),
+             {"onehot_groupby": 1, "slot_table_build": 1,
+              "slot_table_records": 1, "slot_table_probe": 1})):
+        counts[name], _ = phase_run(
+            name, lambda j=join: q3dec_step(fact, dim, j), fact.num_rows,
+            lambda o, nm=name: check_groups(
+                decimal_groups(*o, "seg"), want, nm),
+            needs, exact, {"join": join})
+    return counts
+
+
+def dec_arith_columns(n, device, seed_a=60, seed_b=80):
+    """The reference's ``decimal128_multiply`` operands (bench.py:3047):
+    decimal(38,2) with the low limb in [0, 2^40)."""
+    from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+
+    cols = {}
+    for name, seed in (("a", seed_a), ("b", seed_b)):
+        r = np.random.default_rng(seed)
+        lo = r.integers(0, 1 << 40, n, dtype=np.uint64)
+        cols[name] = (_limbs_u64(lo), np.ones(n, np.bool_), "decimal(38,2)")
+    b = batch_from_numpy(cols, device)
+    return b["a"], b["b"]
+
+
+DEC_OPS = (("multiply", 4), ("add", 2), ("sub", 2), ("divide", 6),
+           ("remainder", 2))
+
+
+def _one_op(a, b, op, scale):
+    from spark_rapids_jni_tpu_torch.ops import decimal as D
+
+    return D.null_on_overflow(*getattr(D, f"{op}_decimal128")(a, b, scale))
+
+
+def run_dec_ops(a, b):
+    """Every op of the phase at its result scale, Spark's nulls applied."""
+    return {op: _one_op(a, b, op, s) for op, s in DEC_OPS}
+
+
+def _dec_sample(n):
+    """The sample's unscaled operands: the phase's first rows with
+    divide-by-zero rows, +-(10^38 - 1) (add and multiply overflow) and
+    negative operands mixed in."""
+    a = [int(x) for x in np.random.default_rng(60).integers(0, 1 << 40, n)]
+    b = [int(x) for x in np.random.default_rng(80).integers(0, 1 << 40, n)]
+    top = 10 ** 38 - 1
+    for i in range(n):
+        if i % 97 == 0:
+            b[i] = 0
+        if i % 89 == 0:
+            a[i] = top if i % 2 else -top
+        if i % 7 == 0:
+            a[i] = -a[i]
+        if i % 11 == 0:
+            b[i] = -b[i]
+    return a, b
+
+
+def python_decimal_ops(av, bv):
+    """Spark's results from Python ``decimal``: HALF_UP at each op's
+    scale; overflow past 38 digits and division by zero null."""
+    import decimal as pydec
+
+    pydec.getcontext().prec = 200
+    out = {op: [] for op, _ in DEC_OPS}
+    for x, y in zip(av, bv):
+        a, b = pydec.Decimal(x).scaleb(-2), pydec.Decimal(y).scaleb(-2)
+        for op, s in DEC_OPS:
+            if op in ("divide", "remainder") and y == 0:
+                out[op].append(None)
+                continue
+            v = {"multiply": lambda: a * b, "add": lambda: a + b,
+                 "sub": lambda: a - b, "divide": lambda: a / b,
+                 "remainder": lambda: a - b * int(a / b)}[op]()
+            q = v.quantize(pydec.Decimal(1).scaleb(-s),
+                           rounding=pydec.ROUND_HALF_UP).scaleb(s)
+            out[op].append(int(q) if abs(q) < 10 ** 38 else None)
+    return out
+
+
+def phase_dec_arith():
+    """``decimal128_multiply`` at its 2^20 rows plus add, subtract, divide
+    and remainder: every row bit-identical to the port's CPU result on
+    the same data, and a 4096-row sample equal to Python decimal
+    arithmetic with Spark's rounding and nulls."""
+    from spark_rapids_jni_tpu_torch.columnar.column import Decimal128Column
+
+    n = DEC_ARITH_ROWS
+    a, b = dec_arith_columns(n, None)
+    out, counts, first_s = driven(run_dec_ops, a, b)
+    check_counts("dec_arith", counts, (), no_kernels())
+    ca, cb = dec_arith_columns(n, "cpu")
+    t0 = time.perf_counter()
+    cpu = run_dec_ops(ca, cb)
+    cpu_s = time.perf_counter() - t0
+    for op, _ in DEC_OPS:
+        check(torch.equal(out[op].limbs.cpu(), cpu[op].limbs)
+              and torch.equal(out[op].validity.cpu(), cpu[op].validity),
+              f"dec_arith: {op} differs from the CPU result")
+    av, bv = _dec_sample(DEC_SAMPLE_ROWS)
+    sa = Decimal128Column.from_unscaled(av, 38, 2)
+    sb = Decimal128Column.from_unscaled(bv, 38, 2)
+    got = run_dec_ops(sa, sb)
+    want = python_decimal_ops(av, bv)
+    nulls = {}
+    for op, _ in DEC_OPS:
+        g = got[op].to_pylist()
+        bad = [i for i, (x, y) in enumerate(zip(g, want[op])) if x != y]
+        check(not bad, f"dec_arith: {op} sample differs from Python "
+              f"decimal at {len(bad)} rows, e.g. row {bad[:1]}")
+        nulls[op] = sum(x is None for x in want[op])
+    ms = {op: time_ms(lambda o=op, s=s: _one_op(a, b, o, s), reps=3)
+          for op, s in DEC_OPS}
+    total = sum(ms.values())
+    emit({"phase": "dec_arith", "rows": n, "launches": counts,
+          "first_run_s": first_s, "ms": total,
+          "mrows_per_s": n / (total * 1e-3) / 1e6, "ms_by_op": ms,
+          "cpu_check_s": cpu_s, "sample_rows": DEC_SAMPLE_ROWS,
+          "sample_nulls": nulls})
+    return counts
+
+
+def stream_str_batch(q6s, seed=73):
+    """The q6str fact with a decimal(38,2) column: signed, 2% null."""
+    from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+
+    n = q6s.num_rows
+    r = np.random.default_rng(seed)
+    lo = r.integers(0, 1 << 63, n).astype(np.uint64) * np.uint64(2)
+    d = batch_from_numpy({"d": (_limbs_u64(lo, r.integers(
+        -(1 << 62), 1 << 62, n)), r.random(n) >= 0.02, "decimal(38,2)")},
+        q6s["v"].device)["d"]
+    return q6s.with_column("d", d)
+
+
+def phase_stream_str(fact):
+    """The streamed exchange of the q6str fact keyed by its 24-byte string
+    column, with a decimal(38,2) column riding along: 8 shards, 512
+    morsels; lossless, routed and order-keeping, and K4 launched once a
+    morsel over the chars and limbs leaves."""
+    from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
+    from spark_rapids_jni_tpu_torch.parallel.partition import \
+        spark_partition_id
+    from spark_rapids_jni_tpu_torch.shuffle import (MorselSource,
+                                                    ShuffleRegistry,
+                                                    ShuffleService)
+    from spark_rapids_jni_tpu_torch.shuffle.buffers import batch_leaves
+
+    P = P_SHARDS
+    n = fact.num_rows
+    src = MorselSource.from_batch(fact, ShardMesh(P))
+    svc = ShuffleService(ShardMesh(P), registry=ShuffleRegistry())
+    res, counts, first_s = driven(
+        lambda: svc.exchange_stream(src, key_names=["k"]))
+    out, occ = res.batch, res.occupancy
+    check(res.rows_moved == n, f"stream_str: rows_moved {res.rows_moved}")
+    check(int(occ.sum().item()) == n, "stream_str: occupied rows != input")
+    check(counts["partition_scatter"] == res.morsels == len(src),
+          f"stream_str: {counts['partition_scatter']} scatter launches for "
+          f"{res.morsels} morsels")
+    total = occ.shape[0]
+    dev = occ.device
+    shard = torch.arange(total, device=dev) // (total // P)
+    pid = spark_partition_id([out["k"]], P).to(torch.int64)
+    check(bool((pid[occ] == shard[occ]).all().item()),
+          "stream_str: an occupied row sits on a shard its pid does not "
+          "name")
+    # each (destination, sender) bucket's delivered rows, in slot order,
+    # are the input's rows of that bucket in the sender's order: lossless
+    # (a bijection onto the input rows), routed and order-keeping
+    C, rounds = res.capacity, res.rounds
+    order = torch.arange(total, device=dev).reshape(
+        P, rounds, P, C).transpose(1, 2).reshape(-1)
+    got_rows = order[occ[order]]
+    sender = torch.arange(n, device=dev) // (n // P)
+    in_pid = spark_partition_id([fact["k"]], P).to(torch.int64)
+    want_rows = torch.sort(in_pid * P + sender, stable=True).indices
+    for i, (x, y) in enumerate(zip(batch_leaves(out), batch_leaves(fact))):
+        check(torch.equal(x[got_rows], y[want_rows]),
+              f"stream_str: leaf {i} differs from the input's buckets")
+    leaves = batch_leaves(fact)
+    ms = time_ms(lambda: svc.exchange_stream(src, key_names=["k"]), reps=1,
+                 warmup=0)
+    emit({"phase": "stream_str", "rows": n, "shards": P,
+          "morsels": res.morsels, "rounds": res.rounds,
+          "capacity": res.capacity, "leaves": len(leaves),
+          "row_bytes": sum(x.element_size() * x[0].numel() for x in leaves),
+          "bytes_moved": res.bytes_moved, "launches": counts,
+          "first_run_s": first_s, "ms": ms,
+          "mrows_per_s": n / (ms * 1e-3) / 1e6, "decode_ms": res.decode_ms,
+          "sync_ms": res.sync_ms, "drain_ms": res.drain_ms})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an "
@@ -1278,8 +1934,9 @@ def main() -> int:
                             "price": (q6s_arrays[3], ones, "float64")})
     sdim = PL.q6str_dim()
 
+    dec = dec_batches()
     cases = guarded("kernels", phase_kernels, q6b, fact, dim1, dim2, q6s,
-                    sdim) or {}
+                    sdim, dec) or {}
 
     total = {k: 0 for k in REPLACES}
 
@@ -1411,10 +2068,25 @@ def main() -> int:
     breadth("join_str", phase_join_str, q6s, q6s_arrays, sdim)
     breadth("join_kinds", phase_join_kinds, fact, dim2, q95_arrays)
 
+    # decimals
+    def dec_phase(name, fn, *args):
+        got = guarded(name, fn, *args) or {}
+        for c in got.values():
+            for k in total:
+                total[k] += c.get(k, 0)
+
+    dec_phase("gb_dec", phase_gb_dec, *dec["gb_dec"])
+    dec_phase("gb_dec_signed", phase_gb_dec_signed, *dec["gb_dec_signed"])
+    dec_phase("gb_dec_key", phase_gb_dec_key, *dec["gb_dec_key"])
+    dec_phase("q3dec", phase_q3dec, dec["q3dec"][0], *dec["q3dec"][1])
+    breadth("dec_arith", phase_dec_arith)
+    del dec
+
     k4_main = (cases.get("partition_scatter") or [None])[0]
     counts = guarded("stream_exchange", phase_stream, fact, k4_main)
     for k in total:
         total[k] += (counts or {}).get(k, 0)
+    breadth("stream_str", phase_stream_str, stream_str_batch(q6s))
 
     kernels = []
     for name, lst in cases.items():

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 _ITEMS = {
-    10: "relational breadth: Decimal128 (item 10b), nested hashing",
+    10: "relational breadth",
     11: "multi-GPU",
     12: "encoded and compressed columns",
     13: "memory and spill",

@@ -6,7 +6,13 @@ Counterpart of ``spark_rapids_jni_tpu/columnar/column.py``:
   type's torch dtype and ``validity`` a ``bool`` tensor, one lane per row;
 * :class:`StringColumn` — a padded string column: ``chars uint8[n,
   max_len]`` (bytes past each row's length are zero), ``lengths
-  int32[n]`` and ``validity``, the reference's bucketed-padding layout.
+  int32[n]`` and ``validity``, the reference's bucketed-padding layout;
+* :class:`Decimal128Column` — ``limbs int64[n, 2]``, the little-endian
+  two's-complement 128-bit unscaled value bit for bit (the reference's
+  ``uint64[n, 2]`` in the port's int64 carrier: torch's uint64 lacks
+  most CUDA ops), with precision and scale on ``dtype``;
+* :class:`ListColumn` — ``offsets int32[n + 1]`` into a child column;
+  :class:`StructColumn` — named child columns and a struct validity.
 
 Like the reference, operators keep static shapes where it matters to
 them: filters and joins return padded batches plus a live-row count.
@@ -112,7 +118,134 @@ class StringColumn:
                 f"{self.chars.device})")
 
 
-AnyColumn = Union[Column, StringColumn]
+@dataclasses.dataclass
+class Decimal128Column:
+    """Decimal column: ``limbs int64[n, 2]`` (``[:, 0]`` the low, ``[:,
+    1]`` the high 64 bits of the two's-complement unscaled value) and
+    ``validity bool[n]``; precision and scale ride on ``dtype``."""
+
+    limbs: torch.Tensor
+    validity: torch.Tensor
+    dtype: T.SparkType
+
+    @property
+    def num_rows(self) -> int:
+        return self.limbs.shape[0]
+
+    @property
+    def scale(self) -> int:
+        return self.dtype.scale
+
+    @property
+    def precision(self) -> int:
+        return self.dtype.precision
+
+    @property
+    def device(self) -> torch.device:
+        return self.limbs.device
+
+    @staticmethod
+    def from_unscaled(unscaled: Sequence[Optional[int]], precision: int,
+                      scale: int, device=None) -> "Decimal128Column":
+        """Build from host Python ints (the unscaled values; ``None`` is
+        a null).  ``device=None`` means the GPU."""
+        limbs = np.zeros((len(unscaled), 2), dtype=np.uint64)
+        valid = np.zeros((len(unscaled),), dtype=np.bool_)
+        for i, v in enumerate(unscaled):
+            if v is None:
+                continue
+            valid[i] = True
+            u = v & ((1 << 128) - 1)
+            limbs[i, 0] = u & ((1 << 64) - 1)
+            limbs[i, 1] = u >> 64
+        dev = resolve_device(device)
+        return Decimal128Column(
+            torch.from_numpy(limbs.view(np.int64)).to(dev),
+            torch.from_numpy(valid).to(dev),
+            T.SparkType.decimal(precision, scale))
+
+    def to_pylist(self) -> list:
+        """Unscaled Python ints, ``None`` for nulls."""
+        limbs = self.limbs.cpu().numpy().view(np.uint64)
+        valid = self.validity.cpu().numpy()
+        out = []
+        for i in range(limbs.shape[0]):
+            if not valid[i]:
+                out.append(None)
+                continue
+            u = (int(limbs[i, 1]) << 64) | int(limbs[i, 0])
+            out.append(u - (1 << 128) if u >= 1 << 127 else u)
+        return out
+
+    def __repr__(self):
+        return (f"Decimal128Column({self.dtype!r}, n={self.num_rows}, "
+                f"{self.limbs.device})")
+
+
+@dataclasses.dataclass
+class ListColumn:
+    """LIST column: ``offsets int32[n + 1]`` into ``child`` (row i's
+    elements are ``child[offsets[i]:offsets[i + 1]]``; a null row is
+    empty) and ``validity bool[n]``."""
+
+    offsets: torch.Tensor
+    child: object
+    validity: torch.Tensor
+    dtype: T.SparkType = None
+
+    def __post_init__(self):
+        if self.dtype is None:
+            self.dtype = T.SparkType.list_of(self.child.dtype)
+
+    @property
+    def num_rows(self) -> int:
+        return self.offsets.shape[0] - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.offsets.device
+
+    def __repr__(self):
+        return f"ListColumn({self.dtype!r}, n={self.num_rows})"
+
+
+class StructColumn:
+    """STRUCT column: named child columns of one length and a
+    struct-level ``validity``."""
+
+    def __init__(self, fields: Mapping[str, object], validity,
+                 dtype: Optional[T.SparkType] = None):
+        self._names = tuple(fields.keys())
+        self._children = tuple(fields.values())
+        self.validity = validity
+        self.dtype = dtype or T.SparkType.struct_of(
+            {k: v.dtype for k, v in fields.items()})
+
+    @property
+    def num_rows(self) -> int:
+        return self.validity.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.validity.device
+
+    @property
+    def field_names(self):
+        return self._names
+
+    @property
+    def children(self):
+        return self._children
+
+    def field(self, name: str):
+        return self._children[self._names.index(name)]
+
+    def __repr__(self):
+        return f"StructColumn({self.dtype!r}, n={self.num_rows})"
+
+
+AnyColumn = Union[Column, StringColumn, Decimal128Column, ListColumn,
+                  StructColumn]
 
 
 def _string_column(chars, lengths, valid, dev) -> StringColumn:
@@ -191,53 +324,86 @@ class ColumnBatch:
 HostColumn = Tuple[object, np.ndarray, Union[str, T.SparkType]]
 
 
+def _column_from_numpy(name, data, validity, typ, dev):
+    st = typ if isinstance(typ, T.SparkType) else T.from_name(str(typ))
+    # copies: the source may be a read-only view (a reference array)
+    v = np.array(validity, dtype=np.bool_, order="C")
+    if st.kind is T.Kind.STRING:
+        chars, lengths = data
+        c = np.array(chars, dtype=np.uint8, order="C")
+        ln = np.array(lengths, dtype=np.int32, order="C")
+        if c.ndim != 2 or ln.shape != v.shape or c.shape[0] != v.shape[0]:
+            raise ValueError(f"column {name!r}: chars {c.shape}, lengths "
+                             f"{ln.shape} and validity {v.shape} disagree")
+        return _string_column(c, ln, v, dev)
+    if st.kind is T.Kind.DECIMAL:
+        limbs = np.array(data, order="C")
+        if limbs.shape != v.shape + (2,) or limbs.itemsize != 8:
+            raise ValueError(f"column {name!r}: limbs {limbs.shape} must "
+                             f"be 64-bit [n, 2] beside validity {v.shape}")
+        return Decimal128Column(
+            torch.from_numpy(limbs.view(np.int64)).to(dev),
+            torch.from_numpy(v).to(dev), st)
+    if st.kind is T.Kind.LIST:
+        offsets, child = data
+        offs = np.array(offsets, dtype=np.int32, order="C")
+        if offs.shape != (v.shape[0] + 1,):
+            raise ValueError(f"column {name!r}: offsets {offs.shape} for "
+                             f"{v.shape[0]} rows")
+        return ListColumn(torch.from_numpy(offs).to(dev),
+                          _column_from_numpy(name, *child, dev),
+                          torch.from_numpy(v).to(dev), st)
+    if st.kind is T.Kind.STRUCT:
+        fields = {f: _column_from_numpy(f"{name}.{f}", *data[f], dev)
+                  for f in st.field_names}
+        return StructColumn(fields, torch.from_numpy(v).to(dev), st)
+    d = np.array(data, order="C")
+    if d.ndim != 1 or v.shape != d.shape:
+        raise ValueError(f"column {name!r}: data {d.shape} and validity "
+                         f"{v.shape} must be equal 1-D shapes")
+    return Column(torch.from_numpy(d).to(device=dev, dtype=st.torch_dtype),
+                  torch.from_numpy(v).to(dev), st)
+
+
 def batch_from_numpy(cols: Mapping[str, HostColumn],
                      device: Optional[Union[str, torch.device]] = None
                      ) -> ColumnBatch:
     """Build a :class:`ColumnBatch` from ``{name: (data, validity, type)}``.
 
     ``type`` is a :class:`types.SparkType` or its name (``'int32'``,
-    ``'float32'``, ``'string'``, ... — the reference type's ``repr``).
-    A fixed-width column's ``data`` is a 1-D array; a string column's is
-    the pair ``(chars uint8[n, max_len], lengths int32[n])``, carried bit
-    for bit.  ``device=None`` means the GPU; without one this raises
-    unless ``device='cpu'`` is passed.
+    ``'string'``, ``'decimal(38,2)'``, ``'list<int64>'``, ... — the
+    reference type's ``repr``).  ``data`` is the reference's host form,
+    carried bit for bit: a fixed-width column's 1-D array; a string
+    column's ``(chars uint8[n, max_len], lengths int32[n])``; a decimal
+    column's ``uint64[n, 2]`` limbs; a list column's ``(offsets
+    int32[n + 1], child)`` and a struct column's ``{field: child}``, each
+    child a ``(data, validity, type)`` triple.  ``device=None`` means the
+    GPU; without one this raises unless ``device='cpu'`` is passed.
     """
     dev = resolve_device(device)
-    out = {}
-    for name, (data, validity, typ) in cols.items():
-        st = typ if isinstance(typ, T.SparkType) else T.from_name(str(typ))
-        # copies: the source may be a read-only view (a reference array)
-        v = np.array(validity, dtype=np.bool_, order="C")
-        if st.kind is T.Kind.STRING:
-            chars, lengths = data
-            c = np.array(chars, dtype=np.uint8, order="C")
-            ln = np.array(lengths, dtype=np.int32, order="C")
-            if c.ndim != 2 or ln.shape != v.shape or c.shape[0] != \
-                    v.shape[0]:
-                raise ValueError(f"column {name!r}: chars {c.shape}, "
-                                 f"lengths {ln.shape} and validity "
-                                 f"{v.shape} disagree")
-            out[name] = _string_column(c, ln, v, dev)
-            continue
-        d = np.array(data, order="C")
-        if d.ndim != 1 or v.shape != d.shape:
-            raise ValueError(f"column {name!r}: data {d.shape} and validity "
-                             f"{v.shape} must be equal 1-D shapes")
-        out[name] = Column(
-            torch.from_numpy(d).to(device=dev, dtype=st.torch_dtype),
-            torch.from_numpy(v).to(dev), st)
-    return ColumnBatch(out)
+    return ColumnBatch({name: _column_from_numpy(name, data, validity, typ,
+                                                 dev)
+                        for name, (data, validity, typ) in cols.items()})
+
+
+def _column_to_numpy(c):
+    if isinstance(c, StringColumn):
+        data = (c.chars.cpu().numpy(), c.lengths.cpu().numpy())
+    elif isinstance(c, Decimal128Column):
+        data = c.limbs.cpu().numpy().view(np.uint64)
+    elif isinstance(c, ListColumn):
+        data = (c.offsets.cpu().numpy(), _column_to_numpy(c.child))
+    elif isinstance(c, StructColumn):
+        data = {f: _column_to_numpy(ch)
+                for f, ch in zip(c.field_names, c.children)}
+    else:
+        data = c.data.cpu().numpy()
+    return data, c.validity.cpu().numpy()
 
 
 def batch_to_numpy(batch: ColumnBatch) -> dict:
-    """``{name: (data, validity)}`` host arrays (test and smoke helper); a
-    string column's ``data`` is ``(chars, lengths)``."""
-    out = {}
-    for n, c in zip(batch.names, batch.columns):
-        if isinstance(c, StringColumn):
-            data = (c.chars.cpu().numpy(), c.lengths.cpu().numpy())
-        else:
-            data = c.data.cpu().numpy()
-        out[n] = (data, c.validity.cpu().numpy())
-    return out
+    """``{name: (data, validity)}`` host arrays in
+    :func:`batch_from_numpy`'s forms (a list's child and a struct's
+    fields as ``(data, validity)`` pairs)."""
+    return {n: _column_to_numpy(c)
+            for n, c in zip(batch.names, batch.columns)}

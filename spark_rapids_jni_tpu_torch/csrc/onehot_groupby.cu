@@ -16,9 +16,17 @@
 //   * each int sum in uint64 adds, mod 2^64 — Spark's non-ANSI wrap, the
 //     same bits as the reference's eight offset byte limbs recombined;
 //   * each float sum through the f32x3 Dekker split (hi, mid, lo summed
-//     in f32 per block, then f64), so the reference's tolerance holds.
-// Outputs (zeroed by the caller): uint64[K + 1, 1 + nc + ni] (count(*),
-// the nc counts, the ni int sums) and f64[K + 1, 3 nf] (hi, mid, lo).
+//     in f32 per block, then f64), so the reference's tolerance holds;
+//   * each decimal sum column (int64[n, 2] limbs, the two's-complement
+//     128-bit value) as four u64 lanes, each the sum of one u32 limb of
+//     the values, and a u32 count of the negative values.  The caller
+//     rebuilds the exact 256-bit sum as sum_j lane_j 2^(32 j) - 2^128
+//     negatives: the same integer as the reference's 16 offset byte
+//     limbs and negative flag (aggregate.py:875-894, rebuilt :987-1024).
+//     A lane stays below n 2^32 < 2^63.
+// Outputs (zeroed by the caller): uint64[K + 1, 1 + nc + ni + 5 nd]
+// (count(*), the nc counts, the ni int sums, then per decimal column its
+// four lanes and its negative count) and f64[K + 1, 3 nf] (hi, mid, lo).
 //
 // onehot_gb_kernel is the reference's contract entry: bucket int32[n] in
 // [0, domain), -1 for dead rows; int payload int8[n, mi] with |x| <= 128;
@@ -27,7 +35,8 @@
 //
 // What bounds them on the H100: bytes.  onehot_columns reads about 24 B a
 // row at q6 (key 4 + 1, v 8 + 1, price 8 + 1, live 1): ~0.12 ms at 2^24
-// rows and 3.35 TB/s; the adds are a few a byte.  The contract kernel
+// rows and 3.35 TB/s; the adds are a few a byte.  A decimal sum column
+// adds 17 B a row (limbs 16, validity 1).  The contract kernel
 // reads 4 + mi + 4 mf bytes a row of a payload someone had to build.
 //
 // What the designs do: each block keeps its partials in shared memory
@@ -36,7 +45,11 @@
 // block.  On sm_90 a shared f32 or u64 atomicAdd is a compare-and-swap
 // loop (ATOMS.CAST.SPIN) and a u32 +1 a warp-aggregated ATOMS.POPC.INC,
 // so onehot_columns keeps its counts in u32 (0.45 -> 0.33 ms at q6)
-// and only the int sums in u64.  Measured and not kept: a copy of the
+// and only the int sums and decimal lanes in u64.  A decimal row costs
+// up to four such CAS loops (a zero lane is skipped: a value in [0,
+// 2^64) touches two lanes, a negative one all four) and a u32 atomic
+// when it is negative; on ~100 hot buckets that, not bytes, is the
+// expected limit of the decimal case.  Measured and not kept: a copy of the
 // partials per warp (no gain on ~100 hot buckets) and lanes of a warp
 // adding a bucket's values first (labeled_partition + reduce: 2.5x
 // slower).  A domain whose partials pass a block's 48 KB is tiled over
@@ -119,11 +132,13 @@ struct Cols {
   int ibytes[kMaxCols];             // 1 (bool), 4 or 8
   const double* fdata[kMaxCols];    // float sum columns
   const uint8_t* fvalid[kMaxCols];
-  int nc, ni, nf;
+  const long long* ddata[kMaxCols];  // decimal sum columns, [n, 2] limbs
+  const uint8_t* dvalid[kMaxCols];
+  int nc, ni, nf, nd;
   long long n;
   int K;         // buckets 0..K, K = the null key
   int dtile;     // buckets per gridDim.y tile
-  unsigned long long* oi;  // [K + 1, 1 + nc + ni]
+  unsigned long long* oi;  // [K + 1, 1 + nc + ni + 5 nd]
   double* of;              // [K + 1, 3 nf]
   uint8_t* overflow;
 };
@@ -135,28 +150,32 @@ __device__ __forceinline__ long long load_int(const void* p, int bytes,
   return static_cast<const uint8_t*>(p)[r];
 }
 
-// shared-memory bytes of one bucket's partials: u64 int sums, u32
-// counts, f32 float limbs
-__host__ __device__ inline int bucket_bytes(int nc, int ni, int nf) {
-  return 8 * ni + 4 * (1 + nc) + 12 * nf;
+// shared-memory bytes of one bucket's partials: u64 int sums and
+// decimal lanes, u32 counts and negative counts, f32 float limbs
+__host__ __device__ inline int bucket_bytes(int nc, int ni, int nf,
+                                            int nd) {
+  return 8 * (ni + 4 * nd) + 4 * (1 + nc + nd) + 12 * nf;
 }
 
 template <bool kHasFloat>
 __global__ void __launch_bounds__(kThreads) onehot_columns(Cols a) {
-  // [dtile] rows of ni u64 sums, then of 1 + nc u32 counts, then of 3 nf
-  // f32 limbs
+  // [dtile] rows of ni + 4 nd u64 sums (int sums, then four lanes per
+  // decimal column), then of 1 + nc + nd u32 counts (count(*), the
+  // non-null counts, the negative counts), then of 3 nf f32 limbs
   extern __shared__ __align__(8) unsigned long long sbuf[];
-  const int nk = 1 + a.nc;  // count(*) and the non-null counts
-  const int mi = nk + a.ni;
+  const int nk = 1 + a.nc;       // count(*) and the non-null counts
+  const int ns = a.ni + 4 * a.nd;  // u64 partials a bucket
+  const int nu = nk + a.nd;        // u32 partials a bucket
+  const int mi = nk + a.ni + 5 * a.nd;
   const int mf = 3 * a.nf;
   const int K = a.K;
   const int d0 = blockIdx.y * a.dtile;
   const int dt = min(a.dtile, K + 1 - d0);
   unsigned long long* ss = sbuf;
-  unsigned* sc = reinterpret_cast<unsigned*>(ss + a.dtile * a.ni);
-  float* sf = reinterpret_cast<float*>(sc + a.dtile * nk);
-  for (int t = threadIdx.x; t < dt * a.ni; t += blockDim.x) ss[t] = 0;
-  for (int t = threadIdx.x; t < dt * nk; t += blockDim.x) sc[t] = 0;
+  unsigned* sc = reinterpret_cast<unsigned*>(ss + a.dtile * ns);
+  float* sf = reinterpret_cast<float*>(sc + a.dtile * nu);
+  for (int t = threadIdx.x; t < dt * ns; t += blockDim.x) ss[t] = 0;
+  for (int t = threadIdx.x; t < dt * nu; t += blockDim.x) sc[t] = 0;
   if (kHasFloat)
     for (int t = threadIdx.x; t < dt * mf; t += blockDim.x) sf[t] = 0.0f;
   __syncthreads();
@@ -180,15 +199,28 @@ __global__ void __launch_bounds__(kThreads) onehot_columns(Cols a) {
     }
     b -= d0;
     if (b < 0 || b >= dt) continue;  // another tile's bucket
-    unsigned* crow = sc + b * nk;
+    unsigned* crow = sc + b * nu;
     atomicAdd(crow, 1u);
     for (int j = 0; j < a.nc; ++j)
       if (a.cvalid[j][r]) atomicAdd(crow + 1 + j, 1u);
-    unsigned long long* srow = ss + b * a.ni;
+    unsigned long long* srow = ss + b * ns;
     for (int j = 0; j < a.ni; ++j) {
       if (!a.ivalid[j][r]) continue;
       const long long v = load_int(a.idata[j], a.ibytes[j], r);
       if (v) atomicAdd(srow + j, (unsigned long long)v);
+    }
+    for (int j = 0; j < a.nd; ++j) {
+      if (!a.dvalid[j][r]) continue;
+      const unsigned long long lo = (unsigned long long)a.ddata[j][2 * r];
+      const long long hi = a.ddata[j][2 * r + 1];
+      const unsigned long long uhi = (unsigned long long)hi;
+      const unsigned lane[4] = {(unsigned)lo, (unsigned)(lo >> 32),
+                                (unsigned)uhi, (unsigned)(uhi >> 32)};
+      unsigned long long* drow = srow + a.ni + 4 * j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (lane[q]) atomicAdd(drow + q, (unsigned long long)lane[q]);
+      if (hi < 0) atomicAdd(crow + nk + j, 1u);
     }
     if (kHasFloat) {
       float* frow = sf + b * mf;
@@ -209,16 +241,25 @@ __global__ void __launch_bounds__(kThreads) onehot_columns(Cols a) {
   }
   __syncthreads();
 
-  // one global atomic per bucket and column; the tile's rows are
-  // contiguous in the row-major outputs
+  // one global atomic per bucket and partial; the tile's rows are
+  // contiguous in the row-major outputs.  Output column of a u32
+  // partial c: c for the counts, nk + ni + 5 j + 4 for decimal j's
+  // negatives; of a u64 partial c: nk + c for the int sums, nk + ni + 5 j
+  // + q for decimal j's lane q.
   unsigned long long* oit = a.oi + (long long)d0 * mi;
-  for (int t = threadIdx.x; t < dt * nk; t += blockDim.x) {
+  for (int t = threadIdx.x; t < dt * nu; t += blockDim.x) {
     const unsigned v = sc[t];
-    if (v) atomicAdd(oit + (t / nk) * mi + t % nk, (unsigned long long)v);
+    const int c = t % nu;
+    const int col = c < nk ? c : nk + a.ni + 5 * (c - nk) + 4;
+    if (v) atomicAdd(oit + (t / nu) * mi + col, (unsigned long long)v);
   }
-  for (int t = threadIdx.x; t < dt * a.ni; t += blockDim.x) {
+  for (int t = threadIdx.x; t < dt * ns; t += blockDim.x) {
     const unsigned long long v = ss[t];
-    if (v) atomicAdd(oit + (t / a.ni) * mi + nk + t % a.ni, v);
+    const int c = t % ns;
+    const int col = c < a.ni ? nk + c
+                             : nk + a.ni + 5 * ((c - a.ni) / 4) +
+                                   (c - a.ni) % 4;
+    if (v) atomicAdd(oit + (t / ns) * mi + col, v);
   }
   if (kHasFloat) {
     double* oft = a.of + (long long)d0 * mf;
@@ -265,23 +306,23 @@ int srj_onehot_groupby(const void* bucket, const void* pi, const void* pf,
 
 // The fused group-by over raw columns.  ptrs (host array of device
 // pointers): cvalid[nc], then idata[ni], ivalid[ni], then fdata[nf],
-// fvalid[nf]; ibytes[ni] (host).  key int32/int64[n] (key_bytes),
-// key_valid bool[n], live bool[n] or null; outputs oi uint64[K + 1, 1 + nc
-// + ni] and of f64[K + 1, 3 nf] zeroed, overflow uint8[1] zeroed.
-// dtile: buckets per gridDim.y tile; dtile * (8 ni + 4 (1 + nc) + 12 nf)
-// <= the shared-memory limit (a block's count partials are u32: n <
-// 2^31 rows).
+// fvalid[nf], then ddata[nd], dvalid[nd]; ibytes[ni] (host).  key
+// int32/int64[n] (key_bytes), key_valid bool[n], live bool[n] or null;
+// outputs oi uint64[K + 1, 1 + nc + ni + 5 nd] and of f64[K + 1, 3 nf]
+// zeroed, overflow uint8[1] zeroed.  dtile: buckets per gridDim.y tile;
+// dtile * bucket_bytes <= the shared-memory limit (a block's count
+// partials are u32: n < 2^31 rows).
 int srj_onehot_columns(const void* key, int key_bytes, const void* key_valid,
                        const void* live, const int64_t* ptrs,
-                       const int* ibytes, int nc, int ni, int nf, void* oi,
-                       void* of, void* overflow, long long n, int K,
-                       int dtile, int device, void* stream) {
+                       const int* ibytes, int nc, int ni, int nf, int nd,
+                       void* oi, void* of, void* overflow, long long n,
+                       int K, int dtile, int device, void* stream) {
   if (n <= 0) return 0;
-  if (nc < 0 || ni < 0 || nf < 0 || nc > kMaxCols || ni > kMaxCols ||
-      nf > kMaxCols || K < 1 || dtile < 1 ||
-      (key_bytes != 4 && key_bytes != 8))
+  if (nc < 0 || ni < 0 || nf < 0 || nd < 0 || nc > kMaxCols ||
+      ni > kMaxCols || nf > kMaxCols || nd > kMaxCols || K < 1 ||
+      dtile < 1 || (key_bytes != 4 && key_bytes != 8))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)dtile * bucket_bytes(nc, ni, nf);
+  const size_t smem = (size_t)dtile * bucket_bytes(nc, ni, nf, nd);
   if (smem > (size_t)srj_onehot_smem_limit())
     return (int)cudaErrorInvalidValue;
   int cur = -1;
@@ -308,9 +349,14 @@ int srj_onehot_columns(const void* key, int key_bytes, const void* key_valid,
     a.fdata[j] = reinterpret_cast<const double*>(ptrs[at++]);
   for (int j = 0; j < nf; ++j)
     a.fvalid[j] = reinterpret_cast<const uint8_t*>(ptrs[at++]);
+  for (int j = 0; j < nd; ++j)
+    a.ddata[j] = reinterpret_cast<const long long*>(ptrs[at++]);
+  for (int j = 0; j < nd; ++j)
+    a.dvalid[j] = reinterpret_cast<const uint8_t*>(ptrs[at++]);
   a.nc = nc;
   a.ni = ni;
   a.nf = nf;
+  a.nd = nd;
   a.n = n;
   a.K = K;
   a.dtile = dtile;

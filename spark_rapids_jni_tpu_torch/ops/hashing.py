@@ -11,17 +11,23 @@ Counterpart of ``spark_rapids_jni_tpu/ops/hashing.py``:
   strings hash their 4-byte little-endian blocks, then each tail byte
   sign-extended through a full mix round (:func:`murmur3_bytes`);
 * XXHash64 is standard XXH64 over the same widened values, but floats
-  normalize both NaN and ``-0.0`` (:func:`xxhash64`).
+  normalize both NaN and ``-0.0`` (:func:`xxhash64`);
+* decimals of precision up to 18 hash their unscaled value as 8 bytes;
+  wider ones hash the minimal big-endian two's-complement bytes of the
+  unscaled value (Java ``BigInteger.toByteArray``) as a string;
+* a struct hashes as its leaves in order (a null struct nulls them); a
+  list folds its elements into the running hash, each element's hash
+  seeding the next, nulls skipped (Murmur3 only, as in the reference).
 
 Murmur3 lanes are u32 in the int64 carrier (:mod:`.._u32`).  XXHash64
 lanes are int64 holding the 64-bit pattern: adds, multiplies and left
 shifts wrap mod 2^64 as the u64 arithmetic does, and right shifts mask
-off the sign bits.  Decimal, list and struct hashing are ROADMAP.md
-queue 1, item 10.
+off the sign bits.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import torch
@@ -29,7 +35,8 @@ import torch
 from .._roadmap import not_ported
 from .._u32 import M32, mul32, rotl32, to_i32
 from ..columnar import types as T
-from ..columnar.column import Column, ColumnBatch, StringColumn
+from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
+                               ListColumn, StringColumn, StructColumn)
 
 DEFAULT_XXHASH64_SEED = 42
 
@@ -253,23 +260,129 @@ def _widen(col: Column, normalize_zeros: bool):
             qnan = _F64_QNAN
         bits = torch.where(torch.isnan(d), torch.full_like(bits, qnan), bits)
         return ("u32" if kind is T.Kind.FLOAT32 else "u64"), bits
-    raise not_ported(f"hash of {col.dtype!r}", 10)
+    raise NotImplementedError(f"hash of {col.dtype!r}")
+
+
+def decimal128_java_bytes(col: Decimal128Column):
+    """Minimal big-endian two's-complement bytes of each unscaled value
+    (``BigInteger.toByteArray``): ``(bytes uint8[n, 16]`` left-justified,
+    ``lengths int32[n])``."""
+    limbs = col.limbs
+    n = limbs.shape[0]
+    dev = limbs.device
+    k = torch.arange(16, device=dev)
+    le = (limbs[:, k // 8] >> (8 * (k % 8))) & 0xFF          # [n, 16]
+    negative = limbs[:, 1] < 0
+    sign_byte = torch.where(negative, 0xFF, 0)
+    eq = le.flip(1) == sign_byte[:, None]
+    lead = torch.cumprod(eq.to(torch.int64), 1).sum(1)
+    length = (16 - lead).clamp(min=1)
+    top_byte = torch.gather(le, 1, (length - 1)[:, None])[:, 0]
+    need_pad = (length < 16) & (negative ^ (top_byte >= 0x80))
+    length = length + need_pad.to(torch.int64)
+    j = k[None, :]
+    src = (length[:, None] - 1 - j).clamp(0, 15)
+    be = torch.where(j < length[:, None], torch.gather(le, 1, src), 0)
+    return be.to(torch.uint8), length.to(torch.int32)
+
+
+def _element_murmur3(col, seed):
+    if isinstance(col, StringColumn):
+        return murmur3_bytes(col.chars, col.lengths, seed)
+    if isinstance(col, Decimal128Column):
+        if col.dtype.decimal_storage_bits < 128:
+            return murmur3_u64(col.limbs[:, 0], seed)
+        return murmur3_bytes(*decimal128_java_bytes(col), seed)
+    width, vals = _widen(col, normalize_zeros=False)
+    return murmur3_u32(vals, seed) if width == "u32" else \
+        murmur3_u64(vals, seed)
+
+
+def _element_xxhash64(col, seed):
+    if isinstance(col, StringColumn):
+        return xxhash64_bytes(col.chars, col.lengths, seed)
+    if isinstance(col, Decimal128Column):
+        if col.dtype.decimal_storage_bits < 128:
+            return xxhash64_u64(col.limbs[:, 0], seed)
+        return xxhash64_bytes(*decimal128_java_bytes(col), seed)
+    width, vals = _widen(col, normalize_zeros=True)
+    return xxhash64_u32(vals, seed) if width == "u32" else \
+        xxhash64_u64(vals, seed)
 
 
 def _columns(columns) -> list:
+    """The hashed columns in order: structs expand into their fields (a
+    null struct row nulls its fields, so the fold skips them), as the
+    reference's JNI layer decomposes them."""
     cols = list(columns.columns if isinstance(columns, ColumnBatch)
                 else columns)
     if not cols:
         raise ValueError("hashing requires at least 1 column of input")
+    out = []
+
+    def expand(c, parent_valid=None):
+        if isinstance(c, StructColumn):
+            v = c.validity if parent_valid is None else \
+                c.validity & parent_valid
+            for child in c.children:
+                expand(child, v)
+            return
+        if not isinstance(c, (Column, StringColumn, Decimal128Column,
+                              ListColumn)):
+            raise not_ported(f"hash of {type(c).__name__}", 12)
+        if parent_valid is not None:
+            c = dataclasses.replace(c, validity=c.validity & parent_valid)
+        out.append(c)
+
     for c in cols:
-        if not isinstance(c, (Column, StringColumn)):
-            raise not_ported(f"hash of {type(c).__name__}", 10)
-    n = cols[0].num_rows
-    for c in cols:
+        expand(c)
+    n = out[0].num_rows
+    for c in out:
         if c.num_rows != n:
             raise ValueError(f"row count mismatch: {c.num_rows} vs {n}; "
                              "all columns must be the same size")
-    return cols
+    return out
+
+
+def _drill_list(col: ListColumn):
+    """The leaf column and each row's ``[start, end)`` leaf range: LIST
+    levels compose their offsets, a one-field STRUCT level passes to its
+    field (the reference kernel's drill, murmur_hash.cu:122-131)."""
+    start = col.offsets[:-1].to(torch.int64)
+    end = col.offsets[1:].to(torch.int64)
+    cur = col.child
+    while isinstance(cur, (ListColumn, StructColumn)):
+        if isinstance(cur, StructColumn):
+            if len(cur.children) != 1:
+                raise NotImplementedError(
+                    "hash of a multi-field STRUCT inside a LIST (the "
+                    "reference kernel assumes decomposed single-child "
+                    "structs, murmur_hash.cu:128)")
+            cur = cur.children[0]
+        else:
+            offs = cur.offsets.to(torch.int64)
+            start = offs[start.clamp(0, cur.num_rows)]
+            end = offs[end.clamp(0, cur.num_rows)]
+            cur = cur.child
+    return cur, start, end
+
+
+def _list_fold(col: ListColumn, h, element_fn):
+    """``h = hash(element, seed=h)`` over each row's elements in order,
+    null elements passing the seed through; as many steps as the longest
+    row (one host read)."""
+    from ..relational.gather import gather_column
+
+    leaf, start, end = _drill_list(col)
+    if leaf.num_rows == 0:
+        return h
+    steps = int((end - start).max().clamp(min=0).item()) if \
+        start.numel() else 0
+    for k in range(steps):
+        idx = start + k
+        g = gather_column(leaf, idx.clamp(0, leaf.num_rows - 1))
+        h = torch.where((idx < end) & g.validity, element_fn(g, h), h)
+    return h
 
 
 def murmur_hash3_32(columns: Sequence, seed: int = 42) -> Column:
@@ -279,12 +392,8 @@ def murmur_hash3_32(columns: Sequence, seed: int = 42) -> Column:
     dev = cols[0].device
     h = torch.full((n,), seed & M32, dtype=torch.int64, device=dev)
     for c in cols:
-        if isinstance(c, StringColumn):
-            e = murmur3_bytes(c.chars, c.lengths, h)
-        else:
-            width, vals = _widen(c, normalize_zeros=False)
-            e = murmur3_u32(vals, h) if width == "u32" else \
-                murmur3_u64(vals, h)
+        e = (_list_fold(c, h, _element_murmur3) if isinstance(c, ListColumn)
+             else _element_murmur3(c, h))
         h = torch.where(c.validity, e, h)
     return Column(to_i32(h), torch.ones((n,), dtype=torch.bool, device=dev),
                   T.INT32)
@@ -298,12 +407,9 @@ def xxhash64(columns: Sequence, seed: int = DEFAULT_XXHASH64_SEED) -> Column:
     h = torch.full((n,), _s64(seed & ((1 << 64) - 1)), dtype=torch.int64,
                    device=dev)
     for c in cols:
-        if isinstance(c, StringColumn):
-            e = xxhash64_bytes(c.chars, c.lengths, h)
-        else:
-            width, vals = _widen(c, normalize_zeros=True)
-            e = xxhash64_u32(vals, h) if width == "u32" else \
-                xxhash64_u64(vals, h)
-        h = torch.where(c.validity, e, h)
+        if isinstance(c, ListColumn):
+            raise NotImplementedError(
+                "xxhash64 over LIST columns (unsupported in the reference)")
+        h = torch.where(c.validity, _element_xxhash64(c, h), h)
     return Column(h, torch.ones((n,), dtype=torch.bool, device=dev),
                   T.INT64)

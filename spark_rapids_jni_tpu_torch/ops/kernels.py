@@ -4,9 +4,9 @@ Counterpart of ``spark_rapids_jni_tpu/ops/pallas_kernels.py``, all four
 kernels:
 
 * :func:`onehot_groupby_columns` — the one-hot group-by over raw columns
-  (bucket, counts, int sums mod 2^64, f32x3 float sums and the
-  out-of-domain flag in one launch); :func:`onehot_groupby_parts` is the
-  reference's contract entry over a built payload
+  (bucket, counts, int sums mod 2^64, f32x3 float sums, decimal lanes
+  and the out-of-domain flag in one launch); :func:`onehot_groupby_parts`
+  is the reference's contract entry over a built payload
   (``csrc/onehot_groupby.cu``);
 * :func:`slot_table_build` — open-addressing insert in synchronous rounds,
   all of them in one cooperative launch (``csrc/slot_table.cu``);
@@ -60,8 +60,8 @@ _SIGNATURES = {
         "srj_onehot_smem_limit": (_I, []),
         "srj_onehot_max_block_rows": (_LL, []),
         "srj_onehot_columns": (_I, [_P, _I, _P, _P, ctypes.POINTER(_LL),
-                                    ctypes.POINTER(_I), _I, _I, _I, _P, _P,
-                                    _P, _LL, _I, _I, _I, _P]),
+                                    ctypes.POINTER(_I), _I, _I, _I, _I, _P,
+                                    _P, _P, _LL, _I, _I, _I, _P]),
         "srj_onehot_error_string": (ctypes.c_char_p, [_I]),
     },
     "slot_table": {
@@ -231,16 +231,18 @@ def _int_sum_from_limbs(true_limb: torch.Tensor) -> torch.Tensor:
 
 
 def onehot_payload(key, key_valid, row_live, cols, int_sums, float_sums,
-                   K: int):
+                   K: int, dec_sums=()):
     """The reference's one-hot payload over raw columns (the contract
     entry's input): ``(bucket, X8, F, overflow)``.
 
     ``bucket`` int32[n]: ``clamp(k, 0, K-1)`` for a live non-null key, K
     for a live null key, -1 for a dead row; ``X8`` int8[n, mi]: [0]
     count(*) ones, then each column of ``cols``' validity, then 8 offset
-    byte limbs ``b - 128`` per int sum column; ``F`` f32[n, 3 nf]: the
-    Dekker limbs of each float sum column; ``overflow``: a live non-null
-    key outside ``[0, K)``.
+    byte limbs ``b - 128`` per int sum column, then per decimal sum
+    column (``cols`` data: int64[n, 2] limbs) its 16 offset byte limbs
+    and a negative flag; ``F`` f32[n, 3 nf]: the Dekker limbs of each
+    float sum column; ``overflow``: a live non-null key outside ``[0,
+    K)``.
     """
     n = key.shape[0]
     dev = key.device
@@ -253,14 +255,25 @@ def onehot_payload(key, key_valid, row_live, cols, int_sums, float_sums,
     bucket = torch.where(live, bucket, torch.full_like(bucket, -1))
     cols8 = [torch.ones((n,), dtype=torch.int8, device=dev)]
     cols8 += [(v & live).to(torch.int8) for _, v in cols]
+
+    def offset_bytes(words, vvalid):
+        for w in words:
+            for j in range(8):
+                byte = (w >> (8 * j)) & 0xFF
+                cols8.append(torch.where(vvalid, byte - 128,
+                                         torch.zeros_like(byte))
+                             .to(torch.int8))
+
     for i in int_sums:
         data, valid = cols[i]
         vvalid = valid & live
-        v = torch.where(vvalid, data.to(torch.int64), 0)
-        for j in range(8):
-            byte = (v >> (8 * j)) & 0xFF
-            cols8.append(torch.where(vvalid, byte - 128,
-                                     torch.zeros_like(byte)).to(torch.int8))
+        offset_bytes([torch.where(vvalid, data.to(torch.int64), 0)], vvalid)
+    for i in dec_sums:
+        limbs, valid = cols[i]
+        vvalid = valid & live
+        masked = torch.where(vvalid[:, None], limbs, 0)
+        offset_bytes([masked[:, 0], masked[:, 1]], vvalid)
+        cols8.append((vvalid & (masked[:, 1] < 0)).to(torch.int8))
     X8 = torch.stack(cols8, dim=1).contiguous()
     limbs = []
     for i in float_sums:
@@ -274,13 +287,14 @@ def onehot_payload(key, key_valid, row_live, cols, int_sums, float_sums,
 
 
 def onehot_groupby_columns_plain(key, key_valid, row_live, cols, int_sums,
-                                 float_sums, K: int):
+                                 float_sums, K: int, dec_sums=()):
     """Plain version of :func:`onehot_groupby_columns`: the reference's
     path — :func:`onehot_payload`, the per-bucket sums of the payload
     (:func:`onehot_groupby_parts_plain`), then each int sum rebuilt from
-    its byte limbs."""
+    its byte limbs and each decimal column's lanes from its 16."""
     bucket, X8, F, overflow = onehot_payload(key, key_valid, row_live, cols,
-                                             int_sums, float_sums, K)
+                                             int_sums, float_sums, K,
+                                             dec_sums)
     part, fpart = onehot_groupby_parts_plain(bucket, X8, F, K + 1)
     nc = len(cols)
     ints = [part[:, :1 + nc]]
@@ -288,24 +302,37 @@ def onehot_groupby_columns_plain(key, key_valid, row_live, cols, int_sums,
         s = 1 + nc + 8 * j
         true_limb = part[:, s:s + 8] + 128 * part[:, 1 + i:2 + i]
         ints.append(_int_sum_from_limbs(true_limb)[:, None])
+    s0 = 1 + nc + 8 * len(int_sums)
+    for j, i in enumerate(dec_sums):
+        s = s0 + 17 * j
+        true_limb = part[:, s:s + 16] + 128 * part[:, 1 + i:2 + i]
+        # lane q is bytes 4q .. 4q + 3; below 2^63 for n < 2^31 rows
+        for q in range(4):
+            ints.append(sum(true_limb[:, 4 * q + b:4 * q + b + 1] << (8 * b)
+                            for b in range(4)))
+        ints.append(part[:, s + 16:s + 17])
     return torch.cat(ints, dim=1), fpart, overflow
 
 
 def onehot_groupby_columns(key, key_valid, row_live, cols, int_sums,
-                           float_sums, K: int):
+                           float_sums, K: int, dec_sums=()):
     """The one-hot group-by over raw columns, in one launch.
 
     ``key`` int32/int64[n] and ``key_valid`` bool[n]; ``row_live``
     bool[n] or None (every row live); ``cols``: ``(data, validity)`` of
     every referenced column, each counted where non-null; ``int_sums`` /
-    ``float_sums``: indices into ``cols`` of the int (bool/int32/int64)
-    and float (f64) sum columns; buckets ``[0, K]``, K the null key.
-    Returns ``(ints int64[K+1, 1 + nc + ni], floats f64[K+1, 3 nf],
-    overflow bool[])``: count(*), the non-null counts and the int sums
-    mod 2^64, bit-identical to the reference's limb path; the hi, mid and
-    lo limb sums of each float column (f32 per block, then f64: within
-    rel 1e-5 of the sum of |x|); ``overflow`` True when a live non-null
-    key falls outside ``[0, K)``.
+    ``float_sums`` / ``dec_sums``: indices into ``cols`` of the int
+    (bool/int32/int64), float (f64) and decimal (int64[n, 2] limbs) sum
+    columns; buckets ``[0, K]``, K the null key.  Returns ``(ints
+    int64[K+1, 1 + nc + ni + 5 nd], floats f64[K+1, 3 nf], overflow
+    bool[])``: count(*), the non-null counts and the int sums mod 2^64,
+    bit-identical to the reference's limb path; per decimal column the
+    sums of its four u32 limbs (lanes, each exact below 2^63) and its
+    count of negative values, from which
+    :func:`..relational.aggregate.decimal_lanes_to_limbs` rebuilds the
+    exact 256-bit sum; the hi, mid and lo limb sums of each float column
+    (f32 per block, then f64: within rel 1e-5 of the sum of |x|);
+    ``overflow`` True when a live non-null key falls outside ``[0, K)``.
     """
     what = "onehot_groupby_columns"
     K = int(K)
@@ -319,8 +346,9 @@ def onehot_groupby_columns(key, key_valid, row_live, cols, int_sums,
              f"{what}: validity and row_live must be bool[n]")
     _require(len(cols) <= _ONEHOT_MAX_COLS,
              f"{what}: {len(cols)} columns exceed {_ONEHOT_MAX_COLS}")
-    _require(all(0 <= i < len(cols) for i in list(int_sums)
-                 + list(float_sums)), f"{what}: sum index out of range")
+    sums = list(int_sums) + list(float_sums) + list(dec_sums)
+    _require(all(0 <= i < len(cols) for i in sums),
+             f"{what}: sum index out of range")
     for i in int_sums:
         _require(cols[i][0].dtype in (torch.bool, torch.int32, torch.int64)
                  and cols[i][0].shape == (n,),
@@ -329,17 +357,21 @@ def onehot_groupby_columns(key, key_valid, row_live, cols, int_sums,
         _require(cols[i][0].dtype == torch.float64
                  and cols[i][0].shape == (n,),
                  f"{what}: float sum columns must be float64[n]")
-    tensors = [key] + masks + [cols[i][0] for i in list(int_sums)
-                               + list(float_sums)]
+    for i in dec_sums:
+        _require(cols[i][0].dtype == torch.int64
+                 and cols[i][0].shape == (n, 2),
+                 f"{what}: decimal sum columns must be int64[n, 2] limbs")
+    tensors = [key] + masks + [cols[i][0] for i in sums]
     if not _on_cuda(tensors, what):
         return onehot_groupby_columns_plain(key, key_valid, row_live, cols,
-                                            int_sums, float_sums, K)
+                                            int_sums, float_sums, K,
+                                            dec_sums)
     _require(all(t.is_contiguous() for t in tensors),
              f"{what}: inputs must be contiguous")
     _require(n < 1 << 31, f"{what}: n {n} too large for one launch")
     dev = key.device
-    nc, ni, nf = len(cols), len(int_sums), len(float_sums)
-    mi = 1 + nc + ni
+    nc, ni, nf, nd = len(cols), len(int_sums), len(float_sums), len(dec_sums)
+    mi = 1 + nc + ni + 5 * nd
     oi = torch.zeros((K + 1, mi), dtype=torch.int64, device=dev)
     of = torch.zeros((K + 1, 3 * nf), dtype=torch.float64, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
@@ -347,23 +379,27 @@ def onehot_groupby_columns(key, key_valid, row_live, cols, int_sums,
         return oi, of, overflow
     lib = _lib("onehot_groupby")
     limit = lib.srj_onehot_smem_limit()
-    per_bucket = 8 * ni + 4 * (1 + nc) + 12 * nf  # u64, u32 and f32 partials
+    # u64 int sums and decimal lanes, u32 counts and negative counts,
+    # f32 float limbs
+    per_bucket = 8 * (ni + 4 * nd) + 4 * (1 + nc + nd) + 12 * nf
     dtile = min(K + 1, limit // per_bucket)
     _require(dtile >= 1, f"{what}: {mi} int and {3 * nf} float partials "
              "exceed one block's shared memory")
-    ptrs = (_LL * (nc + 2 * ni + 2 * nf))(
+    ptrs = (_LL * (nc + 2 * ni + 2 * nf + 2 * nd))(
         *[v.data_ptr() for _, v in cols],
         *[cols[i][0].data_ptr() for i in int_sums],
         *[cols[i][1].data_ptr() for i in int_sums],
         *[cols[i][0].data_ptr() for i in float_sums],
-        *[cols[i][1].data_ptr() for i in float_sums])
+        *[cols[i][1].data_ptr() for i in float_sums],
+        *[cols[i][0].data_ptr() for i in dec_sums],
+        *[cols[i][1].data_ptr() for i in dec_sums])
     ibytes = (_I * max(ni, 1))(*[cols[i][0].element_size()
                                  for i in int_sums])
     rc = lib.srj_onehot_columns(
         key.data_ptr(), key.element_size(), key_valid.data_ptr(),
         None if row_live is None else row_live.data_ptr(), ptrs, ibytes,
-        nc, ni, nf, oi.data_ptr(), of.data_ptr(), overflow.data_ptr(), n, K,
-        dtile, _dev_index(dev), _stream(key))
+        nc, ni, nf, nd, oi.data_ptr(), of.data_ptr(), overflow.data_ptr(),
+        n, K, dtile, _dev_index(dev), _stream(key))
     _check(rc, lib, "srj_onehot_error_string", what)
     launches["onehot_groupby"] += 1
     return oi, of, overflow

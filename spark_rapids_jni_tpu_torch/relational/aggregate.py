@@ -15,8 +15,9 @@ pieces the q6 and q95 pipelines run:
   small static domain ``[0, domain)`` (the q6 shape): one launch of the
   one-hot group-by kernel reads the key, the row mask and the referenced
   columns once and sums count(*), the non-null counts, the int sums (mod
-  2^64, Spark's non-ANSI wraparound, the reference's byte-limb bits) and
-  the float sums (three exact Dekker f32 limbs) per bucket.
+  2^64, Spark's non-ANSI wraparound, the reference's byte-limb bits),
+  the float sums (three exact Dekker f32 limbs) and the decimal sums
+  (four u32 lanes and a negative count, rebuilt exactly) per bucket.
 * :func:`group_by_domain_or_sort`, the domain engine when every live key
   fits the domain and the general engine otherwise.
 
@@ -24,14 +25,16 @@ Spark semantics (as in the reference): null keys form their own group;
 sum, min and max ignore nulls and an all-null group gives null;
 count(col) counts non-nulls, count(*) rows; sum(int) is int64 wrapping
 mod 2^64, sum(float) and avg are float64; min skips NaN unless a group
-holds nothing else, max takes it (one NaN, greatest).  Keys may be any
-mix of plain and string columns: the general engines key on their radix
-words (a string key: a null flag, its char words and its length word).
+holds nothing else, max takes it (one NaN, greatest).  A decimal(p, s)
+sum is exact (256-bit, from u32 lanes summed per segment) and has type
+decimal(min(38, p + 10), s), null where it reaches 10^precision; its
+avg is Spark's bounded decimal(p + 4, s + 4), HALF_UP; min/max compare
+signed 128-bit values.  Keys may be any mix of plain, string and decimal
+columns: the general engines key on their radix words (a string key: a
+null flag, its char words and its length word).
 Output batches are padded to the input row count with a ``num_groups``
 count; groups are in key order, nulls first (the domain engine: key
 order, null group last).
-
-Decimal columns are ROADMAP.md queue 1, item 10b.
 """
 
 from __future__ import annotations
@@ -43,8 +46,11 @@ import torch
 
 from .. import config
 from .._roadmap import not_ported
+from .._u32 import M32
 from ..columnar import types as T
-from ..columnar.column import Column, ColumnBatch, StringColumn
+from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
+                               StringColumn)
+from ..ops import decimal as D
 from . import keys as K
 from .gather import gather_column
 
@@ -70,6 +76,9 @@ def _sum_dtype(dtype: T.SparkType) -> T.SparkType:
         return T.INT64
     if dtype.kind in T.FLOAT_KINDS:
         return T.FLOAT64
+    if dtype.kind is T.Kind.DECIMAL:
+        return T.SparkType.decimal(min(38, dtype.precision + 10),
+                                   dtype.scale)
     raise NotImplementedError(f"sum of {dtype!r}")
 
 
@@ -77,15 +86,83 @@ def _check_aggs(batch: ColumnBatch, aggs: Sequence[AggSpec]) -> None:
     for spec in aggs:
         if spec.column is not None:
             col = batch[spec.column]
-            if isinstance(col, StringColumn):
+            if isinstance(col, StringColumn) or col.dtype.is_nested:
                 raise NotImplementedError(
                     f"{spec.op} over {col.dtype!r} groups (the reference "
                     "has none either)")
-            if not isinstance(col, Column):
+            if not isinstance(col, (Column, Decimal128Column)):
                 raise not_ported(f"aggregation over {type(col).__name__}",
-                                 10)
+                                 12)
             if spec.op in ("sum", "mean"):
                 _sum_dtype(col.dtype)
+
+
+def _average_decimal_type(p: int, s: int):
+    """Spark ``Average`` over decimal(p, s): ``DecimalType.bounded(p + 4,
+    s + 4)``, a plain clamp of both to 38."""
+    return min(p + 4, 38), min(s + 4, 38)
+
+
+def decimal_lanes_to_limbs(lanes: torch.Tensor, negatives: torch.Tensor
+                           ) -> torch.Tensor:
+    """The one-hot kernel's decimal partials -> the 256-bit sum: four u64
+    lane sums of the values' u32 limbs (``[G, 4]``, each below 2^63) and
+    the count of negative values ``[G]`` give ``sum_j lane_j 2^(32 j) -
+    2^128 negatives`` as ``[8, G]`` u32 limbs (:mod:`..ops.decimal`'s
+    layout), exactly."""
+    g = lanes.shape[0]
+    s = torch.zeros((8, g), dtype=torch.int64, device=lanes.device)
+    s[:4] = lanes.t()
+    sub = torch.zeros_like(s)
+    sub[4] = negatives
+    return D._sub_u(D._carry(s), sub)
+
+
+def _decimal_sum_result(s256, has_any, dtype: T.SparkType):
+    """A 256-bit group sum as Spark's decimal sum: null where it reaches
+    10^precision of the sum type."""
+    out_t = _sum_dtype(dtype)
+    over = ~D._lt_u(D._abs(s256)[0], D._const(10 ** out_t.precision, s256))
+    return Decimal128Column(D._to_i128(s256), has_any & ~over, out_t)
+
+
+def _decimal_avg(s256, cnt, has_any, dtype: T.SparkType):
+    """Group average from exact 256-bit sums: rescale to the result
+    scale, divide by the count (below 2^32) with HALF_UP; null where it
+    reaches 10^precision."""
+    p_res, s_res = _average_decimal_type(dtype.precision, dtype.scale)
+    d = s_res - dtype.scale
+    scaled = D._mul_const(s256, 10 ** d) if d else s256
+    mag, neg = D._abs(scaled)
+    den = cnt.clamp(min=1).to(torch.int64)
+    q, rem = D._divmod_small(mag, den)
+    q = D._add_small(q, (rem * 2 >= den).to(torch.int64))
+    ok = D._lt_u(q, D._const(10 ** p_res, q))
+    signed = torch.where(neg, D._neg(q), q)
+    return Decimal128Column(D._to_i128(signed), has_any & ok,
+                            T.SparkType.decimal(p_res, s_res))
+
+
+def _decimal_minmax(limbs, valid, seg, num_segments, op, per_group):
+    """Signed 128-bit min or max per segment in two passes: the extreme
+    high limb (signed), then the extreme low limb (unsigned, compared
+    with its sign bit flipped) among the rows holding it."""
+    sign = -(1 << 63)
+    if op == "min":
+        fill_hi, fill_lo, red = (1 << 63) - 1, (1 << 63) - 1, "amin"
+    else:
+        fill_hi, fill_lo, red = sign, sign, "amax"
+    hi = torch.where(valid, limbs[:, 1], torch.full_like(limbs[:, 1],
+                                                         fill_hi))
+    lo = torch.where(valid, limbs[:, 0] ^ sign,
+                     torch.full_like(limbs[:, 0], fill_lo))
+    m_hi = torch.full((num_segments,), fill_hi, dtype=torch.int64,
+                      device=limbs.device).scatter_reduce_(0, seg, hi, red)
+    at_best = valid & (hi == m_hi[seg])
+    m_lo = torch.full((num_segments,), fill_lo, dtype=torch.int64,
+                      device=limbs.device).scatter_reduce_(
+        0, seg, torch.where(at_best, lo, torch.full_like(lo, fill_lo)), red)
+    return torch.stack([per_group(m_lo) ^ sign, per_group(m_hi)], dim=1)
 
 
 def _resolve_groupby_engine(engine):
@@ -120,9 +197,29 @@ def _segment_aggs(batch, aggs, row_live, seg, num_segments, per_group,
     ``num_segments`` bins (``seg`` per row; dead rows go to a discard
     bin), mapped to group order by ``per_group``."""
     def seg_sum(vals):
-        acc = torch.zeros((num_segments,), dtype=vals.dtype,
-                          device=vals.device)
+        acc = torch.zeros((num_segments,) + tuple(vals.shape[1:]),
+                          dtype=vals.dtype, device=vals.device)
         return per_group(acc.index_add_(0, seg, vals))
+
+    lanes_of, groups = {}, []
+
+    def decimal_sum(name, valid):
+        """A decimal column's exact 256-bit sums over the live groups, as
+        the one-hot kernel forms them: its four u32 lanes (an int32 view
+        of the limbs) summed in int64 (n < 2^31 rows of < 2^32 each) and
+        its negative values counted, once per column.  The 256-bit work
+        runs on the live groups only, not on the padded output rows: one
+        host read of their count."""
+        if not groups:
+            groups.append(int(out_valid.sum().item()))
+        g = groups[0]
+        if name not in lanes_of:
+            limbs = torch.where(valid[:, None], batch[name].limbs, 0)
+            lanes = limbs.view(torch.int32).to(torch.int64) & M32
+            lanes_of[name] = decimal_lanes_to_limbs(
+                seg_sum(lanes)[:g],
+                seg_sum((limbs[:, 1] < 0).to(torch.int64))[:g])
+        return lanes_of[name], g
 
     out = {}
     for spec in aggs:
@@ -135,6 +232,20 @@ def _segment_aggs(batch, aggs, row_live, seg, num_segments, per_group,
         col = batch[spec.column]
         valid = col.validity & row_live
         nn = seg_sum(valid.to(torch.int64))
+        if isinstance(col, Decimal128Column):
+            has_any = out_valid & (nn > 0)
+            if spec.op in ("min", "max"):
+                out[spec.out_name] = Decimal128Column(
+                    _decimal_minmax(col.limbs, valid, seg, num_segments,
+                                    spec.op, per_group), has_any,
+                    col.dtype)
+                continue
+            s256, g = decimal_sum(spec.column, valid)
+            res = (_decimal_avg(s256, nn[:g], has_any[:g], col.dtype)
+                   if spec.op == "mean"
+                   else _decimal_sum_result(s256, has_any[:g], col.dtype))
+            out[spec.out_name] = _pad_rows(res, out_valid.shape[0])
+            continue
         if spec.op in ("min", "max"):
             out[spec.out_name] = Column(
                 _segment_minmax(col.data, valid, seg, num_segments,
@@ -301,7 +412,8 @@ def group_by_onehot(batch: ColumnBatch, key_name: str,
     """Hash-aggregate over one integer key with a static domain
     ``[0, domain)`` through the one-hot group-by kernel.
 
-    sum/count/mean only.  Returns ``(result, num_groups, overflow)``;
+    sum/count/mean only (decimal sums exact, through the kernel's decimal
+    lanes).  Returns ``(result, num_groups, overflow)``;
     ``overflow`` is a device bool, True when a non-null live key falls
     outside the domain (the result is then invalid and callers fall
     back).  Float sums use the f32x3 Dekker split (the kernel has no f64
@@ -318,8 +430,12 @@ def _domain_partials(batch, key_name, aggs, domain, row_valid=None,
                      engine="auto", float_mode="f32x3"):
     """Additive per-bucket partials over buckets ``[0, K]`` (bucket K =
     null keys): ``star`` count(*) rows, ``cnt`` non-null counts, ``isum``
-    int sums and ``fsum`` float sums per referenced column.  min/max
-    are no additive partials: they stay on the general engines."""
+    int sums, ``fsum`` float sums and ``d64`` decimal sums (the 256-bit
+    two's-complement sum as ``[K + 1, 8]`` u32 limbs in int64, the
+    reference's layout, so lanes added across shards re-fold without
+    carrying out) per referenced
+    column.  min/max are no additive partials: they stay on the general
+    engines."""
     _check_aggs(batch, aggs)
     if any(spec.op in ("min", "max") for spec in aggs):
         raise ValueError("the domain engine computes sum/count/mean only; "
@@ -352,6 +468,11 @@ def _kernel_sum_dtype(data: torch.Tensor) -> torch.Tensor:
     return data
 
 
+def _column_buffer(col) -> torch.Tensor:
+    return col.limbs if isinstance(col, Decimal128Column) else \
+        _kernel_sum_dtype(col.data)
+
+
 def _domain_partials_onehot(batch, key_name, aggs, domain, row_valid,
                             float_mode):
     """The partials in one launch of the one-hot group-by kernel over the
@@ -361,7 +482,7 @@ def _domain_partials_onehot(batch, key_name, aggs, domain, row_valid,
     col = batch[key_name]
     if col.dtype.kind not in (T.Kind.INT32, T.Kind.INT64):
         raise TypeError("group_by_onehot needs an integer key column")
-    names, int_cols, float_cols = [], [], []
+    names, int_cols, float_cols, dec_cols = [], [], [], []
     for spec in aggs:
         if spec.column is None:
             continue
@@ -369,8 +490,12 @@ def _domain_partials_onehot(batch, key_name, aggs, domain, row_valid,
         if c not in names:
             names.append(c)
         if spec.op in ("sum", "mean"):
-            target = (float_cols if batch[c].dtype.kind in T.FLOAT_KINDS
-                      else int_cols)
+            if isinstance(batch[c], Decimal128Column):
+                target = dec_cols
+            elif batch[c].dtype.kind in T.FLOAT_KINDS:
+                target = float_cols
+            else:
+                target = int_cols
             if c not in target:
                 target.append(c)
     if float_cols and float_mode != "f32x3":
@@ -380,30 +505,37 @@ def _domain_partials_onehot(batch, key_name, aggs, domain, row_valid,
     ints, floats, overflow = onehot_groupby_columns(
         col.data, col.validity,
         None if row_valid is None else row_valid.to(torch.bool),
-        [(_kernel_sum_dtype(batch[c].data), batch[c].validity)
-         for c in names],
+        [(_column_buffer(batch[c]), batch[c].validity) for c in names],
         [names.index(c) for c in int_cols],
-        [names.index(c) for c in float_cols], int(domain))
-    nc = len(names)
+        [names.index(c) for c in float_cols], int(domain),
+        [names.index(c) for c in dec_cols])
+    nc, ni = len(names), len(int_cols)
+    d0 = 1 + nc + ni
     parts = {"star": ints[:, 0],
              "cnt": {c: ints[:, 1 + j] for j, c in enumerate(names)},
              "isum": {c: ints[:, 1 + nc + j]
                       for j, c in enumerate(int_cols)},
              "fsum": {c: floats[:, 3 * j] + floats[:, 3 * j + 1]
                       + floats[:, 3 * j + 2]
-                      for j, c in enumerate(float_cols)}}
+                      for j, c in enumerate(float_cols)},
+             "d64": {c: decimal_lanes_to_limbs(
+                 ints[:, d0 + 5 * j:d0 + 5 * j + 4],
+                 ints[:, d0 + 5 * j + 4]).t()
+                 for j, c in enumerate(dec_cols)}}
     return parts, overflow
 
 
 def _finalize_domain(batch, key_name, K, aggs, parts):
-    """Turn :func:`_domain_partials` into the group-by result."""
-    return _assemble_domain_result(batch, key_name, K, aggs, parts["star"],
-                                   parts["cnt"], parts["isum"],
-                                   parts["fsum"])
+    """Turn :func:`_domain_partials` into the group-by result; decimal
+    limbs re-fold their carries first (partials added across shards)."""
+    return _assemble_domain_result(
+        batch, key_name, K, aggs, parts["star"], parts["cnt"],
+        parts["isum"], parts["fsum"],
+        {c: D._carry(d64.t()) for c, d64 in parts["d64"].items()})
 
 
 def _assemble_domain_result(batch, key_name, K, aggs, counts_star, cnt_of,
-                            isum_of, fsum_of):
+                            isum_of, fsum_of, dsum_of):
     """Per-bucket reductions -> result batch with live groups compacted
     to the front in key order (null-key bucket K last among live)."""
     col = batch[key_name]
@@ -420,7 +552,14 @@ def _assemble_domain_result(batch, key_name, K, aggs, counts_star, cnt_of,
             continue
         cnt_v = cnt_of[spec.column]
         den = cnt_v.clamp(min=1).to(torch.float64)
-        if spec.column in fsum_of:
+        if spec.column in dsum_of:
+            dtype = batch[spec.column].dtype
+            s256 = dsum_of[spec.column]
+            out_cols[spec.out_name] = (
+                _decimal_avg(s256, cnt_v, cnt_v > 0, dtype)
+                if spec.op == "mean"
+                else _decimal_sum_result(s256, cnt_v > 0, dtype))
+        elif spec.column in fsum_of:
             fsum = fsum_of[spec.column]
             res = fsum / den if spec.op == "mean" else fsum
             out_cols[spec.out_name] = Column(res, cnt_v > 0, T.FLOAT64)
@@ -439,11 +578,13 @@ def _assemble_domain_result(batch, key_name, K, aggs, counts_star, cnt_of,
     return compacted, live_group.sum()
 
 
-def _pad_rows(col: Column, pad_to: int) -> Column:
+def _pad_rows(col, pad_to: int):
     """Pad a result column with null rows up to ``pad_to`` rows."""
-    extra = pad_to - col.num_rows
-    if extra <= 0:
+    if pad_to <= col.num_rows:
         return col
+    if isinstance(col, Decimal128Column):
+        return Decimal128Column(_fit_rows(col.limbs, pad_to),
+                                _fit_rows(col.validity, pad_to), col.dtype)
     return Column(_fit_rows(col.data, pad_to), _fit_rows(col.validity,
                                                          pad_to), col.dtype)
 

@@ -1,10 +1,11 @@
-"""Row gather for plain and string columns.
+"""Row gather for plain, string and decimal columns.
 
 Counterpart of ``spark_rapids_jni_tpu/relational/gather.py``: one index
 vector applied to each column's buffers (a string column's whole padded
-char rows); rows where ``valid`` is False become nulls (padded filter and
-join outputs), and a null string row's length is zeroed as the
-reference does.  Encoded columns come with ROADMAP.md queue 1, item 12.
+char rows, a decimal column's limb pairs); rows where ``valid`` is False
+become nulls (padded filter and join outputs), and a null string row's
+length is zeroed as the reference does.  Encoded columns come with
+ROADMAP.md queue 1, item 12.
 """
 
 from __future__ import annotations
@@ -12,12 +13,13 @@ from __future__ import annotations
 import torch
 
 from .._roadmap import not_ported
-from ..columnar.column import Column, ColumnBatch, StringColumn
+from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
+                               StringColumn)
 
 
 def gather_column(col, idx: torch.Tensor, valid=None):
     """Take rows ``idx`` (clipped into range)."""
-    if not isinstance(col, (Column, StringColumn)):
+    if not isinstance(col, (Column, StringColumn, Decimal128Column)):
         raise not_ported(f"gather of {type(col).__name__}", 12)
     n = col.num_rows
     dev = col.device
@@ -32,6 +34,10 @@ def gather_column(col, idx: torch.Tensor, valid=None):
                             device=dev),
                 torch.zeros((m,), dtype=torch.int32, device=dev), none,
                 col.dtype)
+        if isinstance(col, Decimal128Column):
+            return Decimal128Column(
+                torch.zeros((m, 2), dtype=torch.int64, device=dev), none,
+                col.dtype)
         return Column(torch.zeros((m,), dtype=col.data.dtype, device=dev),
                       none, col.dtype)
     v = col.validity[idx]
@@ -40,7 +46,17 @@ def gather_column(col, idx: torch.Tensor, valid=None):
     if isinstance(col, StringColumn):
         return StringColumn(col.chars[idx], col.lengths[idx] * v, v,
                             col.dtype)
+    if isinstance(col, Decimal128Column):
+        return Decimal128Column(gather_limbs(col.limbs, idx), v, col.dtype)
     return Column(col.data[idx], v, col.dtype)
+
+
+def gather_limbs(limbs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``limbs[idx]`` for decimal limbs int64[n, 2], as one gather per
+    limb column: torch's gather of whole 16-byte rows took 10.1 ms for
+    2^24 rows on the H100, the two column gathers about 1 ms (PERF.md
+    §5, ``trace_port.py --only decimal``)."""
+    return torch.stack([limbs[:, 0][idx], limbs[:, 1][idx]], dim=1)
 
 
 def gather_batch(batch: ColumnBatch, idx: torch.Tensor,

@@ -3,8 +3,9 @@
 Counterpart of ``spark_rapids_jni_tpu/relational/join.py``:
 
 * :func:`hash_join`, every join kind (inner, left, right, full, semi,
-  anti) over any mix of plain and string key columns (string widths
-  aligned across the sides), on two engines picked by the
+  anti) over any mix of plain, string and decimal key columns (string
+  widths aligned across the sides) and payloads of the same kinds, on
+  two engines picked by the
   ``join_engine`` knob:
 
   - **kernel** (``auto``): the build side's radix words go into a slot
@@ -22,8 +23,9 @@ Counterpart of ``spark_rapids_jni_tpu/relational/join.py``:
 * :func:`build_table`: a resident prebuilt build table for
   ``hash_join(prebuilt=)`` (the plan compiler's broadcast joins).
 * :func:`join_dense_or_hash`: when the build side's keys are unique ints
-  in ``[0, domain)`` (dense surrogate keys, every TPC-DS dimension) an
-  inner join is a rowid table plus gathers; otherwise the general
+  in ``[0, domain)`` (dense surrogate keys, every TPC-DS dimension; plain
+  int columns only) an inner join is a rowid table plus gathers;
+  otherwise the general
   :func:`hash_join`.  One host read of the density check picks.
 
 Spark semantics: a null key matches nothing (inner and semi drop
@@ -45,7 +47,8 @@ import torch
 from .. import config
 from .._roadmap import not_ported
 from ..columnar import types as T
-from ..columnar.column import Column, ColumnBatch, StringColumn
+from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
+                               StringColumn)
 from . import keys as K
 from .filter import compact
 from .gather import gather_batch
@@ -116,6 +119,10 @@ def _one_null_row_like(batch: ColumnBatch) -> ColumnBatch:
                             device=dev),
                 torch.zeros((1,), dtype=torch.int32, device=dev), none,
                 col.dtype)
+        elif isinstance(col, Decimal128Column):
+            out[name] = Decimal128Column(
+                torch.zeros((1, 2), dtype=torch.int64, device=dev), none,
+                col.dtype)
         else:
             out[name] = Column(torch.zeros((1,), dtype=col.data.dtype,
                                            device=dev), none, col.dtype)
@@ -124,8 +131,10 @@ def _one_null_row_like(batch: ColumnBatch) -> ColumnBatch:
 
 def _require_keys(cols: Sequence, what: str) -> None:
     for c in cols:
-        if not isinstance(c, (Column, StringColumn)):
-            raise not_ported(f"{what} over {type(c).__name__}", 10)
+        if getattr(c, "dtype", None) is not None and c.dtype.is_nested:
+            raise NotImplementedError(f"{what} over {c.dtype!r}")
+        if not isinstance(c, (Column, StringColumn, Decimal128Column)):
+            raise not_ported(f"{what} over {type(c).__name__}", 12)
 
 
 def _with_validity(cols, valid):
@@ -413,6 +422,9 @@ def _concat_col(a, b):
         return StringColumn(torch.cat([a.chars, b.chars]),
                             torch.cat([a.lengths, b.lengths]),
                             torch.cat([a.validity, b.validity]), a.dtype)
+    if isinstance(a, Decimal128Column):
+        return Decimal128Column(torch.cat([a.limbs, b.limbs]),
+                                torch.cat([a.validity, b.validity]), a.dtype)
     return Column(torch.cat([a.data, b.data]),
                   torch.cat([a.validity, b.validity]), a.dtype)
 

@@ -15,6 +15,10 @@ lexicographic order is Spark's SQL order:
 * strings: big-endian 4-byte words of the zero-padded chars, then the
   length as a trailing word (padding is zero, so the length tells
   ``'a'`` from ``'a\\x00'``);
+* decimals (one column shares one scale, so unscaled order is value
+  order): under 128 bits of storage the sign-flipped low limb as a
+  (hi, lo) pair; at 128 bits the sign-flipped high limb's pair, then
+  the low limb's;
 * validity: one leading flag word placing nulls first or last.
 
 The same words feed the stable sorts (:func:`lexsort_u32`), segment
@@ -32,7 +36,8 @@ import torch
 from .._roadmap import not_ported
 from .._u32 import M32, SIGN32
 from ..columnar import types as T
-from ..columnar.column import Column, StringColumn
+from ..columnar.column import (Column, Decimal128Column, ListColumn,
+                               StringColumn, StructColumn)
 
 _F32_QNAN = 0x7FC00000
 _F64_QNAN = 0x7FF8000000000000
@@ -93,8 +98,15 @@ def column_radix_keys(col, *, equality: bool = False) -> list:
     """
     if isinstance(col, StringColumn):
         return string_words(col)
+    if isinstance(col, Decimal128Column):
+        if col.dtype.decimal_storage_bits < 128:
+            return list(_split64(col.limbs[:, 0] ^ _SIGN64))
+        return (list(_split64(col.limbs[:, 1] ^ _SIGN64))
+                + list(_split64(col.limbs[:, 0])))
+    if isinstance(col, (ListColumn, StructColumn)):
+        raise NotImplementedError(f"radix keys for {col.dtype!r}")
     if not isinstance(col, Column):
-        raise not_ported(f"radix keys of {type(col).__name__}", 10)
+        raise not_ported(f"radix keys of {type(col).__name__}", 12)
     kind = col.dtype.kind
     d = col.data
     if kind is T.Kind.BOOLEAN:
@@ -107,7 +119,7 @@ def column_radix_keys(col, *, equality: bool = False) -> list:
         return [_f32_total_order(d, normalize_zero=equality)]
     if kind is T.Kind.FLOAT64:
         return list(_split64(_f64_total_order(d, normalize_zero=equality)))
-    raise not_ported(f"radix keys for {col.dtype!r}", 10)
+    raise NotImplementedError(f"radix keys for {col.dtype!r}")
 
 
 def null_flag(col, nulls_first: bool) -> torch.Tensor:

@@ -15,16 +15,56 @@ from typing import Optional
 
 import torch
 
+from .._roadmap import not_ported
+from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
+                               StringColumn)
+
+
+def column_leaves(col) -> list:
+    """A column's fixed leaf list, the tensors the exchange moves row by
+    row: ``[data, validity]``; a string column's ``[chars, lengths,
+    validity]``; a decimal column's ``[limbs, validity]``.  A list's
+    offsets do not shard by row, so nested columns do not cross."""
+    if isinstance(col, StringColumn):
+        return [col.chars, col.lengths, col.validity]
+    if isinstance(col, Decimal128Column):
+        return [col.limbs, col.validity]
+    if isinstance(col, Column):
+        return [col.data, col.validity]
+    if getattr(col, "dtype", None) is not None and col.dtype.is_nested:
+        raise not_ported(f"exchanging a {col.dtype!r} column", 11)
+    raise not_ported(f"exchanging a {type(col).__name__}", 12)
+
+
+def batch_leaves(batch: ColumnBatch) -> list:
+    """Every column's :func:`column_leaves`, in column order."""
+    return [t for c in batch.columns for t in column_leaves(c)]
+
+
+def rebatch(like: ColumnBatch, leaves) -> ColumnBatch:
+    """A batch of ``like``'s schema over :func:`batch_leaves`-ordered
+    ``leaves``."""
+    out, at = {}, 0
+    for name, c in zip(like.names, like.columns):
+        if isinstance(c, StringColumn):
+            out[name] = StringColumn(*leaves[at:at + 3], c.dtype)
+            at += 3
+        elif isinstance(c, Decimal128Column):
+            out[name] = Decimal128Column(*leaves[at:at + 2], c.dtype)
+            at += 2
+        else:
+            out[name] = Column(*leaves[at:at + 2], c.dtype)
+            at += 2
+    return ColumnBatch(out)
+
 
 def tree_nbytes(tree) -> int:
     """Bytes of every tensor in a nested tuple/list of tensors and
     batches."""
-    from ..columnar.column import ColumnBatch
-
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
     if isinstance(tree, ColumnBatch):
-        return sum(tree_nbytes((c.data, c.validity)) for c in tree.columns)
+        return tree_nbytes(batch_leaves(tree))
     return sum(tree_nbytes(x) for x in tree)
 
 

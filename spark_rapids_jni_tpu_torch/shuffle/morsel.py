@@ -25,24 +25,66 @@ import numpy as np
 import torch
 
 from .._roadmap import not_ported
-from ..columnar.column import Column, ColumnBatch
+from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
+                               ListColumn, StringColumn, StructColumn)
+from .buffers import batch_leaves, rebatch
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.cpu().numpy()
+
+
+def _string_digest_bytes(col: StringColumn, valid: np.ndarray) -> bytes:
+    """The reference's per-row string digest in one pass: a valid row
+    gives its int32 length then its chars, a null row one ``0xff``."""
+    chars, lens = _host(col.chars), _host(col.lengths).astype(np.int32)
+    n, L = chars.shape
+    rows = np.zeros((n, 4 + L), np.uint8)
+    rows[:, :4] = lens.view(np.uint8).reshape(n, 4)
+    rows[:, 4:] = chars
+    rows[~valid, 0] = 0xFF
+    j = np.arange(4 + L)[None, :]
+    keep = np.where(valid[:, None], j < 4 + lens[:, None], j == 0)
+    return rows[keep].tobytes()
 
 
 def batch_digest(batch: ColumnBatch) -> str:
-    """Digest of a batch's VALUES: per column its name, validity bytes,
-    type name and data bytes with null slots zeroed — the reference's
-    ``serve/data_plane.py`` ``batch_digest`` for plain columns, so the
-    same contents give the same digest in both packages."""
+    """Digest of a batch's VALUES, byte for byte the reference's
+    ``serve/data_plane.py`` ``batch_digest``: per column its name, then
+    its validity bytes and its kind's values with null slots neutral
+    (a plain or decimal column's type name and data with null slots
+    zeroed; a string's length and chars per valid row, ``0xff`` per null
+    one; a list's offsets then its child; a struct's field names and
+    fields).  The same contents give the same digest in both packages."""
     h = hashlib.sha256()
-    for name, col in zip(batch.names, batch.columns):
-        if not isinstance(col, Column):
-            raise TypeError(f"cannot digest {type(col).__name__}")
-        h.update(name.encode())
-        valid = col.validity.cpu().numpy().astype(bool)
+
+    def eat_col(col):
+        valid = _host(col.validity).astype(bool)
         h.update(valid.astype(np.uint8).tobytes())
-        data = col.data.cpu().numpy()
-        h.update(str(col.dtype).encode())
-        h.update(np.where(valid, data, np.zeros((), data.dtype)).tobytes())
+        if isinstance(col, StringColumn):
+            h.update(_string_digest_bytes(col, valid))
+        elif isinstance(col, Decimal128Column):
+            h.update(str(col.dtype).encode())
+            limbs = _host(col.limbs).view(np.uint64) * valid[:, None]
+            h.update(limbs.tobytes())
+        elif isinstance(col, ListColumn):
+            h.update(_host(col.offsets).tobytes())
+            eat_col(col.child)
+        elif isinstance(col, StructColumn):
+            for fname, child in zip(col.field_names, col.children):
+                h.update(fname.encode())
+                eat_col(child)
+        elif isinstance(col, Column):
+            data = _host(col.data)
+            h.update(str(col.dtype).encode())
+            h.update(np.where(valid, data, np.zeros((), data.dtype))
+                     .tobytes())
+        else:
+            raise TypeError(f"cannot digest {type(col).__name__}")
+
+    for name, col in zip(batch.names, batch.columns):
+        h.update(name.encode())
+        eat_col(col)
     return h.hexdigest()
 
 
@@ -105,7 +147,7 @@ class MorselSource:
         per_dev = mesh.shard_rows(batch.num_rows)
         k = max(1, math.ceil(per_dev / M))
         pad = k * M - per_dev
-        dev = batch.columns[0].data.device if batch.columns else mesh.device
+        dev = batch.columns[0].device if batch.columns else mesh.device
         if row_valid is None:
             row_valid = torch.ones((batch.num_rows,), dtype=torch.bool,
                                    device=dev)
@@ -119,8 +161,7 @@ class MorselSource:
                 v = torch.cat([v, z], dim=1)
             return v
 
-        cols = {name: (shards(c.data), shards(c.validity), c.dtype)
-                for name, c in zip(batch.names, batch.columns)}
+        leaves = [shards(x) for x in batch_leaves(batch)]
         valid = shards(row_valid.to(torch.bool))
 
         def take(v, j):
@@ -129,10 +170,8 @@ class MorselSource:
 
         def make(j):
             def replay():
-                return (ColumnBatch({
-                    name: Column(take(d, j), take(vv, j), t)
-                    for name, (d, vv, t) in cols.items()}),
-                    take(valid, j))
+                return (rebatch(batch, [take(x, j) for x in leaves]),
+                        take(valid, j))
             return replay
 
         return cls([make(j) for j in range(k)], M, batch.num_rows,

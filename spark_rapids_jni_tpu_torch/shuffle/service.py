@@ -42,12 +42,13 @@ import torch
 
 from .. import config
 from .._roadmap import not_ported
-from ..columnar.column import Column, ColumnBatch
+from ..columnar.column import ColumnBatch
 from ..ops.kernels import PartitionScatter
 from ..parallel.partition import spark_partition_id
 from ..parallel.shuffle import route_out_of_range
 from ..relational.gather import gather_batch
-from .buffers import MorselBuffer, PartitionBuffer, RoundChunk
+from .buffers import MorselBuffer, PartitionBuffer, RoundChunk, \
+    batch_leaves, rebatch
 from .planner import plan_rounds, plan_stream_capacity
 from .registry import ShuffleInfo, ShuffleRegistry, get_registry
 
@@ -75,21 +76,6 @@ class ShuffleResult:
     drain_ms: float = 0.0           # cumulative round drain time (host)
     scatters: int = 0               # (morsel, round) scatters (streamed)
     sync_ms: float = 0.0            # host waits on the per-morsel counts
-
-
-# ---------------------------------------------------------------------------
-# batches as leaf lists
-# ---------------------------------------------------------------------------
-
-def _leaves(batch: ColumnBatch) -> list:
-    """``[data, validity]`` of every column, in column order."""
-    return [t for c in batch.columns for t in (c.data, c.validity)]
-
-
-def _rebatch(like: ColumnBatch, leaves) -> ColumnBatch:
-    return ColumnBatch({
-        name: Column(leaves[2 * i], leaves[2 * i + 1], c.dtype)
-        for i, (name, c) in enumerate(zip(like.names, like.columns))})
 
 
 def _a2a(x: torch.Tensor, P: int) -> torch.Tensor:
@@ -144,7 +130,7 @@ def _map_local(b: ColumnBatch, pid: torch.Tensor, P: int):
 
 def _key_pid(b: ColumnBatch, key_names, row_valid, P: int):
     rv = (torch.ones((b.num_rows,), dtype=torch.bool,
-                     device=b.columns[0].data.device)
+                     device=b.columns[0].device)
           if row_valid is None else row_valid.to(torch.bool))
     return spark_partition_id([b[k] for k in key_names], P, rv)
 
@@ -218,6 +204,7 @@ class ShuffleService:
         """
         if (key_names is None) == (pid is None):
             raise ValueError("pass exactly one of key_names / pid")
+        batch_leaves(batch)  # every column can cross, or not_ported
         _no_ctx_store(ctx, store_key)
         _resolve_compress()
         if strict is None:
@@ -277,9 +264,10 @@ class ShuffleService:
                 raise ShuffleError(
                     f"shuffle {sid}: lossless invariant violated "
                     f"(sent={sent} received={got} residual={residual})")
-            parts = [_leaves(c.get()[0]) + [c.get()[1]] for c in chunks]
+            parts = [batch_leaves(c.get()[0]) + [c.get()[1]]
+                     for c in chunks]
             merged = _concat_rounds(parts, P)
-            final_batch = _rebatch(regrouped, merged[:-1])
+            final_batch = rebatch(regrouped, merged[:-1])
             final_occ = merged[-1]
         finally:
             map_buf.close()
@@ -384,7 +372,7 @@ class ShuffleService:
                     raise ShuffleError(
                         f"shuffle {sid}: {oob_n} out-of-range partition "
                         f"ids (strict mode; ids must lie in [0, {P}])")
-                m_leaves = [x.contiguous() for x in _leaves(b)]
+                m_leaves = [x.contiguous() for x in batch_leaves(b)]
                 if like is None:
                     like = b
                     scatter = PartitionScatter(m_leaves, P, P, C)
@@ -445,7 +433,7 @@ class ShuffleService:
             bytes_moved = sum(b.nbytes for b in recv)
             merged = _concat_rounds(
                 [list(b.get()[0]) + [b.get()[1]] for b in recv], P)
-            final_batch = _rebatch(like, merged[:-1])
+            final_batch = rebatch(like, merged[:-1])
             final_occ = merged[-1]
         finally:
             for c in send_chunks.values():

@@ -1,7 +1,7 @@
 """PyTorch port: group-by engines, against the JAX package.
 
-Ints and counts are bit-identical to the reference; float sums and means
-are held to the reference's documented f32x3 tolerance, rel 1e-5
+Ints, counts and decimals are bit-identical to the reference; float sums
+and means are held to the reference's documented f32x3 tolerance, rel 1e-5
 (relational/aggregate.py group_by_onehot, float_mode='f32x3').  The port
 runs on the CPU, where the one-hot group-by and slot-table wrappers run
 their plain versions.
@@ -21,10 +21,12 @@ from spark_rapids_jni_tpu.columnar.column import StringColumn as JString
 from spark_rapids_jni_tpu.relational import aggregate as JAgg
 
 from spark_rapids_jni_tpu_torch import config as tconfig
-from spark_rapids_jni_tpu_torch.columnar.column import (StringColumn,
-                                                        batch_from_numpy)
+from spark_rapids_jni_tpu_torch.columnar.column import StringColumn
 from spark_rapids_jni_tpu_torch.ops import kernels as TKer
 from spark_rapids_jni_tpu_torch.relational import aggregate as TAgg
+
+from torch_parity import (MAX38, assert_col_equal, jdecimal, to_port,
+                          unscaled)
 
 RTOL = 1e-5  # the reference's f32x3 float-sum tolerance
 
@@ -34,18 +36,6 @@ def _reset_config():
     yield
     jconfig.reset()
     tconfig.reset()
-
-
-def _host(c):
-    if isinstance(c, JString):
-        return (np.asarray(c.chars), np.asarray(c.lengths))
-    return np.asarray(c.data)
-
-
-def to_port(jb):
-    return batch_from_numpy(
-        {n: (_host(c), np.asarray(c.validity), repr(c.dtype))
-         for n, c in zip(jb.names, jb.columns)}, device="cpu")
 
 
 def _batch(rng, n, K, kdtype=np.int32, vlo=-(2**40), vhi=2**40):
@@ -526,3 +516,144 @@ class TestStringKeys:
         tb = to_port(_string_key_batch(np.random.default_rng(36), 20, 3))
         with pytest.raises(NotImplementedError, match="string"):
             TAgg.group_by(tb, ["k"], [TAgg.AggSpec("max", "s", "m")])
+
+
+# ---------------------------------------------------------------------------
+# decimals: sums, means, min/max and keys on every engine
+# ---------------------------------------------------------------------------
+
+def _decimal_batch(rng, n, K, overflow=True):
+    """Key ``k`` in [0, K) (10 % null); ``d`` decimal(38,2) of mixed
+    magnitudes and signs, where group 0 holds values near +10^38 and group
+    1 near -10^38 so their sums pass the decimal(38) range (null) while
+    their count and min/max stay defined; ``p`` decimal(7,2) prices."""
+    k = rng.integers(0, K, n).astype(np.int32)
+    d = unscaled(rng, n, 38, nulls=0.08)
+    if overflow:
+        for i in np.flatnonzero(k == 0)[:40]:
+            d[i] = MAX38 - int(rng.integers(0, 10 ** 6))
+        for i in np.flatnonzero(k == 1)[:40]:
+            d[i] = -MAX38 + int(rng.integers(0, 10 ** 6))
+    return JBatch({
+        "k": JColumn(jnp.asarray(k), jnp.asarray(rng.random(n) > 0.1),
+                     JT.INT32),
+        "d": jdecimal(d, 38, 2),
+        "p": jdecimal(unscaled(rng, n, 7, nulls=0.1), 7, 2),
+        "v": JColumn(jnp.asarray(rng.integers(-99, 99, n)),
+                     jnp.ones((n,), jnp.bool_), JT.INT64)})
+
+
+DEC_AGGS = [("sum", "d", "sd"), ("mean", "d", "md"), ("count", "d", "cd"),
+            ("sum", "p", "sp"), ("mean", "p", "mp"), ("count", None, "c"),
+            ("sum", "v", "sv")]
+DEC_MINMAX = [("min", "d", "nd"), ("max", "d", "xd"), ("min", "p", "np_"),
+              ("max", "p", "xp")]
+
+
+def _assert_decimal_results(jr, jng, tr, tng):
+    g = int(jng)
+    assert int(tng) == g
+    assert list(tr.names) == list(jr.names)
+    for name in jr.names:
+        assert_col_equal(jr[name], tr[name], rows=g, msg=name)
+
+
+class TestDecimalAggregates:
+    @pytest.mark.parametrize("engine", ["sort", "kernel"])
+    @pytest.mark.parametrize("jengine", ["sort", "scatter"])
+    def test_general_engines(self, engine, jengine):
+        """Exact 256-bit sums (overflowing groups null), Spark's bounded
+        average, signed-128 min/max and counts, bit for bit."""
+        rng = np.random.default_rng(51)
+        jb = _decimal_batch(rng, 1500, 9)
+        live = rng.random(1500) > 0.1
+        aggs = DEC_AGGS + DEC_MINMAX
+        jr, jng = jax.jit(lambda b, lv: JAgg.group_by(
+            b, ["k"], [JAgg.AggSpec(*a) for a in aggs], row_valid=lv,
+            engine=jengine))(jb, jnp.asarray(live))
+        tr, tng = TAgg.group_by(to_port(jb), ["k"],
+                                [TAgg.AggSpec(*a) for a in aggs],
+                                row_valid=torch.from_numpy(live),
+                                engine=engine)
+        _assert_decimal_results(jr, jng, tr, tng)
+        sd = tr["sd"]
+        keys = tr["k"].data[:int(tng)].tolist()
+        kv = tr["k"].validity[:int(tng)].tolist()
+        for g in (0, 1):  # the overflowing groups: null sum, defined max
+            row = [i for i, (k, v) in enumerate(zip(keys, kv))
+                   if v and k == g][0]
+            assert not bool(sd.validity[row])
+            assert bool(tr["xd"].validity[row])
+        assert repr(sd.dtype) == "decimal(38,2)"
+        assert repr(tr["sp"].dtype) == "decimal(17,2)"
+        assert repr(tr["md"].dtype) == "decimal(38,6)"
+        assert repr(tr["mp"].dtype) == "decimal(11,6)"
+
+    @pytest.mark.parametrize("engine", ["sort", "kernel"])
+    @pytest.mark.parametrize("key", ["p", "d", "p+k"])
+    def test_decimal_keys(self, engine, key):
+        """Group by decimal(7,2) (2 key words), decimal(38,2) (4) and a
+        decimal-int composite, nulls first."""
+        rng = np.random.default_rng(52)
+        jb = _decimal_batch(rng, 1200, 5, overflow=False)
+        # few distinct prices so groups repeat
+        pv = rng.integers(-40, 40, 1200)
+        pn = rng.random(1200) < 0.05
+        jb = jb.with_column("p", jdecimal(
+            [None if z else int(x) * 25 for x, z in zip(pv, pn)], 7, 2))
+        keys = key.split("+")
+        aggs = [("sum", "d", "sd"), ("count", None, "c"),
+                ("min", "d", "nd"), ("max", "d", "xd"), ("sum", "v", "sv")]
+        jr, jng = jax.jit(lambda b: JAgg.group_by(
+            b, keys, [JAgg.AggSpec(*a) for a in aggs], engine="sort"))(jb)
+        tr, tng = TAgg.group_by(to_port(jb), keys,
+                                [TAgg.AggSpec(*a) for a in aggs],
+                                engine=engine)
+        _assert_decimal_results(jr, jng, tr, tng)
+
+    @pytest.mark.parametrize("jengine", ["pallas", "scatter"])
+    @pytest.mark.parametrize("K", [9, 3000])
+    def test_domain_engine_lanes(self, jengine, K):
+        """The fused entry's decimal lanes (on the CPU its plain path over
+        the reference's 16 byte limbs and negative flag) against the
+        reference's Pallas kernel in interpret mode and its scatter
+        engine, overflowing groups included; ``d64`` partials equal."""
+        rng = np.random.default_rng(53)
+        jb = _decimal_batch(rng, 1100, min(K, 40))
+        live = rng.random(1100) > 0.1
+        specs = [JAgg.AggSpec(*a) for a in DEC_AGGS]
+        jr, jng, jovf = jax.jit(lambda b, lv: JAgg.group_by_onehot(
+            b, "k", specs, K, row_valid=lv, float_mode="f32x3",
+            engine=jengine))(jb, jnp.asarray(live))
+        tb = to_port(jb)
+        tspecs = [TAgg.AggSpec(*a) for a in DEC_AGGS]
+        tr, tng, tovf = TAgg.group_by_onehot(
+            tb, "k", tspecs, K, row_valid=torch.from_numpy(live))
+        assert bool(jovf) == bool(tovf) is False
+        _assert_decimal_results(jr, jng, tr, tng)
+        jparts, _ = JAgg._domain_partials(jb, "k", specs, K,
+                                          jnp.asarray(live), engine=jengine,
+                                          float_mode="f32x3")
+        tparts, _ = TAgg._domain_partials(tb, "k", tspecs, K,
+                                          torch.from_numpy(live))
+        for c in ("d", "p"):
+            np.testing.assert_array_equal(
+                tparts["d64"][c].numpy().astype(np.uint64),
+                np.asarray(jparts["d64"][c]), err_msg=c)
+
+    def test_domain_engine_rejects_decimal_min_max(self):
+        jb = _decimal_batch(np.random.default_rng(54), 50, 3)
+        with pytest.raises(ValueError, match="min/max"):
+            TAgg.group_by_onehot(to_port(jb), "k",
+                                 [TAgg.AggSpec("max", "d", "m")], 4)
+
+    def test_nested_value_columns_refused(self):
+        from spark_rapids_jni_tpu.columnar.column import ListColumn as JL
+
+        jb = JBatch({"k": JColumn(jnp.zeros((3,), jnp.int32),
+                                  jnp.ones((3,), jnp.bool_), JT.INT32),
+                     "l": JL.from_pylist([[1], [], None], JT.INT64)})
+        with pytest.raises(NotImplementedError, match="list"):
+            TAgg.group_by(to_port(jb), ["k"],
+                          [TAgg.AggSpec("count", "l", "c")])
+

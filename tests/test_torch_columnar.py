@@ -70,8 +70,19 @@ class TestBatchFromNumpy:
             assert repr(tb[name].dtype) == repr(jc.dtype)
 
     def test_types_outside_the_slice_are_not_ported(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TT.from_name("decimal(10,2)")
+        """Once outside the slice, decimal, list and struct names now parse
+        to the reference's types; a name no package knows raises."""
+        for jt in (JT.SparkType.decimal(10, 2),
+                   JT.SparkType.list_of(JT.SparkType.decimal(38, 4)),
+                   JT.SparkType.struct_of({"a": JT.INT32,
+                                           "b": JT.SparkType.list_of(
+                                               JT.STRING)})):
+            tt = TT.from_name(repr(jt))
+            assert repr(tt) == repr(jt)
+            assert tt.kind.value == jt.kind.value
+        assert TT.from_name("decimal(10,2)").decimal_storage_bits == 64
+        with pytest.raises(ValueError, match="unknown column type"):
+            TT.from_name("map<int32,int32>")
 
     def test_shape_mismatch_rejected(self):
         with pytest.raises(ValueError):

@@ -20,6 +20,8 @@ from spark_rapids_jni_tpu_torch.columnar.column import Column, StringColumn
 from spark_rapids_jni_tpu_torch.ops import hashing as TH
 from spark_rapids_jni_tpu_torch.parallel.partition import spark_partition_id
 
+from torch_parity import jdecimal, port_col, unscaled
+
 INT_MIN, INT_MAX = -(2**31), 2**31 - 1
 F_NAN_BITS = [0x7F800001, 0x7FFFFFFF, 0xFF800001, 0xFFFFFFFF]
 D_NAN_BITS = [0x7FF0000000000001, 0x7FFFFFFFFFFFFFFF, 0xFFF0000000000001,
@@ -213,5 +215,92 @@ def test_unported_types_raise():
     _, b = _fixed([1], "INT32", np.int32)
     with pytest.raises(ValueError, match="row count mismatch"):
         TH.xxhash64(ColumnBatch({"a": a}).columns + (b,))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         TH.murmur_hash3_32([object()])
+
+
+# ---------------------------------------------------------------------------
+# decimals and nested columns
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("precision", [7, 18, 19, 38])
+def test_decimal_hashes(precision, rng):
+    """Up to 18 digits the unscaled long; above, the minimal big-endian
+    BigInteger bytes (one byte for 0 and -1, a sign-pad byte at 0x80
+    boundaries, 16 for +-(10^38 - 1))."""
+    top = 10 ** precision - 1
+    special = [0, -1, 1, 127, 128, -128, -129, 255, 256, 2 ** 63,
+               -(2 ** 63), top, -top]
+    vals = unscaled(rng, 400, precision, specials=[
+        v for v in special if abs(v) <= top])
+    jc = jdecimal(vals, precision, 2)
+    tc = port_col(jc)
+    for seed in (0, 42):
+        assert TH.murmur_hash3_32([tc], seed=seed).data.tolist() == \
+            JH.murmur_hash3_32([jc], seed=seed).to_pylist()
+        assert TH.xxhash64([tc], seed=seed).data.tolist() == \
+            JH.xxhash64([jc], seed=seed).to_pylist()
+    if precision > 18:
+        tb, tl = TH.decimal128_java_bytes(tc)
+        for v, b, ln in zip(vals, tb.numpy(), tl.numpy()):
+            if v is not None:
+                # Java's BigInteger.bitLength() / 8 + 1 bytes
+                bits = (v if v >= 0 else ~v).bit_length()
+                want = v.to_bytes(bits // 8 + 1, "big", signed=True)
+                assert bytes(b[:ln]) == want
+
+
+def _nested_columns(rng):
+    from spark_rapids_jni_tpu.columnar.column import ListColumn as JL
+    from spark_rapids_jni_tpu.columnar.column import StructColumn as JSt
+
+    ints = JL.from_pylist([[1, 2, 3], None, [], [INT_MIN], [7] * 9,
+                           [None, 4]], JT.INT32)
+    strs = JL.from_pylist([["a", None], ["bcd" * 5], None, [], ["x"],
+                           [LONG_STR]], JT.STRING)
+    inner = JL.from_pylist([[1], [2, 3], [], None, [4, 5, 6]], JT.INT64)
+    nested = JL(jnp.asarray(np.array([0, 2, 2, 3, 5, 5, 5], np.int32)),
+                inner, jnp.asarray(np.array([1, 1, 0, 1, 1, 1], bool)))
+    decs = JL(jnp.asarray(np.array([0, 1, 3, 3, 4, 6, 6], np.int32)),
+              jdecimal([5, -(10 ** 37), None, 10 ** 20, 0, -1], 38, 2),
+              jnp.asarray(np.ones(6, bool)))
+    structs_in_list = JL(
+        jnp.asarray(np.array([0, 2, 3, 3, 3, 4, 6], np.int32)),
+        JSt.from_pylist([{"a": 1}, None, {"a": 3}, {"a": None}, {"a": 5},
+                         {"a": 6}], {"a": JT.INT32}),
+        jnp.asarray(np.array([1, 1, 1, 0, 1, 1], bool)))
+    struct = JSt.from_pylist([{"a": 1, "b": "x"}, None, {"a": None,
+                                                          "b": "yz"},
+                              {"a": 4, "b": None}, {"a": -5, "b": ""},
+                              {"a": 6, "b": "w" * 40}],
+                             {"a": JT.INT64, "b": JT.STRING})
+    struct_of_list = JSt({"l": ints, "d": jdecimal([1, 2, None, 4, 5, 6],
+                                                   20, 0)},
+                         jnp.asarray(np.array([1, 1, 1, 0, 1, 1], bool)))
+    return {"list_int32": ints, "list_string": strs,
+            "list_list_int64": nested, "list_decimal38": decs,
+            "list_struct": structs_in_list, "struct": struct,
+            "struct_of_list": struct_of_list}
+
+
+@pytest.mark.parametrize("name", ["list_int32", "list_string",
+                                  "list_list_int64", "list_decimal38",
+                                  "list_struct", "struct",
+                                  "struct_of_list"])
+def test_nested_hashes(name, rng):
+    """Lists fold their elements into the running hash (null elements and
+    rows pass the seed through); structs hash as their leaves, a null
+    struct nulling them; both after a plain column in the same row hash."""
+    jc = _nested_columns(rng)[name]
+    tc = port_col(jc)
+    jlead, tlead = _fixed([3, None, -9, 12, 0, 1], "INT32", np.int32)
+    for cols_j, cols_t in (([jc], [tc]), ([jlead, jc], [tlead, tc])):
+        for seed in (0, 42):
+            assert TH.murmur_hash3_32(cols_t, seed=seed).data.tolist() == \
+                JH.murmur_hash3_32(cols_j, seed=seed).to_pylist()
+    if name.startswith("struct") and name != "struct_of_list":
+        assert TH.xxhash64([tc]).data.tolist() == \
+            JH.xxhash64([jc]).to_pylist()
+    else:
+        with pytest.raises(NotImplementedError, match="LIST"):
+            TH.xxhash64([tc])

@@ -16,9 +16,11 @@ from spark_rapids_jni_tpu.columnar.column import StringColumn as JString
 from spark_rapids_jni_tpu.relational import join as JJ
 
 from spark_rapids_jni_tpu_torch import config as tconfig
-from spark_rapids_jni_tpu_torch.columnar.column import (StringColumn,
-                                                        batch_from_numpy)
+from spark_rapids_jni_tpu_torch.columnar.column import (Decimal128Column,
+                                                        StringColumn)
 from spark_rapids_jni_tpu_torch.relational import join as TJ
+
+from torch_parity import jdecimal, to_port, unscaled
 
 
 @pytest.fixture(autouse=True)
@@ -26,18 +28,6 @@ def _reset_config():
     yield
     jconfig.reset()
     tconfig.reset()
-
-
-def _host(c):
-    if isinstance(c, JString):
-        return (np.asarray(c.chars), np.asarray(c.lengths))
-    return np.asarray(c.data)
-
-
-def to_port(jb):
-    return batch_from_numpy(
-        {n: (_host(c), np.asarray(c.validity), repr(c.dtype))
-         for n, c in zip(jb.names, jb.columns)}, device="cpu")
 
 
 def _side(rng, n, keys, key_valid=0.9, key_type=JT.INT64):
@@ -60,6 +50,11 @@ def assert_join_match(jres, jcnt, tres, tcnt):
         np.testing.assert_array_equal(
             tres[name].validity[:m].numpy(),
             np.asarray(jres[name].validity)[:m], err_msg=name)
+        if isinstance(tres[name], Decimal128Column):
+            np.testing.assert_array_equal(
+                tres[name].limbs[:m].numpy().view(np.uint64),
+                np.asarray(jres[name].limbs)[:m], err_msg=name)
+            continue
         if isinstance(tres[name], StringColumn):
             for buf in ("chars", "lengths"):
                 np.testing.assert_array_equal(
@@ -300,4 +295,50 @@ class TestDenseOrHash:
         tr, tc = TJ.join_dense_or_hash(to_port(fact), to_port(dim), "key",
                                        "key", nd,
                                        left_valid=torch.from_numpy(lv))
+        assert_join_match(jr, jc, tr, tc)
+
+
+def _dec_side(rng, n, keys, p_key):
+    """A decimal(p_key,2) key (10 % null) and decimal(38,4) / decimal(9,2)
+    payloads; ``keys`` are unscaled values drawn from a small pool."""
+    kn = rng.random(n) < 0.1
+    return JBatch({
+        "dk": jdecimal([None if z else int(k) for k, z in zip(keys, kn)],
+                       p_key, 2),
+        "i": JColumn(jnp.asarray(rng.integers(0, 2, n).astype(np.int32)),
+                     jnp.ones((n,), jnp.bool_), JT.INT32),
+        "dv": jdecimal(unscaled(rng, n, 38, nulls=0.1), 38, 4),
+        "dp": jdecimal(unscaled(rng, n, 9, nulls=0.1), 9, 2)})
+
+
+class TestDecimalJoins:
+    @pytest.mark.parametrize("how", ["inner", "left", "right", "full",
+                                     "semi", "anti"])
+    @pytest.mark.parametrize("jeng,teng", ENGINES)
+    @pytest.mark.parametrize("p_key", [7, 38])
+    def test_every_kind_on_decimal_keys_and_payloads(self, how, jeng, teng,
+                                                     p_key):
+        """Decimal keys (2 words under 128 bits of storage, 4 at 128),
+        a decimal-int composite, decimal payloads through expansion, the
+        outer joins' null fill and the full join's append."""
+        rng = np.random.default_rng(60 + p_key)
+        pool = np.array([-(10 ** (p_key - 1)), -5, 0, 7, 10 ** (p_key - 1),
+                         123, 10 ** p_key - 1, -(10 ** p_key - 1)])
+        right = _dec_side(rng, 70, pool[rng.integers(0, 6, 70)], p_key)
+        left = _dec_side(rng, 110, pool[rng.integers(0, 8, 110)], p_key)
+        lv = rng.random(110) > 0.1
+        rv = rng.random(70) > 0.1
+        _both(left, right, ["dk", "i"], ["dk", "i"], how, jeng, teng, lv,
+              rv, capacity=900)
+
+    def test_dense_join_keeps_int_keys_only(self):
+        """A decimal key never takes the rowid table: the general hash
+        join's result, equal to the reference's."""
+        rng = np.random.default_rng(67)
+        right = _dec_side(rng, 30, np.arange(30) * 100, 9)
+        left = _dec_side(rng, 80, rng.integers(0, 35, 80) * 100, 9)
+        jr, jc = jax.jit(lambda a, b: JJ.join_dense_or_hash(
+            a, b, "dk", "dk", 30))(left, right)
+        tr, tc = TJ.join_dense_or_hash(to_port(left), to_port(right), "dk",
+                                       "dk", 30)
         assert_join_match(jr, jc, tr, tc)

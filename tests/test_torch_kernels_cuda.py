@@ -523,3 +523,111 @@ def test_slot_records_and_probe_at_w8_match_plain(dev, prefix):
                                           S if rounds is None else rounds)
         _same(got, want)
     assert KER.launches["slot_table_probe"] == 3
+
+
+# ---------------------------------------------------------------------------
+# decimal lanes of the one-hot group-by, and K4 over string/decimal leaves
+# ---------------------------------------------------------------------------
+
+def _decimal_limbs(rng, n, kind):
+    """int64[n, 2] two's-complement limbs: ``small`` (low limb in [0,
+    2^50), the reference's group_by_decimal_sum), ``signed`` (the whole
+    decimal(38) range, both signs) or ``extreme`` (+-(10^38 - 1), 0, -1,
+    +-2^64 and 2^127 - 1 style edges)."""
+    if kind == "small":
+        lo = rng.integers(0, 1 << 50, n)
+        return np.stack([lo, np.zeros(n, np.int64)], 1)
+    if kind == "extreme":
+        pool = [10 ** 38 - 1, -(10 ** 38 - 1), 0, -1, 1, 2 ** 64,
+                -(2 ** 64), 2 ** 127 - 1, -(2 ** 127)]
+        vals = [pool[i] for i in rng.integers(0, len(pool), n)]
+    else:
+        vals = [int(rng.integers(0, 10 ** 18)) * 10 ** 20
+                + int(rng.integers(0, 10 ** 18)) for _ in range(n)]
+        vals = [-v if s else v for v, s in zip(vals, rng.random(n) < 0.5)]
+    u = np.array([v & ((1 << 128) - 1) for v in vals], dtype=object)
+    lo = np.array([int(x) & ((1 << 64) - 1) for x in u], np.uint64)
+    hi = np.array([int(x) >> 64 for x in u], np.uint64)
+    return np.stack([lo, hi], 1).view(np.int64)
+
+
+def _decimal_onehot(dev, rng, n, K, kind, pattern_rows=None):
+    key = rng.integers(0, K, n).astype(np.int32)
+    if pattern_rows is not None:  # tile a small pattern up to n rows
+        limbs = np.tile(_decimal_limbs(rng, pattern_rows, kind),
+                        (-(-n // pattern_rows), 1))[:n]
+    else:
+        limbs = _decimal_limbs(rng, n, kind)
+    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    val = lambda s: to(rng.random(n) > s)  # noqa: E731
+    cols = [(to(np.ascontiguousarray(limbs)), val(0.01)),
+            (to(rng.integers(-99, 99, n)), val(0.1))]
+    return to(key), val(0.05), to(rng.random(n) > 0.1), cols
+
+
+# the decimal case's partials (1 u64 int sum + 4 lanes, 1 + 2 + 1 u32
+# counts) take 56 bytes a bucket: 48 KB hold 877, so K = 3000 tiles four
+# times over gridDim.y
+@pytest.mark.parametrize("kind,K,n,pattern", [
+    ("small", 100, 1 << 20, None), ("signed", 100, 1 << 20, 4096),
+    ("extreme", 11, 1 << 24, 4096), ("signed", 3000, 1 << 20, 4096)])
+def test_onehot_decimal_lanes_match_plain(dev, kind, K, n, pattern):
+    """Fused entry with decimal lanes bit for bit against its plain path
+    (the reference's 16 byte limbs and negative flag), and the contract
+    entry over the decimal payload against its plain version."""
+    from spark_rapids_jni_tpu_torch.relational.aggregate import \
+        decimal_lanes_to_limbs
+
+    rng = np.random.default_rng(K + n)
+    key, kv, live, cols = _decimal_onehot(dev, rng, n, K, kind, pattern)
+    KER.reset_launches()
+    got = KER.onehot_groupby_columns(key, kv, live, cols, [1], [], K, [0])
+    assert KER.launches["onehot_groupby"] == 1
+    ref = KER.onehot_groupby_columns_plain(key, kv, live, cols, [1], [], K,
+                                           [0])
+    assert torch.equal(got[0], ref[0])
+    assert bool(got[2]) == bool(ref[2])
+    s256 = decimal_lanes_to_limbs(got[0][:, 4:8], got[0][:, 8])
+    assert s256.shape == (8, K + 1) and bool((s256 < (1 << 32)).all())
+    bucket, X8, F, _ = KER.onehot_payload(key, kv, live, cols, [1], [], K,
+                                          [0])
+    assert X8.shape[1] == 1 + 2 + 8 + 17
+    KER.reset_launches()
+    oi, _ = KER.onehot_groupby_parts(bucket, X8, F, K + 1)
+    assert KER.launches["onehot_groupby_parts"] == 1
+    ri, _ = KER.onehot_groupby_parts_plain(bucket, X8, F, K + 1)
+    assert torch.equal(oi, ri)
+
+
+@pytest.mark.parametrize("case", ["stream_shape", "three_rounds"])
+def test_partition_scatter_string_and_decimal_leaves(dev, case):
+    """K4 moves a uint8 [n, 24] chars leaf and an int64 [n, 2] limbs leaf
+    by their row bytes, bit for bit with its plain version."""
+    rng = np.random.default_rng(9)
+    S, P, C, M, lo = 8, 8, 1 << 16, 4096, None
+    if case == "three_rounds":
+        C, M, lo = 64, 512, 0
+    pid, base, mleaves = _mapped_inputs(dev, S, P, C, M, rng, 0.1, None, lo)
+    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    mleaves = [to(rng.integers(0, 256, (S * M, 24)).astype(np.uint8)),
+               to(rng.integers(0, 24, S * M).astype(np.int32)),
+               to(_decimal_limbs(rng, S * M, "extreme")),
+               to(rng.random(S * M) < 0.9)]
+    r_lo = base.min().item() // C
+    r_hi = (base.max().item() + M) // C
+    outs = []
+    for fn in (KER.partition_scatter_mapped,
+               KER.partition_scatter_mapped_plain):
+        rounds = {r: ([torch.zeros((S * P * C,) + tuple(m.shape[1:]),
+                                   dtype=m.dtype, device=dev)
+                       for m in mleaves],
+                      torch.zeros(S * P * C, dtype=torch.bool, device=dev))
+                  for r in range(r_lo, r_hi + 1)}
+        KER.reset_launches()
+        outs.append(fn(rounds, mleaves, pid, base, P, C))
+        if fn is KER.partition_scatter_mapped:
+            assert KER.launches["partition_scatter"] == 1
+    got, ref = outs
+    for r in got:
+        assert torch.equal(got[r][1], ref[r][1])
+        _same(got[r][0], ref[r][0])

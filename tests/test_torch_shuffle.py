@@ -24,6 +24,7 @@ from spark_rapids_jni_tpu import config as jconfig
 from spark_rapids_jni_tpu.columnar import types as JT
 from spark_rapids_jni_tpu.columnar.column import Column as JColumn
 from spark_rapids_jni_tpu.columnar.column import ColumnBatch as JBatch
+from spark_rapids_jni_tpu.columnar.column import StringColumn as JString
 from spark_rapids_jni_tpu.parallel import data_mesh, shard_batch
 from spark_rapids_jni_tpu.shuffle import MorselSource as JMorselSource
 from spark_rapids_jni_tpu.shuffle import ShuffleError as JShuffleError
@@ -40,6 +41,10 @@ from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
 from spark_rapids_jni_tpu_torch.shuffle import (MorselSource, ShuffleError,
                                                 ShuffleRegistry,
                                                 ShuffleService, planner)
+from spark_rapids_jni_tpu_torch.shuffle.buffers import (batch_leaves,
+                                                        tree_nbytes)
+
+from torch_parity import jdecimal, to_port, unscaled
 
 P8 = 8
 
@@ -294,3 +299,134 @@ def test_unported_options_raise(eight_devices):
         svc.exchange(batch_from_numpy(
             {"k": (np.arange(5), np.ones(5, bool), "int64")}, "cpu"),
             key_names=["k"])
+
+
+# ---------------------------------------------------------------------------
+# every column kind through the exchange
+# ---------------------------------------------------------------------------
+
+def _mixed_kinds(rng, n):
+    """Int key, a 24-byte string column (10 % null), decimal(38,2) and
+    decimal(7,2) columns: the leaves a shuffle of TPC-DS rows carries."""
+    cats = [f"store-{i:03d}-{'q' * (i % 9)}" for i in range(40)]
+    svals = [None if rng.random() < 0.1 else cats[i]
+             for i in rng.integers(0, 40, n)]
+    return JBatch({
+        "k": JColumn(jnp.asarray(rng.integers(0, 1 << 20, n)),
+                     jnp.asarray(rng.random(n) > 0.05), JT.INT64),
+        "s": JString.from_pylist(svals, max_len=24),
+        "d": jdecimal(unscaled(rng, n, 38, nulls=0.1), 38, 2),
+        "p": jdecimal(unscaled(rng, n, 7, nulls=0.1), 7, 2)})
+
+
+def assert_same_leaves(jres, tres):
+    """Every leaf of the whole global batch bit-identical, plus the
+    accounting."""
+    np.testing.assert_array_equal(tres.occupancy.numpy(),
+                                  np.asarray(jres.occupancy))
+    jl = jax.tree_util.tree_leaves(jres.batch)
+    tl = batch_leaves(tres.batch)
+    assert len(jl) == len(tl)
+    for i, (a, b) in enumerate(zip(jl, tl)):
+        np.testing.assert_array_equal(
+            np.ascontiguousarray(b.numpy()).view(np.uint8),
+            np.ascontiguousarray(np.asarray(a)).view(np.uint8),
+            err_msg=f"leaf {i}")
+    for f in ("rounds", "capacity", "rows_moved", "bytes_moved",
+              "oob_rows", "streamed", "morsels"):
+        assert getattr(tres, f) == getattr(jres, f), f
+
+
+@pytest.mark.parametrize("key", ["k", "s", "d"])
+def test_strings_and_decimals_cross_the_exchange(eight_devices,
+                                                 small_buckets, key):
+    """Materialized and streamed exchanges of string and decimal columns,
+    keyed by an int, a string or a decimal column, equal the reference's
+    8-device exchanges leaf for leaf."""
+    jm, tm = _meshes(eight_devices)
+    n = P8 * 256
+    rng = np.random.default_rng(70)
+    jb = shard_batch(_mixed_kinds(rng, n), jm)
+    tb = to_port(_mixed_kinds(np.random.default_rng(70), n))
+    jsvc = JService(jm, registry=JRegistry())
+    tsvc = ShuffleService(tm, registry=ShuffleRegistry())
+    jres = jsvc.exchange(jb, key_names=[key], round_rows=16)
+    tres = tsvc.exchange(tb, key_names=[key], round_rows=16)
+    assert tres.rounds >= 2
+    assert_same_leaves(jres, tres)
+    jmor = JMorselSource.from_batch(jb, jm, morsel_rows=96)
+    tmor = MorselSource.from_batch(tb, tm, morsel_rows=96)
+    assert tmor.snapshot_id == jmor.snapshot_id
+    KER.reset_launches()
+    tst = tsvc.exchange_stream(tmor, key_names=[key], round_rows=16)
+    jst = jsvc.exchange_stream(jmor, key_names=[key], round_rows=16)
+    assert KER.launches["partition_scatter"] == 0  # CPU: plain version
+    assert tst.morsels == 3
+    assert_same_leaves(jst, tst)
+    assert tree_nbytes(tb) == sum(
+        np.asarray(x).nbytes for x in jax.tree_util.tree_leaves(jb))
+
+
+def test_morsel_source_slices_every_kind(eight_devices):
+    _, tm = _meshes(eight_devices)
+    n = P8 * 40
+    tb = to_port(_mixed_kinds(np.random.default_rng(71), n))
+    src = MorselSource.from_batch(tb, tm, morsel_rows=16)
+    assert len(src) == 3  # 40 rows a shard: 16 + 16 + 8 and 8 padding
+    parts = [m() for m in src]
+    b0, _ = parts[0]
+    assert b0["s"].chars.shape == (P8 * 16, 24)
+    assert b0["d"].limbs.shape == (P8 * 16, 2)
+    # concatenating each shard's valid rows gives the shard back in order
+    rows = torch.cat([torch.cat([b["d"].limbs.reshape(P8, 16, 2)[s]
+                                 [v.reshape(P8, 16)[s]] for b, v in parts])
+                      for s in range(P8)])
+    assert torch.equal(rows, tb["d"].limbs)
+    chars = torch.cat([torch.cat([b["s"].chars.reshape(P8, 16, 24)[s]
+                                  [v.reshape(P8, 16)[s]] for b, v in parts])
+                       for s in range(P8)])
+    assert torch.equal(chars, tb["s"].chars)
+
+
+def test_batch_digest_matches_reference_for_every_kind():
+    from spark_rapids_jni_tpu.columnar.column import ListColumn as JL
+    from spark_rapids_jni_tpu.columnar.column import StructColumn as JSt
+    from spark_rapids_jni_tpu.serve.data_plane import \
+        batch_digest as j_digest
+
+    from spark_rapids_jni_tpu_torch.shuffle.morsel import batch_digest
+
+    rng = np.random.default_rng(72)
+    n = 6
+    base = _mixed_kinds(rng, n)
+    jb = JBatch(dict(zip(base.names, base.columns),
+                     l=JL.from_pylist([[1, 2], None, [], [3], [None], [4]],
+                                      JT.INT64),
+                     st=JSt.from_pylist([{"a": 1, "b": "x"}, None,
+                                         {"a": None, "b": "yz"}, {"a": 4,
+                                                                  "b": ""},
+                                         {"a": 5, "b": None},
+                                         {"a": 6, "b": "w"}],
+                                        {"a": JT.INT32, "b": JT.STRING})))
+    assert batch_digest(to_port(jb)) == j_digest(jb)
+    for name in jb.names:
+        one = JBatch({name: jb[name]})
+        assert batch_digest(to_port(one)) == j_digest(one), name
+
+
+def test_nested_columns_do_not_cross(eight_devices):
+    from spark_rapids_jni_tpu.columnar.column import ListColumn as JL
+
+    _, tm = _meshes(eight_devices)
+    n = P8 * 2
+    jb = JBatch({"k": JColumn(jnp.arange(n), jnp.ones((n,), jnp.bool_),
+                              JT.INT64),
+                 "l": JL.from_pylist([[i] for i in range(n)], JT.INT64)})
+    tb = to_port(jb)
+    svc = ShuffleService(tm, registry=ShuffleRegistry())
+    with pytest.raises(NotImplementedError, match="item 11"):
+        svc.exchange(tb, key_names=["k"])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        MorselSource.from_batch(tb, tm, morsel_rows=2)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tree_nbytes(tb)

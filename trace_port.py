@@ -50,9 +50,16 @@ two-line summary.  It measures, at the main path's shapes:
   (sort passes, gathers and index writes, scans, the port's kernels,
   the rest) with the top kernels.
 
+* the decimal steps (``decimal``; the recipes and steps of
+  ``chip_smoke.py``): the same profile of the decimal group-bys on every
+  engine, q3's decimal revenue with both joins, each decimal op at 2^20
+  rows and the streamed exchange of the string fact with a decimal
+  column.
+
 ``--only probe,onehot`` runs only those sections (the names: ``map``,
 ``stream``, ``build``, ``probe``, ``onehot``, ``steps``, ``plan``,
-``breadth``; the default runs all but ``breadth``).  With ``--stream-reps N``
+``breadth``, ``decimal``; the default runs all but ``breadth`` and
+``decimal``).  With ``--stream-reps N``
 it only times N whole streamed exchanges of the 2^24-row fact table (512
 morsels); run it for two trees in turns to compare them.
 """
@@ -104,7 +111,9 @@ def profile(fn):
             dev_us = getattr(e, "self_cuda_time_total", 0.0)
         dtype = str(getattr(e, "device_type", ""))
         if "CUDA" in dtype and dev_us > 0:
-            kernels[e.key[:90]] = (e.count, dev_us / 1e3)
+            # names cut to 90 characters can meet: add, do not overwrite
+            c0, ms0 = kernels.get(e.key[:90], (0, 0.0))
+            kernels[e.key[:90]] = (c0 + e.count, ms0 + dev_us / 1e3)
             busy += dev_us / 1e3
         elif e.key.startswith("aten::"):
             cpu_ops[e.key] = e.count
@@ -423,6 +432,161 @@ def trace_breadth(rows):
     return out
 
 
+def trace_decimal(rows):
+    """One profiled call of each decimal step at ``rows`` (the decimal
+    recipes and steps of ``chip_smoke.py``): gb_dec on both general
+    engines and through K1's decimal lanes, gb_dec_signed, gb_dec_key,
+    q3dec with the dense and the hash join, each decimal op at 2^20 rows,
+    and the streamed exchange of the string fact with a decimal column."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
+    from spark_rapids_jni_tpu_torch.relational.aggregate import (
+        AggSpec, group_by, group_by_onehot)
+    from spark_rapids_jni_tpu_torch.shuffle import (MorselSource,
+                                                    ShuffleRegistry,
+                                                    ShuffleService)
+
+    import chip_smoke as CS
+
+    config.set("bench_rows_tpu", rows)
+    dec = CS.dec_batches()
+    gb = dec["gb_dec"][1]
+    sg = dec["gb_dec_signed"][1]
+    kb = dec["gb_dec_key"][1]
+    fact, dim = dec["q3dec"][1]
+    a, b = CS.dec_arith_columns(CS.DEC_ARITH_ROWS, None)
+    ssrc = MorselSource.from_batch(CS.stream_str_batch(PL.q6str_batch(rows)),
+                                   ShardMesh(8))
+    svc = ShuffleService(ShardMesh(8), registry=ShuffleRegistry())
+    dsum = [AggSpec("sum", "d", "s")]
+    dall = [AggSpec("sum", "d", "s"), AggSpec("mean", "d", "m"),
+            AggSpec("count", "d", "c")]
+    signed = [AggSpec("sum", "d", "sd"), AggSpec("sum", "p", "sp"),
+              AggSpec("mean", "d", "md"), AggSpec("mean", "p", "mp"),
+              AggSpec("count", "d", "cd")]
+    keyed = [AggSpec("count", None, "c"), AggSpec("sum", "v", "sv"),
+             AggSpec("min", "d", "nd"), AggSpec("max", "d", "xd")]
+
+    def engine(e, fn):
+        def run():
+            config.set("groupby_engine", e)
+            try:
+                return fn()
+            finally:
+                config.reset("groupby_engine")
+        return run
+
+    steps = {
+        "gb_dec_kernel": engine("kernel", lambda: group_by(gb, ["k"], dsum)),
+        "gb_dec_sort": engine("sort", lambda: group_by(gb, ["k"], dsum)),
+        "gb_dec_onehot": lambda: group_by_onehot(gb, "k", dall, 100),
+        "gb_dec_signed_kernel": engine("kernel", lambda: group_by(
+            sg, ["k"], signed)),
+        "gb_dec_signed_onehot": lambda: group_by_onehot(sg, "k", signed,
+                                                        100),
+        "gb_dec_key_kernel": engine("kernel", lambda: group_by(
+            kb, ["p"], keyed, num_slots=1 << 15)),
+        "gb_dec_key_sort": engine("sort", lambda: group_by(
+            kb, ["p"], keyed, num_slots=1 << 15)),
+        "q3dec_dense": lambda: CS.q3dec_step(fact, dim, "dense"),
+        "q3dec_hash": lambda: CS.q3dec_step(fact, dim, "hash"),
+        "stream_str": lambda: svc.exchange_stream(ssrc, key_names=["k"]),
+    }
+    for op, scale in CS.DEC_OPS:
+        steps[f"dec_{op}"] = lambda o=op, sc=scale: CS._one_op(a, b, o, sc)
+    out = {}
+    try:
+        for name, fn in steps.items():
+            fn()  # warm: the allocator fills
+            wall, busy, kern, cpu_ops = profile(fn)
+            out[name] = {
+                "wall_ms": wall, "device_busy_ms": busy,
+                "idle_share": 1 - busy / wall,
+                "kernel_launches": sum(c for c, _ in kern.values()),
+                "device_ms_by_kind": kernel_kinds(kern),
+                "top_kernels": dict(sorted(kern.items(),
+                                           key=lambda kv: -kv[1][1])[:8])}
+            if name.endswith("onehot"):  # host-bound: where the host waits
+                out[name]["top_host_ops"] = host_ops(fn)
+        out["q3dec_parts_ms"] = q3dec_parts(fact, dim)
+        out["limbs_gather_ms"] = limbs_gather(gb["d"].limbs)
+    finally:
+        config.reset("bench_rows_tpu")
+    return out
+
+
+def limbs_gather(limbs):
+    """CUDA-event ms of gathering int64[n, 2] decimal limbs by a
+    sequential and a random permutation: torch's row gather against the
+    port's ``gather_limbs`` (one gather per limb column)."""
+    import torch
+
+    from spark_rapids_jni_tpu_torch.relational.gather import gather_limbs
+
+    n = limbs.shape[0]
+    out = {}
+    for name, idx in (("sequential", torch.arange(n, device=limbs.device)),
+                      ("random", torch.randperm(n, device=limbs.device))):
+        out[f"row_gather_{name}"] = ev_ms(lambda i=idx: limbs[i], reps=5)
+        out[f"gather_limbs_{name}"] = ev_ms(
+            lambda i=idx: gather_limbs(limbs, i), reps=5)
+    return out
+
+
+def q3dec_parts(fact, dim):
+    """CUDA-event ms of q3dec's pieces at its shape: ``1 - disc``, the
+    multiply, the dense join of the fact with ``rev``, and the group-by
+    over the joined rows."""
+    import torch
+
+    import chip_smoke as CS
+    from spark_rapids_jni_tpu_torch.columnar import types as T
+    from spark_rapids_jni_tpu_torch.columnar.column import Decimal128Column
+    from spark_rapids_jni_tpu_torch.ops import decimal as D
+    from spark_rapids_jni_tpu_torch.relational.aggregate import (
+        AggSpec, group_by_domain_or_sort)
+    from spark_rapids_jni_tpu_torch.relational.join import \
+        join_dense_or_hash
+
+    n = fact.num_rows
+    dev = fact["k"].device
+    one = Decimal128Column(
+        torch.tensor([[1, 0]], dtype=torch.int64, device=dev).expand(n, 2),
+        torch.ones((n,), dtype=torch.bool, device=dev),
+        T.SparkType.decimal(1, 0))
+    om = D.null_on_overflow(*D.sub_decimal128(one, fact["disc"], 2))
+    rev = D.null_on_overflow(*D.multiply_decimal128(fact["price"], om, 4))
+    f2 = fact.with_column("rev", rev)
+    joined, count = join_dense_or_hash(f2, dim, "k", "k", dim.num_rows)
+    live = torch.arange(n, device=dev) < count
+    aggs = [AggSpec("sum", "rev", "rev"), AggSpec("count", None, "cnt")]
+    return {
+        "one_minus_disc": ev_ms(lambda: D.sub_decimal128(
+            one, fact["disc"], 2), reps=3),
+        "multiply": ev_ms(lambda: D.multiply_decimal128(
+            fact["price"], om, 4), reps=3),
+        "dense_join": ev_ms(lambda: join_dense_or_hash(
+            f2, dim, "k", "k", dim.num_rows), reps=3),
+        "group_by": ev_ms(lambda: group_by_domain_or_sort(
+            joined, "seg", aggs, CS.Q3_DOMAIN, row_valid=live), reps=3),
+        "whole": ev_ms(lambda: CS.q3dec_step(fact, dim), reps=3)}
+
+
+def host_ops(fn, top=10):
+    """``{op: (calls, host ms)}`` of the ops with the most self host time
+    in one call (``torch.profiler``, CPU activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {e.key: (e.count, e.self_cpu_time_total / 1e3) for e in ev[:top]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="tree")
@@ -614,6 +778,8 @@ def main() -> int:
         out["plan_q6_onehot"] = trace_plan(args.rows)
     if "breadth" in only:
         out["breadth"] = trace_breadth(args.rows)
+    if "decimal" in only:
+        out["decimal"] = trace_decimal(args.rows)
 
     with open(path, "w") as f:
         json.dump(out, f, indent=1, default=str)
