@@ -72,6 +72,19 @@ Phases, each printing one JSON line:
    its 24-byte string, 512 morsels, lossless, routed and order-keeping
    with one K4 launch a morsel over the chars and limbs leaves.
 
+11. multi-GPU: ``multichip_dryrun`` (``pipelines.dryrun_multichip(8)`` on
+   a shard mesh at the reference's 100 000 rows a device: every check the
+   reference asserts, and the hash join's int64 count equal to the exact
+   total computed in numpy); ``multichip_q95`` (the q95 fact row-sharded
+   over 8 shards: the distributed hash join, dense broadcast join,
+   exchanged group-by and map-side combine, both group-bys equal to the
+   oracle, and the global sort of the fact, ordered with every row kept;
+   exact per-shard launch counts, ms per operator, the all-to-all share,
+   and the kernels at shard 0's shapes); ``multichip_nccl`` (the same
+   operators and the sort on a ``ProcessMesh`` over NCCL at world size =
+   the visible cards, at most 4, bit-identical shard for shard to a
+   shard mesh of that size; one card runs it in this process).
+
 It then prints one ``kernels`` line and, last, ``{"ok": true, "device":
 ...}``.  Any mismatch or exception exits nonzero without that line, as
 does a machine without CUDA or a directory without the port.
@@ -617,6 +630,17 @@ def k4_case(name, leaves, cnts, C, rounds):
             "library_ms": None}
 
 
+def kernel_case(cases, kernel, label, fn, *args):
+    """Run one kernel case, print its line and keep it in ``cases``; a
+    case that raises is recorded and left out."""
+    out = guarded(f"kernel {kernel}[{label}]", fn, *args)
+    if out is not None:
+        case = out[0] if isinstance(out, tuple) else out
+        emit({"phase": "kernel", "kernel": kernel, **case})
+        cases[kernel].append(case)
+    return out
+
+
 def phase_kernels(q6b, fact, dim1, dim2, q6s, sdim, dec):
     """Every kernel case; returns ``{kernel: [case, ...]}`` (main shape
     first).  A case that raises is recorded and left out."""
@@ -629,12 +653,7 @@ def phase_kernels(q6b, fact, dim1, dim2, q6s, sdim, dec):
     cases = {k: [] for k in REPLACES}
 
     def run(kernel, label, fn, *args):
-        out = guarded(f"kernel {kernel}[{label}]", fn, *args)
-        if out is not None:
-            case = out[0] if isinstance(out, tuple) else out
-            emit({"phase": "kernel", "kernel": kernel, **case})
-            cases[kernel].append(case)
-        return out
+        return kernel_case(cases, kernel, label, fn, *args)
 
     dev = q6b["k"].data.device
     mask = q6b["price"].data < 50.0
@@ -1898,6 +1917,258 @@ def phase_stream_str(fact):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# multi-GPU: the dry run, q95 over a shard mesh, and NCCL ranks
+# ---------------------------------------------------------------------------
+
+MC_SHARDS = 8               # the reference's mesh (MULTICHIP_r0*.json)
+MC_ROWS_PER_DEVICE = 100_000
+
+
+def phase_multichip_dryrun():
+    """``dryrun_multichip(8)`` on a shard mesh at the reference's 100 000
+    rows a device: every check the reference asserts (it raises on a
+    miss), and its hash-join count against the exact int64 total
+    ``sum_k fact_valid(k) * dim(k)`` computed here in numpy."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.parallel import ShardMesh
+
+    lines = []
+    n = MC_SHARDS * MC_ROWS_PER_DEVICE
+    out, counts, first_s = driven(lambda: PL.dryrun_multichip(
+        MC_SHARDS, MC_ROWS_PER_DEVICE, mesh=ShardMesh(MC_SHARDS),
+        log=lines.append))
+    _, keys = PL.dryrun_arrays(n)
+    k, kv = keys["skew80"]
+    dk = np.tile(np.arange(PL.DRYRUN_KEYS), n // PL.DRYRUN_KEYS + 1)[:n]
+    want = int((np.bincount(k[kv], minlength=PL.DRYRUN_KEYS)
+                .astype(np.int64)
+                * np.bincount(dk, minlength=PL.DRYRUN_KEYS)).sum())
+    check(out["join_count"] == want,
+          f"multichip_dryrun: join count {out['join_count']} != {want}")
+    check(out["rows"] == n and out["sorted_rows"] == n,
+          "multichip_dryrun: rows not conserved")
+    check(all(p["rows"] == n for p in out["patterns"].values()),
+          "multichip_dryrun: a skew pattern lost rows")
+    check(out["broadcast_matches"] == int(kv.sum()),
+          "multichip_dryrun: broadcast matches")
+    check(out["hier"] == "dcn-x-ici hierarchical shuffle OK",
+          f"multichip_dryrun: {out['hier']}")
+    check(counts["slot_table_build"] > 0 and counts["onehot_groupby"] > 0,
+          "multichip_dryrun: K2 or K1 was not launched")
+    emit({"phase": "multichip_dryrun", "shards": MC_SHARDS,
+          "rows_per_device": MC_ROWS_PER_DEVICE, "rows": n,
+          "launches": counts, "seconds": first_s, "groups": out["groups"],
+          "join_count": out["join_count"], "join_count_exact": want,
+          "join_count_int32": want % (1 << 32), "lines": lines})
+    return counts
+
+
+def a2a_share_ms(fn):
+    """One call of ``fn`` with the all-to-all timer on: ``(call ms,
+    all-to-all ms)`` by CUDA events (on a shard mesh the all-to-all is
+    the gather into the receive order)."""
+    from spark_rapids_jni_tpu_torch.parallel import collectives as CL
+
+    torch.cuda.synchronize()
+    CL.a2a_events = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        a2a = sum(a.elapsed_time(b) for a, b in CL.a2a_events)
+    finally:
+        CL.a2a_events = None
+    return start.elapsed_time(end), a2a
+
+
+def multichip_kernel_cases(cases, fact, dim1, j2, live2, mesh):
+    """The kernels at the shapes shard 0 gives them on the q95 path: the
+    join build over dim1's exchanged shard, its records and the probe by
+    the fact's exchanged shard, the group-by build and the fused one-hot
+    group-by over the broadcast join's shard."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.plan import adaptive as AD
+    from spark_rapids_jni_tpu_torch.relational import hashtable as H
+    from spark_rapids_jni_tpu_torch.relational import keys as RK
+    from spark_rapids_jni_tpu_torch.shuffle import ShuffleRegistry, \
+        ShuffleService
+
+    svc = ShuffleService(mesh, registry=ShuffleRegistry())
+    lres = svc.exchange(fact, key_names=["k"])
+    rres = svc.exchange(dim1, key_names=["k"])
+    ls, locc = mesh.split(lres.batch)[0], mesh.split(lres.occupancy)[0]
+    rs, rocc = mesh.split(rres.batch)[0], mesh.split(rres.occupancy)[0]
+    rcol = rs["k"]
+    rcol = type(rcol)(rcol.data, rcol.validity & rocc, rcol.dtype)
+    rk = RK.batch_radix_keys([rcol], equality=True, nulls_first=False)
+    nr = rs.num_rows
+    ones = torch.ones(nr, dtype=torch.bool, device=rocc.device)
+    out = kernel_case(cases, "slot_table_build", "join_dim1_shard0",
+                      k2_case, "join_dim1_shard0", rk, ones,
+                      H.next_pow2(2 * nr), None)
+    if out is not None:
+        owner = out[1]
+        rec = kernel_case(cases, "slot_table_records",
+                          "dim1_shard0", k3_records_case, "dim1_shard0",
+                          owner, rk)
+        if rec is not None:
+            lk = RK.batch_radix_keys([ls["k"]], equality=True,
+                                     nulls_first=False)
+            kernel_case(cases, "slot_table_probe", "fact_shard0_into_dim1",
+                        k3_case, "fact_shard0_into_dim1", owner, rk, lk,
+                        ls["k"].validity & locc, H.chain_bound(owner, nr),
+                        rec[1])
+    j2s, live2s = mesh.split(j2)[0], mesh.split(live2)[0]
+    n = j2s.num_rows
+    gk = RK.batch_radix_keys([j2s["seg"]], equality=True, nulls_first=True)
+    S = min(4096, H.next_pow2(2 * n))
+    kernel_case(cases, "slot_table_build", "groupby_seg_shard0", k2_case,
+                "groupby_seg_shard0", gk, live2s, S,
+                AD.bound_build_rounds(n, S))
+    kernel_case(cases, "onehot_groupby", "q95_seg_shard0", k1_case,
+                "q95_seg_shard0", j2s, "seg", list(PL.Q95_AGGS), PL.Q95_SEG,
+                live2s)
+
+
+def phase_multichip_q95(fact, dim1, dim2, arrays, cases):
+    """q95's operators row-sharded over a shard mesh of 8 (2^21 fact rows
+    a shard): the hash join on ``k``, the dense broadcast join on ``wh``,
+    the exchanged group-by and the map-side combine on ``seg`` (both equal
+    to the numpy oracle exactly), and the global sort of the fact by
+    ``(k, v)`` (ordered, every row kept).  Each operator is driven once
+    with the launch counts at 0 (exact per-shard counts: 8 K2 builds, 8
+    record builds and 8 K3 probes for the hash join, 8 K2 builds for the
+    group-by, 8 fused K1 launches for the domain group-by), then timed
+    over 3 calls with CUDA events; one more call reads the all-to-all
+    share."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.parallel import (
+        ShardMesh, distributed_broadcast_join, distributed_group_by,
+        distributed_group_by_domain, distributed_hash_join,
+        distributed_sort, shard_batch)
+
+    mesh = ShardMesh(MC_SHARDS)
+    f, d1 = shard_batch(fact, mesh), shard_batch(dim1, mesh)
+    zero = no_kernels()
+    total = dict(zero)
+    state = {}
+    aggs = list(PL.Q95_AGGS)
+    steps = (
+        ("hash_join", lambda: distributed_hash_join(
+            f, d1, ["k"], ["k"], "inner", mesh),
+         {**zero, "slot_table_build": MC_SHARDS,
+          "slot_table_records": MC_SHARDS, "slot_table_probe": MC_SHARDS}),
+        ("broadcast_join", lambda: distributed_broadcast_join(
+            state["hash_join"][0], dim2, ["wh"], ["wh"], "inner", mesh,
+            dense_domain=PL.Q95_WH), zero),
+        ("group_by", lambda: distributed_group_by(
+            state["broadcast_join"][0], ["seg"], aggs, mesh,
+            row_valid=state["live2"]),
+         {**zero, "slot_table_build": MC_SHARDS}),
+        ("group_by_domain", lambda: distributed_group_by_domain(
+            state["broadcast_join"][0], "seg", aggs, PL.Q95_SEG, mesh,
+            row_valid=state["live2"]),
+         {**zero, "onehot_groupby": MC_SHARDS}),
+        ("sort", lambda: distributed_sort(f, ["k", "v"], mesh), zero))
+    for name, fn, exact in steps:
+        out, counts, first_s = driven(fn)
+        state[name] = out
+        if name == "broadcast_join":
+            state["live2"] = PL.shard_prefix(out[1], out[0].num_rows)
+        check_counts(f"multichip_q95/{name}", counts, (), exact)
+        ms = time_ms(fn, reps=3, warmup=0)
+        call_ms, a2a_ms = a2a_share_ms(fn)
+        for k in total:
+            total[k] += counts[k]
+        emit({"phase": "multichip_q95", "op": name, "shards": MC_SHARDS,
+              "rows": fact.num_rows, "launches": counts,
+              "first_run_s": first_s, "ms": ms, "a2a_ms": a2a_ms,
+              "a2a_share": a2a_ms / call_ms if call_ms else None})
+
+    # the outputs against the oracle
+    j1, c1, drop1 = state["hash_join"]
+    check(int(c1.sum()) == fact.num_rows and int(drop1.sum()) == 0,
+          f"multichip_q95: hash join matched {int(c1.sum())} rows")
+    orders, net = PL.q95_oracle(arrays)
+    got = PL.q95_distributed_groups(
+        {"group_by": state["group_by"], "domain": state["group_by_domain"]},
+        mesh)
+    for name, (o, v) in got.items():
+        check(np.array_equal(o, orders) and
+              np.array_equal(v, net.astype(np.int64)),
+              f"multichip_q95: {name} groups differ from the oracle")
+    check(not bool(state["group_by_domain"][2]),
+          "multichip_q95: domain overflow")
+    res, occ, sdrop = state["sort"]
+    check(int(occ.sum()) == fact.num_rows and int(sdrop.sum()) == 0,
+          "multichip_q95: the sort lost rows")
+    key = res["k"].data[occ].to(torch.int64) * PL.Q95_V_HI + res["v"].data[
+        occ]
+    check(bool((key[1:] >= key[:-1]).all().item()),
+          "multichip_q95: the sort is not globally ordered")
+    want = torch.sort(fact["k"].data.to(torch.int64) * PL.Q95_V_HI
+                      + fact["v"].data).values
+    check(torch.equal(key, want), "multichip_q95: sorted rows differ")
+    guarded("kernel cases at the shard shapes", multichip_kernel_cases,
+            cases, f, d1, state["broadcast_join"][0], state["live2"], mesh)
+    return total
+
+
+def phase_multichip_nccl():
+    """q95's operators and the sort on a ProcessMesh over NCCL at world
+    size = the visible cards (at most 4), against a shard mesh of the
+    same size: every shard's outputs bit-identical (sha256 of each).
+    One card runs in this process; more spawn one rank per card
+    (``parallel/launch.py``)."""
+    import datetime
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from spark_rapids_jni_tpu_torch.parallel import ProcessMesh, ShardMesh
+    from spark_rapids_jni_tpu_torch.parallel import drive, launch
+
+    world = min(torch.cuda.device_count(), 4)
+    ops = [drive.Op("q95_distributed", (N_FACT, drive.MESH))]
+    t0 = time.perf_counter()
+    want = drive.digest_ops(ShardMesh(world), ops)
+    shard_s = time.perf_counter() - t0
+    counts = no_kernels()
+    t0 = time.perf_counter()
+    if world == 1:
+        store = tempfile.mkdtemp(prefix="srj_nccl_")
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(store, 'pg')}",
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = ProcessMesh()
+            got, counts, _ = driven(lambda: [drive.digest_ops(mesh, ops)])
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(store, ignore_errors=True)
+    else:
+        got = launch.spawn(world, "spark_rapids_jni_tpu_torch.parallel."
+                           "drive:digest_ops", ops, backend="nccl",
+                           wall_s=300.0, pg_timeout_s=240.0)
+    rank_s = time.perf_counter() - t0
+    for r in range(world):
+        check(got[r][0][0] == want[0][r],
+              f"multichip_nccl rank {r}: results differ from the shard "
+              "mesh's")
+    emit({"phase": "multichip_nccl", "world": world, "backend": "nccl",
+          "rows": N_FACT, "launches": counts,
+          "in_process": world == 1, "shard_mesh_s": shard_s,
+          "process_mesh_s": rank_s, "digests_equal": got[0][0][0] ==
+          want[0][0]})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an "
@@ -2087,6 +2358,14 @@ def main() -> int:
     for k in total:
         total[k] += (counts or {}).get(k, 0)
     breadth("stream_str", phase_stream_str, stream_str_batch(q6s))
+
+    # multi-GPU: the dry run, q95 over 8 shards, NCCL ranks
+    breadth("multichip_dryrun", phase_multichip_dryrun)
+    counts = guarded("multichip_q95", phase_multichip_q95, fact, dim1, dim2,
+                     q95_arrays, cases)
+    for k in total:
+        total[k] += (counts or {}).get(k, 0)
+    breadth("multichip_nccl", phase_multichip_nccl)
 
     kernels = []
     for name, lst in cases.items():

@@ -92,6 +92,16 @@ _register("shuffle_max_rounds", 64, int,
           "Cap on materialized ShuffleService rounds per exchange; a plan "
           "that would exceed it raises the per-round capacity (never "
           "drops rows).")
+_register("shuffle_capacity_dcn", 0, int,
+          "Override for the per-(sender, destination-host) slot capacity "
+          "of hop one in hierarchical exchanges (shuffle/planner.py "
+          "plan_hierarchical); 0 = plan it from the observed count matrix "
+          "instead of the flat worst-case grid.")
+_register("shuffle_capacity_ici", 0, int,
+          "Override for the per-(sender, destination-chip) slot capacity "
+          "of hop two in hierarchical exchanges (shuffle/planner.py "
+          "plan_hierarchical); 0 = plan it from the observed count "
+          "matrix.")
 _register("shuffle_strict_pids", False, _parse_bool,
           "Raise ShuffleError on out-of-range partition ids (< 0 or > P) "
           "instead of routing them to the null partition and counting "

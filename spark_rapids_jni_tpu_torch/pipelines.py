@@ -431,3 +431,245 @@ def result_groups(res: ColumnBatch, ng, key: str) -> dict:
                    for name, (d, v) in cols.items() if name != key}
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# the multi-device dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_KEYS = 50  # distinct group keys (and dimension keys) of the dry run
+DRYRUN_PATTERNS = ("uniform", "all-one", "skew80")  # skew80 last: the
+# join, sort and 2-D stages reuse its batch (the q95 shape)
+
+
+def dryrun_arrays(n: int, seed: int = 3):
+    """Host recipe of the dry run, the reference's draws in its order:
+    ``(v, {pattern: (k, kvalid)})`` — uniform keys, 80% one key, and all
+    one key, 5% of keys null."""
+    rng = np.random.default_rng(seed)
+
+    def keys_for(pattern):
+        if pattern == "uniform":
+            return rng.integers(0, DRYRUN_KEYS, n).astype(np.int32)
+        if pattern == "skew80":
+            return np.where(rng.random(n) < 0.8, 7,
+                            rng.integers(0, DRYRUN_KEYS, n)).astype(np.int32)
+        return np.full(n, 13, np.int32)
+
+    v = rng.integers(-(10 ** 6), 10 ** 6, n)
+    keys = {}
+    for pattern in DRYRUN_PATTERNS:
+        k = keys_for(pattern)
+        keys[pattern] = (k, rng.random(n) > 0.05)
+    return v, keys
+
+
+def _dryrun_batch(k, kvalid, v) -> ColumnBatch:
+    """``k`` int32, ``v`` int64 and ``s`` = ``'s{k}'`` (null with ``k``),
+    on the CPU (sharding moves it)."""
+    chars, lengths = string_arrays(
+        [f"s{i}" for i in range(DRYRUN_KEYS)], k, max_len=8)
+    chars = np.where(kvalid[:, None], chars, 0).astype(np.uint8)
+    lengths = np.where(kvalid, lengths, 0).astype(np.int32)
+    ones = np.ones(k.shape, np.bool_)
+    return batch_from_numpy({"k": (k, kvalid, "int32"),
+                             "v": (v, ones, "int64"),
+                             "s": ((chars, lengths), kvalid, "string")},
+                            device="cpu")
+
+
+def _mesh_total(mesh, x: torch.Tensor) -> int:
+    return int(mesh.all_reduce(x.sum().reshape(1), "sum").item())
+
+
+def dryrun_multichip(n_devices: int, rows_per_device: int = 100_000,
+                     mesh=None, log=print) -> dict:
+    """The reference's multi-device dry run (``__graft_entry__.py``
+    ``dryrun_multichip``), stage for stage, over ``mesh`` (default: a
+    :class:`~.parallel.mesh.ShardMesh` of ``n_devices`` shards on the
+    GPU; a :class:`~.parallel.mesh.ProcessMesh` runs it on ranks):
+
+    1. the lossless group-by over three skew patterns, every row
+       conserved and none dropped;
+    2. the map-side combine (:func:`distributed_group_by_domain`) equal
+       to the exchanged group-by's groups;
+    3. a hash join against a 50-key dimension of ``n`` rows, its int64
+       match count equal to the exact ``sum_k fact_valid(k) * dim(k)``;
+    4. a dense broadcast join: every valid-keyed row matches once;
+    5. the global sort by ``(k, v)``: every row kept, keys ordered across
+       shards;
+    6. on an even mesh of 4 or more, the ``2 x (n/2)`` two-hop group-by
+       equal to the flat one.
+
+    Raises AssertionError on any failed check; returns the figures it
+    checked.  ``log`` takes each stage's line (``None``: no output).
+    """
+    from .parallel import (HierMesh, ShardMesh, collect_groups,
+                           distributed_broadcast_join, distributed_group_by,
+                           distributed_group_by_2d,
+                           distributed_group_by_domain, distributed_hash_join,
+                           distributed_sort, shard_batch)
+
+    log = log or (lambda line: None)
+    mesh = ShardMesh(n_devices) if mesh is None else mesh
+    if mesh.size != n_devices:
+        raise ValueError(f"mesh has {mesh.size} shards, not {n_devices}")
+    n = n_devices * rows_per_device
+    v, keys = dryrun_arrays(n)
+    aggs = [AggSpec("sum", "v", "sum_v"), AggSpec("count", None, "cnt")]
+    out = {"rows": n, "patterns": {}}
+    for pattern in DRYRUN_PATTERNS:
+        k, kvalid = keys[pattern]
+        sharded = shard_batch(_dryrun_batch(k, kvalid, v), mesh)
+        res, ng, dropped = distributed_group_by(sharded, ["k"], aggs, mesh)
+        assert _mesh_total(mesh, dropped) == 0, (
+            "lossless shuffle dropped rows", pattern)
+        per = res.num_rows // mesh.local_shards
+        live = (torch.arange(per, device=ng.device)[None, :]
+                < ng[:, None]).reshape(-1)
+        total = _mesh_total(mesh, torch.where(
+            live, res["cnt"].data, torch.zeros_like(res["cnt"].data)))
+        assert total == n, (pattern, total, n)
+        slots = _mesh_total(mesh, ng)
+        out["patterns"][pattern] = {"rows": total, "group_slots": slots}
+        log(f"  [group-by/{pattern}] {rows_per_device} rows/device x "
+            f"{n_devices} devices = {total} rows conserved, {slots} group "
+            "slots, 0 dropped")
+    groups = collect_groups(res, ng, mesh)
+    assert sum(groups["cnt"]) == n, (sum(groups["cnt"]), n)
+
+    # map-side combine on the skew80 batch: partials + one all-reduce
+    dres, dng, dovf = distributed_group_by_domain(sharded, "k", aggs, 64,
+                                                  mesh)
+    assert not bool(dovf)
+    gd = int(dng)
+    dkeys, dsums = (collect_groups(dres, dng.reshape(1))[c]
+                    for c in ("k", "sum_v"))
+    dmap = {dkeys[i]: dsums[i] for i in range(gd) if dkeys[i] is not None}
+    smap = {kk: sv for kk, sv in zip(groups["k"], groups["sum_v"])
+            if kk is not None}
+    assert dmap == smap, "map-side combine != shuffled group-by"
+
+    # hash join against a 50-key dimension of n rows
+    dk = np.tile(np.arange(DRYRUN_KEYS, dtype=np.int32),
+                 n // DRYRUN_KEYS + 1)[:n]
+    ones = np.ones(n, np.bool_)
+    dim = batch_from_numpy({"k": (dk, ones, "int32"),
+                            "dv": (dk.astype(np.int64) * 10, ones,
+                                   "int64")}, device="cpu")
+    jres, jcounts, jdrop = distributed_hash_join(
+        sharded, shard_batch(dim, mesh), ["k"], ["k"], "inner", mesh)
+    assert _mesh_total(mesh, jdrop) == 0
+    join_count = _mesh_total(mesh, jcounts)
+    fact_k = k[kvalid].astype(np.int64)
+    want = int((np.bincount(fact_k, minlength=DRYRUN_KEYS).astype(np.int64)
+                * np.bincount(dk, minlength=DRYRUN_KEYS)).sum())
+    assert join_count == want, (join_count, want)
+    out["join_count"] = join_count
+    log(f"  [hash-join] {n} x {n} rows -> {join_count} matches, 0 dropped")
+
+    # dense broadcast join: zero exchange, one match per valid key
+    dim50 = batch_from_numpy({
+        "k": (np.arange(DRYRUN_KEYS, dtype=np.int32),
+              np.ones(DRYRUN_KEYS, np.bool_), "int32"),
+        "dv": (np.arange(DRYRUN_KEYS, dtype=np.int64) * 10,
+               np.ones(DRYRUN_KEYS, np.bool_), "int64")}, device="cpu")
+    _, bcounts = distributed_broadcast_join(
+        sharded, dim50, ["k"], ["k"], "inner", mesh,
+        dense_domain=DRYRUN_KEYS)
+    b_total = _mesh_total(mesh, bcounts)
+    assert b_total == int(kvalid.sum()), (b_total, int(kvalid.sum()))
+    out["broadcast_matches"] = b_total
+    log(f"  [broadcast-join] {n} x {DRYRUN_KEYS}-key dense dim -> "
+        f"{b_total} matches, zero-exchange")
+
+    # global sort by (k, v): ordered across shards
+    sres, socc, sdrop = distributed_sort(sharded, ["k", "v"], mesh)
+    assert _mesh_total(mesh, sdrop) == 0
+    kept = _mesh_total(mesh, socc.to(torch.int64))
+    assert kept == n, (kept, n)
+    kk = sres["k"].data[socc & sres["k"].validity]
+    live_sorted = mesh.all_gather_rows(kk).cpu().numpy()
+    assert (np.diff(live_sorted) >= 0).all(), "global sort order violated"
+    out["sorted_rows"] = kept
+    log(f"  [global-sort] {kept} rows range-partitioned and globally "
+        "ordered, 0 dropped")
+
+    hier = "dcn-x-ici skipped (needs even n>=4)"
+    if n_devices % 2 == 0 and n_devices >= 4:
+        hmesh = HierMesh(2, n_devices // 2, mesh)
+        res2, ng2, drop2 = distributed_group_by_2d(
+            sharded.select(["k", "v"]), ["k"], aggs, hmesh)
+        assert _mesh_total(mesh, drop2) == 0, "hierarchical shuffle lost rows"
+        g2 = collect_groups(res2, ng2, mesh)
+        assert sum(g2["cnt"]) == n, (sum(g2["cnt"]), n)
+        assert dict(zip(g2["k"], g2["sum_v"])) == dict(
+            zip(groups["k"], groups["sum_v"])), "2d != flat group sums"
+        hier = "dcn-x-ici hierarchical shuffle OK"
+    out["groups"] = len(groups["k"])
+    out["hier"] = hier
+    log(f"dryrun_multichip({n_devices}): {len(groups['k'])} groups over "
+        f"{n} rows ({rows_per_device}/device, 3 skew patterns + map-side"
+        f"-combine parity), join count={join_count}, global sort OK, "
+        f"{hier}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# q95 over a mesh
+# ---------------------------------------------------------------------------
+
+def shard_prefix(counts: torch.Tensor, rows: int) -> torch.Tensor:
+    """bool[rows]: each local shard's first ``counts[s]`` rows (a
+    distributed join's live rows; ``counts`` has one entry per local
+    shard)."""
+    per = rows // counts.shape[0]
+    return (torch.arange(per, device=counts.device)[None, :]
+            < counts[:, None]).reshape(-1)
+
+
+def q95_distributed(fact: ColumnBatch, dim1: ColumnBatch, dim2: ColumnBatch,
+                    mesh) -> dict:
+    """q95's operators over a mesh of row-sharded ``fact`` and ``dim1``
+    (``dim2`` whole): the hash join on ``k`` (both sides exchanged), the
+    dense broadcast join on ``wh``, then the group by ``seg`` twice — the
+    exchanged group-by and the map-side combine.  Returns each step's
+    outputs by name: ``join1`` ``(rows, counts, dropped)``, ``join2``
+    ``(rows, counts)``, ``group_by`` ``(result, num_groups, dropped)`` and
+    ``domain`` ``(result, num_groups, overflow)``."""
+    from .parallel import (distributed_broadcast_join, distributed_group_by,
+                           distributed_group_by_domain,
+                           distributed_hash_join)
+
+    j1, c1, d1 = distributed_hash_join(fact, dim1, ["k"], ["k"], "inner",
+                                       mesh)
+    j2, c2 = distributed_broadcast_join(j1, dim2, ["wh"], ["wh"], "inner",
+                                        mesh, dense_domain=Q95_WH)
+    live = shard_prefix(c2, j2.num_rows)
+    gb = distributed_group_by(j2, ["seg"], list(Q95_AGGS), mesh,
+                              row_valid=live)
+    dom = distributed_group_by_domain(j2, "seg", list(Q95_AGGS), Q95_SEG,
+                                      mesh, row_valid=live)
+    return {"join1": (j1, c1, d1), "join2": (j2, c2), "group_by": gb,
+            "domain": dom}
+
+
+def q95_distributed_groups(out: dict, mesh=None) -> dict:
+    """``{'group_by': (orders, net), 'domain': (orders, net)}`` int64
+    arrays over ``seg`` in ``[0, Q95_SEG)`` from :func:`q95_distributed`'s
+    outputs (the exchanged group-by's shards collected), comparable with
+    :func:`q95_oracle`; a seg no row reaches stays 0."""
+    from .parallel import collect_groups
+
+    got = {}
+    for name in ("group_by", "domain"):
+        res, ng = out[name][:2]
+        g = collect_groups(res, ng.reshape(-1), mesh if name == "group_by"
+                           else None)
+        orders = np.zeros(Q95_SEG, np.int64)
+        net = np.zeros(Q95_SEG, np.int64)
+        for s, o, v in zip(g["seg"], g["orders"], g["net"]):
+            orders[s] += o
+            net[s] += v
+        got[name] = (orders, net)
+    return got

@@ -1,11 +1,16 @@
-"""The exchange: map -> plan -> drain rounds -> reassemble, on one card.
+"""The exchange: map -> plan -> drain rounds -> reassemble.
 
-Counterpart of ``spark_rapids_jni_tpu/shuffle/service.py`` over a
-:class:`~..parallel.mesh.ShardMesh`: P row shards of one tensor stand in
+Counterpart of ``spark_rapids_jni_tpu/shuffle/service.py`` over the
+port's meshes (:mod:`..parallel.mesh`).  On a
+:class:`~..parallel.mesh.ShardMesh` P row shards of one tensor stand in
 for the reference's P devices, every per-device step runs over all shards
 at once, and the reference's ``lax.all_to_all`` is a transpose of
-``[P_s, P_d, C]`` to ``[P_d, P_s, C]``.  Delivered arrays are
-bit-identical, in global order, to the reference's on its P-device mesh.
+``[P_s, P_d, C]`` to ``[P_d, P_s, C]``.  On a
+:class:`~..parallel.mesh.ProcessMesh` each rank maps its own rows, an
+all-gather of the count rows gives every rank the same ``[P, P]`` matrix
+and so the same plan, and each round drains through
+``all_to_all_single``.  Delivered arrays are bit-identical, shard for
+shard, to the reference's on its P-device mesh.
 
 * **map**: route rows to Spark-exact partition ids (or caller-supplied
   ids; out-of-range ones go to the null partition and are counted) and
@@ -18,10 +23,11 @@ bit-identical, in global order, to the reference's on its P-device mesh.
   the stream fixes its capacity up front
   (:func:`~.planner.plan_stream_capacity`) and re-plans its round
   schedule as morsel counts arrive (:meth:`ShuffleService.exchange_stream`).
-* **scatter** (stream): each morsel lands in its round chunks through the
-  partition-scatter kernel (:class:`~..ops.kernels.PartitionScatter`, one
-  launch per morsel for every round it touches and all shards; the
-  kernel ranks each row within its (shard, destination) bucket itself).
+* **scatter** (stream, shard mesh only): each morsel lands in its round
+  chunks through the partition-scatter kernel
+  (:class:`~..ops.kernels.PartitionScatter`, one launch per morsel for
+  every round it touches and all shards; the kernel ranks each row
+  within its (shard, destination) bucket itself).
 * **drain + reassemble + account**: rows received must equal rows sent,
   else :class:`ShuffleError` — ``dropped == 0`` is an invariant.
 
@@ -44,8 +50,9 @@ from .. import config
 from .._roadmap import not_ported
 from ..columnar.column import ColumnBatch
 from ..ops.kernels import PartitionScatter
+from ..parallel.collectives import _a2a, send_rows
 from ..parallel.partition import spark_partition_id
-from ..parallel.shuffle import route_out_of_range
+from ..parallel.shuffle import bucket_counts, route_out_of_range
 from ..relational.gather import gather_batch
 from .buffers import MorselBuffer, PartitionBuffer, RoundChunk, \
     batch_leaves, rebatch
@@ -78,24 +85,16 @@ class ShuffleResult:
     sync_ms: float = 0.0            # host waits on the per-morsel counts
 
 
-def _a2a(x: torch.Tensor, P: int) -> torch.Tensor:
-    """The all-to-all of one ``[P_s * P_d * C, ...]`` leaf: sender s's
-    slots for destination d land in destination d's shard, senders in
-    order — ``[P_d * P_s * C, ...]``."""
-    rest = tuple(x.shape[1:])
-    grid = x.reshape((P, P, -1) + rest)
-    return grid.transpose(0, 1).reshape((-1,) + rest)
-
-
-def _concat_rounds(chunks, P: int):
-    """Per-shard concatenation of round chunks (each ``[P * rows, ...]``):
-    shard d's rounds follow one another, shards stay in order."""
+def _concat_rounds(chunks, L: int):
+    """Per-shard concatenation of round chunks (each ``[L * rows, ...]``
+    over the ``L`` local shards): shard d's rounds follow one another,
+    shards stay in order."""
     if len(chunks) == 1:
         return chunks[0]
     out = []
     for parts in zip(*chunks):
         rest = tuple(parts[0].shape[1:])
-        out.append(torch.stack([p.reshape((P, -1) + rest) for p in parts],
+        out.append(torch.stack([p.reshape((L, -1) + rest) for p in parts],
                                dim=1).reshape((-1,) + rest))
     return out
 
@@ -104,26 +103,24 @@ def _concat_rounds(chunks, P: int):
 # map
 # ---------------------------------------------------------------------------
 
-def _route_count(pid: torch.Tensor, P: int):
-    """Route OOB ids to the null partition and count each shard's rows per
-    destination: the stream's whole map body (its morsels stay in map
-    order; the scatter kernel ranks rows itself).  Returns ``(pid int32,
-    counts int64[P, P], n_oob, key)``, ``key = shard * (P + 1) + pid``."""
+def _route_count(pid: torch.Tensor, P: int, L: Optional[int] = None):
+    """Route OOB ids to the null partition and count each of the ``L``
+    local shards' rows (default ``P``: a shard mesh) per destination:
+    the stream's whole map body (its morsels stay in map order; the
+    scatter kernel ranks rows itself).  Returns ``(pid int32, counts
+    int64[L, P], n_oob, key)``, ``key = shard * (P + 1) + pid``."""
     pid, n_oob = route_out_of_range(pid, P)
-    n = pid.shape[0]
-    R = n // P
-    shard = torch.arange(n, dtype=torch.int64, device=pid.device) // max(R, 1)
-    key = shard * (P + 1) + pid.to(torch.int64)
-    counts = torch.bincount(key, minlength=P * (P + 1))
-    return pid, counts.reshape(P, P + 1)[:, :P], n_oob, key
+    key, counts = bucket_counts(pid, P, P if L is None else L)
+    return pid, counts, n_oob, key
 
 
-def _map_local(b: ColumnBatch, pid: torch.Tensor, P: int):
-    """The materialized exchange's map body over all P shards at once:
-    route OOB -> count -> regroup each shard destination-major (one stable
-    sort on ``shard * (P + 1) + pid``).  Returns ``(regrouped, counts
-    int64[P, P], n_oob)``."""
-    _, counts, n_oob, key = _route_count(pid, P)
+def _map_local(b: ColumnBatch, pid: torch.Tensor, P: int,
+               L: Optional[int] = None):
+    """The materialized exchange's map body over the ``L`` local shards
+    at once: route OOB -> count -> regroup each shard destination-major
+    (one stable sort on ``shard * (P + 1) + pid``).  Returns
+    ``(regrouped, counts int64[L, P], n_oob)``."""
+    _, counts, n_oob, key = _route_count(pid, P, L)
     perm = torch.sort(key, stable=True).indices
     return gather_batch(b, perm), counts, n_oob
 
@@ -135,15 +132,25 @@ def _key_pid(b: ColumnBatch, key_names, row_valid, P: int):
     return spark_partition_id([b[k] for k in key_names], P, rv)
 
 
-def _map_keys(b: ColumnBatch, key_names, row_valid, P: int):
-    return _map_local(b, _key_pid(b, key_names, row_valid, P), P)
+def _map_keys(b: ColumnBatch, key_names, row_valid, P: int,
+              L: Optional[int] = None):
+    return _map_local(b, _key_pid(b, key_names, row_valid, P), P, L)
 
 
-def _host_counts(counts: torch.Tensor, oob: torch.Tensor, P: int):
-    """One device -> host read of the count matrix and the oob count."""
-    flat = torch.cat([counts.reshape(-1).to(torch.int64),
-                      oob.reshape(1).to(torch.int64)]).cpu().numpy()
-    return flat[:-1].reshape(P, P), int(flat[-1])
+def _host_counts(counts: torch.Tensor, oob: torch.Tensor, P: int,
+                 mesh=None):
+    """The global ``[P, P]`` count matrix and oob count on the host: the
+    local ``[L, P]`` count rows (oob beside them) cross in one all-gather
+    over ``mesh`` (none: every shard is local), then one device -> host
+    read."""
+    L = counts.shape[0]
+    col = torch.zeros((L, 1), dtype=torch.int64, device=counts.device)
+    col[0, 0] = oob
+    full = torch.cat([counts.to(torch.int64), col], 1)
+    if mesh is not None:
+        full = mesh.all_gather(full)
+    full = full.cpu().numpy()
+    return full[:, :P], int(full[:, P].sum())
 
 
 def _resolve_scatter_engine(engine=None) -> str:
@@ -179,9 +186,10 @@ def _no_ctx_store(ctx, store_key) -> None:
 
 
 class ShuffleService:
-    """Lossless multi-round exchange over the shards of a
-    :class:`~..parallel.mesh.ShardMesh`.  Stateless apart from the shared
-    :class:`ShuffleRegistry`."""
+    """Lossless multi-round exchange over a
+    :class:`~..parallel.mesh.ShardMesh` or a
+    :class:`~..parallel.mesh.ProcessMesh`.  Stateless apart from the
+    shared :class:`ShuffleRegistry` (one per process)."""
 
     def __init__(self, mesh, registry: Optional[ShuffleRegistry] = None):
         self.mesh = mesh
@@ -209,17 +217,18 @@ class ShuffleService:
         _resolve_compress()
         if strict is None:
             strict = bool(config.get("shuffle_strict_pids"))
-        P = self.mesh.size
-        R = self.mesh.shard_rows(batch.num_rows)
+        mesh = self.mesh
+        P, L = mesh.size, mesh.local_shards
+        R = mesh.shard_rows(batch.num_rows)
         sid = self.registry.begin_shuffle()
 
         # 1. map: regroup destination-major + the count matrix
         if key_names is not None:
             regrouped, counts, oob = _map_keys(batch, key_names, row_valid,
-                                               P)
+                                               P, L)
         else:
-            regrouped, counts, oob = _map_local(batch, pid, P)
-        counts_np, oob_total = _host_counts(counts, oob, P)
+            regrouped, counts, oob = _map_local(batch, pid, P, L)
+        counts_np, oob_total = _host_counts(counts, oob, P, mesh)
         if oob_total and strict:
             raise ShuffleError(
                 f"shuffle {sid}: {oob_total} out-of-range partition ids "
@@ -237,26 +246,27 @@ class ShuffleService:
             tree, cnts = map_buf.get()
             dev = cnts.device
             offsets = torch.cumsum(cnts, 1) - cnts
-            shard0 = (torch.arange(P, dtype=torch.int64, device=dev)
+            shard0 = (torch.arange(L, dtype=torch.int64, device=dev)
                       * R)[:, None, None]
             slot = torch.arange(C, dtype=torch.int64, device=dev)
-            received = torch.zeros((), dtype=torch.int64, device=dev)
+            received = torch.zeros((1,), dtype=torch.int64, device=dev)
             for r in range(plan.rounds):
                 k = r * C + slot
-                occ = k < cnts[:, :, None]            # [P_s, P_d, C]
+                occ = k < cnts[:, :, None]            # [L, P_d, C]
                 src = (offsets[:, :, None] + k).clamp(0, max(R - 1, 0))
-                # gather straight into the all-to-all's receive order
-                idx = (src + shard0).transpose(0, 1).reshape(-1)
-                occ_t = occ.transpose(0, 1).reshape(-1)
-                out = gather_batch(tree, idx, valid=occ_t)
+                out, occ_t = send_rows(mesh, tree,
+                                       (src + shard0).reshape(-1),
+                                       occ.reshape(-1))
                 received += occ_t.sum()
                 chunks.append(PartitionBuffer(
                     (out, occ_t), name=f"shuffle{sid}-round{r}"))
-            bytes_moved = sum(c.nbytes for c in chunks)
+            # every shard's grids are the same size: the mesh moved P / L
+            # times what this process holds
+            bytes_moved = sum(c.nbytes for c in chunks) * P // L
 
             # 4. account + reassemble
             sent = int(counts_np.sum())
-            got = int(received.item())
+            got = int(mesh.all_reduce(received, "sum").item())
             residual = int(np.maximum(counts_np - plan.rounds * C, 0).sum())
             if residual != 0 or got != sent:
                 self.registry.metrics.record_dropped(
@@ -266,7 +276,7 @@ class ShuffleService:
                     f"(sent={sent} received={got} residual={residual})")
             parts = [batch_leaves(c.get()[0]) + [c.get()[1]]
                      for c in chunks]
-            merged = _concat_rounds(parts, P)
+            merged = _concat_rounds(parts, L)
             final_batch = rebatch(regrouped, merged[:-1])
             final_occ = merged[-1]
         finally:
@@ -311,6 +321,9 @@ class ShuffleService:
         schedule needs.
         """
         _no_ctx_store(ctx, store_key)
+        if not self.mesh.holds_all:
+            raise not_ported("exchange_stream over torch.distributed "
+                             "ranks", 11)
         _resolve_compress()
         if strict is None:
             strict = bool(config.get("shuffle_strict_pids"))
