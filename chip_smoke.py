@@ -83,7 +83,30 @@ Phases, each printing one JSON line:
    and the kernels at shard 0's shapes); ``multichip_nccl`` (the same
    operators and the sort on a ``ProcessMesh`` over NCCL at world size =
    the visible cards, at most 4, bit-identical shard for shard to a
-   shard mesh of that size; one card runs it in this process).
+   shard mesh of that size; one card runs it in this process), and the
+   streamed exchange of the q95 fact (2^16-row morsels) on that
+   ``ProcessMesh``, equal shard for shard to the shard mesh's stream;
+12. encoded and compressed columns, at 2^24 rows: ``q6str_enc``
+   (``q6str_encoded_variants``: the q6str recipe with its key a
+   dictionary column of one shared dictionary; one K2 build over the
+   null flag and the ONE canon word, groups equal to q6str's bit for bit
+   on keys, sums and counts, timed in turns with q6str, which sets what
+   ``encoded_execution='auto'`` means on the GPU; K2 at that shape
+   against its plain version); ``q95_enc`` and ``plan_q95_enc`` (the
+   q95 fact with ``wh`` and ``seg`` dictionary-encoded, through the hand
+   step and ``plan.execute(q95_plan())``: exactly 3 K2 builds, 2 record
+   builds, 2 probes and no K1, equal to the oracle; K3 over the
+   dictionary's value words against its plain version); ``q6_packed``
+   (q6's one-hot step with ``v`` bit-packed: one K1 launch, equal to q6
+   bit for bit on ints); ``packed_filter`` (``packed_filter_mask`` over
+   a bit-packed and a frame-of-reference column, six ops, literals in
+   and out of each domain: equal to decode-then-compare with no decode);
+   ``exchange_pack`` (the compress recipe over 8 shards, off and pack:
+   the same rows, ``compressed_bytes_saved`` the difference of the
+   ``bytes_moved``, the wire ratio and the ms of each); ``stream_zone``
+   (the selectivity recipe with a zone sidecar at 1, 10 and 90 %: each
+   pruned stream's surviving rows equal the filtered full stream's, the
+   1 % point skips blocks, one K4 launch per kept morsel).
 
 It then prints one ``kernels`` line and, last, ``{"ok": true, "device":
 ...}``.  Any mismatch or exception exits nonzero without that line, as
@@ -127,6 +150,7 @@ SOURCES = {
         "spark_rapids_jni_tpu_torch/csrc/partition_scatter.cu",
 }
 P_SHARDS = 8                # the stream's shards (the reference's mesh)
+NCCL_MORSEL_ROWS = 1 << 16  # the NCCL stream's morsels (256 at world 1)
 
 
 def emit(obj) -> None:
@@ -2135,7 +2159,8 @@ def phase_multichip_nccl():
     from spark_rapids_jni_tpu_torch.parallel import drive, launch
 
     world = min(torch.cuda.device_count(), 4)
-    ops = [drive.Op("q95_distributed", (N_FACT, drive.MESH))]
+    ops = [drive.Op("q95_distributed", (N_FACT, drive.MESH)),
+           drive.Op("q95_stream", (N_FACT, drive.MESH, NCCL_MORSEL_ROWS))]
     t0 = time.perf_counter()
     want = drive.digest_ops(ShardMesh(world), ops)
     shard_s = time.perf_counter() - t0
@@ -2161,12 +2186,408 @@ def phase_multichip_nccl():
         check(got[r][0][0] == want[0][r],
               f"multichip_nccl rank {r}: results differ from the shard "
               "mesh's")
+        check(got[r][1][0] == want[1][r],
+              f"multichip_nccl rank {r}: the streamed exchange differs "
+              "from the shard mesh's")
+    morsels = -(-(N_FACT // world) // NCCL_MORSEL_ROWS)
+    if world == 1:
+        check(counts["partition_scatter"] == morsels,
+              f"multichip_nccl: {counts['partition_scatter']} K4 launches "
+              f"for {morsels} morsels")
     emit({"phase": "multichip_nccl", "world": world, "backend": "nccl",
           "rows": N_FACT, "launches": counts,
           "in_process": world == 1, "shard_mesh_s": shard_s,
           "process_mesh_s": rank_s, "digests_equal": got[0][0][0] ==
-          want[0][0]})
+          want[0][0], "stream_digests_equal": got[0][1][0] == want[1][0],
+          "stream_morsels": morsels})
     return counts
+
+
+# ---------------------------------------------------------------------------
+# encoded and compressed columns
+# ---------------------------------------------------------------------------
+
+def watch_build_words(fn):
+    """``fn()`` with the slot-table build wrapper observed: returns its
+    result and the number of key words of each build it made."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+
+    seen = []
+    orig = KER.slot_table_build
+
+    def spy(words, *args, **kwargs):
+        seen.append(len(words))
+        return orig(words, *args, **kwargs)
+
+    KER.slot_table_build = spy
+    try:
+        return fn(), seen
+    finally:
+        KER.slot_table_build = orig
+
+
+def paired_ms(fns: dict, pairs: int = 3, reps: int = 3) -> dict:
+    """Median CUDA-event ms of each function, timed in turns."""
+    got = {k: [] for k in fns}
+    for _ in range(pairs):
+        for k, fn in fns.items():
+            got[k].append(time_ms(fn, reps=reps))
+    return {k: float(np.median(v)) for k, v in got.items()}
+
+
+def phase_q6str_enc(q6s, arrays, cases):
+    """q6str over a dictionary key of one shared dictionary: one K2
+    build over the null flag and ONE canon word (q6str's key lowers to
+    8 words), groups equal to q6str's bit for bit on keys, sums and
+    counts, timed in turns with q6str (the pair that sets what
+    ``encoded_execution='auto'`` means on the GPU); plus K2 at that
+    shape against its plain version."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.columnar import encoded as E
+    from spark_rapids_jni_tpu_torch.plan import adaptive as AD
+    from spark_rapids_jni_tpu_torch.relational import aggregate as AGG
+    from spark_rapids_jni_tpu_torch.relational import keys as RK
+
+    t0 = time.perf_counter()
+    ((qe,),) = PL.q6str_encoded_variants(N_FACT, (7,))
+    encode_s = time.perf_counter() - t0
+    (out, counts, first_s), widths = watch_build_words(
+        lambda: driven(lambda: PL.q6str_step(qe)))
+    check_counts("q6str_enc", counts, ("slot_table_build",),
+                 {"slot_table_build": 1, "onehot_groupby": 0})
+    check(widths == [2], f"q6str_enc: slot-table builds over {widths} key "
+          "words, expected one over 2 (the null flag and the canon word)")
+    extra = check_q6str(*out, arrays, "q6str_enc")
+    res, ng = out
+    check(isinstance(res["k"], E.DictionaryColumn),
+          "q6str_enc: the result keys are not dictionary codes")
+    same_string_groups(PL.q6str_step(q6s), (E.materialize_batch(res), ng),
+                       "q6str_enc vs q6str")
+    ms = paired_ms({"q6str_enc": lambda: PL.q6str_step(qe),
+                    "q6str": lambda: PL.q6str_step(q6s)})
+    choice = ms["q6str_enc"] < ms["q6str"]
+    emit({"phase": "q6str_enc", "rows": N_FACT, "launches": counts,
+          "build_key_words": widths, "first_run_s": first_s,
+          "host_encode_s": encode_s, "ms": ms["q6str_enc"],
+          "q6str_ms": ms["q6str"],
+          "mrows_per_s": N_FACT / (ms["q6str_enc"] * 1e-3) / 1e6,
+          "encoded_faster": choice, "auto_on_cuda": E.AUTO_ON_CUDA,
+          **extra})
+    words = RK.batch_radix_keys(AGG._canon_keys([qe["k"]]), equality=True,
+                                nulls_first=True)
+    live = qe["price"].data < 50.0
+    kernel_case(cases, "slot_table_build", "groupby_q6str_enc", k2_case,
+                "groupby_q6str_enc", words, live, 4096,
+                AD.bound_build_rounds(N_FACT, 4096))
+    return counts
+
+
+def phase_q95_enc(arrays, fact_plain, cases):
+    """q95 on the fact with ``wh`` and ``seg`` dictionary-encoded: the
+    hand step and ``plan.execute(q95_plan())`` on the same inputs, both
+    equal to the oracle exactly, each with exactly 3 K2 builds, 2 record
+    builds, 2 probes and no K1 (the dense rowid join is off on encoded
+    inputs); plus K3 over the dictionary's value words."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch import plan as PLAN
+    from spark_rapids_jni_tpu_torch.parallel.partition import \
+        exchange_local
+    from spark_rapids_jni_tpu_torch.plan import queries as Q
+    from spark_rapids_jni_tpu_torch.relational import hashtable as H
+    from spark_rapids_jni_tpu_torch.relational import join as JN
+    from spark_rapids_jni_tpu_torch.relational import keys as RK
+
+    t0 = time.perf_counter()
+    fact, dim1, dim2 = PL.q95_encoded_batches(N_FACT)
+    encode_s = time.perf_counter() - t0
+    exact = {"slot_table_build": 3, "slot_table_records": 2,
+             "slot_table_probe": 2, "onehot_groupby": 0}
+    all_counts = {}
+    for name, fn in (
+            ("q95_enc", lambda: PL.q95_encoded_step(fact, dim1, dim2)),
+            ("plan_q95_enc", lambda: PLAN.execute(
+                Q.q95_plan(), {"fact": fact, "dim1": dim1, "dim2": dim2}))):
+        (res, ng), counts, first_s = driven(fn)
+        check_q95(res, ng, arrays, name)
+        check_counts(name, counts, (), exact)
+        ms = time_ms(fn, reps=3)
+        emit({"phase": name, "rows": N_FACT, "launches": counts,
+              "first_run_s": first_s, "host_encode_s": encode_s, "ms": ms,
+              "mrows_per_s": N_FACT / (ms * 1e-3) / 1e6})
+        all_counts[name] = counts
+    ms_plain = time_ms(lambda: PL.q95_hashjoin_step(fact_plain, dim1, dim2),
+                       reps=3)
+    emit({"phase": "q95_enc_vs_plain", "q95_hashjoin_ms": ms_plain})
+
+    # K3: q95_enc's second join probes dim2's table with the exchanged
+    # first join's wh, a dictionary column: its value words by code
+    dev = dim2["wh"].device
+    ones = torch.ones(fact.num_rows, dtype=torch.bool, device=dev)
+    staged = exchange_local(fact, "k", ones, PL.P)
+    j1, c1 = JN.hash_join(staged, dim1, ["k"], ["k"])
+    j1_live = torch.arange(j1.num_rows, device=dev) < c1
+    staged2 = exchange_local(j1, "wh", j1_live, PL.P)
+    bw = RK.batch_radix_keys([dim2["wh"]], equality=True, nulls_first=False)
+    owner = H.build_slot_table(bw, torch.ones(dim2.num_rows,
+                                              dtype=torch.bool, device=dev),
+                               H.next_pow2(2 * dim2.num_rows))[0]
+    rec = kernel_case(cases, "slot_table_records", "q95_enc_dim2",
+                      k3_records_case, "q95_enc_dim2", owner, bw)
+    if rec is not None:
+        pk = RK.batch_radix_keys([staged2["wh"]], equality=True,
+                                 nulls_first=False)
+        kernel_case(cases, "slot_table_probe", "q95_enc_dim2_dict_words",
+                    k3_case, "q95_enc_dim2_dict_words", owner, bw, pk,
+                    staged2["wh"].validity & j1_live,
+                    H.chain_bound(owner, dim2.num_rows), rec[1])
+    return all_counts
+
+
+def phase_q6_packed(q6b, arrays):
+    """q6's one-hot step with ``v`` bit-packed: one K1 launch after the
+    domain engine materializes ``v``, equal to q6 on the plain batch bit
+    for bit on keys, sums and counts."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.columnar import encoded as E
+
+    t0 = time.perf_counter()
+    packed = E.encode_batch(q6b, dictionary=[], bitpack=["v"])
+    encode_s = time.perf_counter() - t0
+    check(isinstance(packed["v"], E.BitPackedColumn), "q6_packed: v not "
+          "packed")
+    config.set("q6_group_path", "onehot")
+    try:
+        (res, ng), counts, first_s = driven(lambda: PL.q6_step(packed))
+        check_counts("q6_packed", counts, ("onehot_groupby",),
+                     {"onehot_groupby": 1, "slot_table_build": 0})
+        worst = check_q6(res, ng, arrays, "q6_packed")
+        want, wng = PL.q6_step(q6b)
+        g = int(ng)
+        check(g == int(wng), "q6_packed: group count differs from q6")
+        for c in ("k", "sum_v", "cnt"):
+            check(torch.equal(res[c].data[:g], want[c].data[:g])
+                  and torch.equal(res[c].validity[:g],
+                                  want[c].validity[:g]),
+                  f"q6_packed: {c} differs from q6_onehot")
+        ms = paired_ms({"q6_packed": lambda: PL.q6_step(packed),
+                        "q6_onehot": lambda: PL.q6_step(q6b)})
+    finally:
+        config.reset("q6_group_path")
+    emit({"phase": "q6_packed", "rows": q6b.num_rows, "launches": counts,
+          "width": packed["v"].width, "first_run_s": first_s,
+          "host_encode_s": encode_s, "ms": ms["q6_packed"],
+          "q6_onehot_ms": ms["q6_onehot"],
+          "mrows_per_s": q6b.num_rows / (ms["q6_packed"] * 1e-3) / 1e6,
+          "avg_price_max_rel_err": worst})
+    return counts
+
+
+def selectivity_arrays(n, seed=29):
+    """The reference bench's selectivity recipe: sorted values in [0,
+    2^20) and keys in [0, 256)."""
+    rng = np.random.default_rng(seed)
+    vals = np.sort(rng.integers(0, 1 << 20, n)).astype(np.int64)
+    keys = rng.integers(0, 256, n).astype(np.int64)
+    return vals, keys
+
+
+def phase_packed_filter(fact):
+    """``packed_filter_mask`` over a bit-packed column (q95's ``v``) and a
+    frame-of-reference one (the selectivity recipe's sorted values) at
+    2^24 rows, every op, literals inside and outside each pack domain:
+    equal to decode-then-compare with no decode on the packed path."""
+    from spark_rapids_jni_tpu_torch.columnar import encoded as E
+    from spark_rapids_jni_tpu_torch.columnar import types as T
+    from spark_rapids_jni_tpu_torch.columnar.column import Column
+
+    n = fact.num_rows
+    vals, _ = selectivity_arrays(n)
+    ones = torch.ones(n, dtype=torch.bool, device=fact["v"].device)
+    cols = {"bitpacked": E.encode_bitpacked(fact["v"], column="v"),
+            "for": E.encode_for(Column(torch.from_numpy(vals).to(ones.device),
+                                       ones, T.INT64), column="x")}
+    line = {"phase": "packed_filter", "rows": n}
+    counts = no_kernels()
+    for label, col in cols.items():
+        check(isinstance(col, E.PACKED_COLUMNS), f"packed_filter: {label} "
+              "did not pack")
+        dec = col.decode().data
+        lo, hi = int(dec.min().item()), int(dec.max().item())
+        mid = int(dec[n // 2].item())
+        lits = [-(1 << 40), lo - 1, lo, mid, hi, hi + 1, 1 << 40]
+        E.reset_packed_decode_count()
+        _, got_counts, _ = driven(lambda: E.packed_filter_mask(col, "<",
+                                                               mid))
+        for k in counts:
+            counts[k] += got_counts[k]
+        for op in ("<", "<=", "==", "!=", ">=", ">"):
+            for v in lits:
+                got = E.packed_filter_mask(col, op, v)
+                want = _CMP[op](dec, v)
+                check(torch.equal(got, want),
+                      f"packed_filter {label}: {op} {v} differs from "
+                      "decode-then-compare")
+        decodes = E.packed_decode_count()
+        check(decodes == 0, f"packed_filter {label}: {decodes} decodes")
+        ms = paired_ms({
+            "packed": lambda: E.packed_filter_mask(col, "<", mid),
+            "decode": lambda: col.decode().data < mid})
+        line[label] = {"width": col.width, "ms": ms["packed"],
+                       "decode_then_compare_ms": ms["decode"],
+                       "literals": lits, "packed_decode_count": decodes}
+    check(all(v == 0 for v in counts.values()), "packed_filter: a kernel "
+          "launched")
+    emit(line)
+    return counts
+
+
+_CMP = {"<": torch.lt, "<=": torch.le, "==": torch.eq, "!=": torch.ne,
+        ">=": torch.ge, ">": torch.gt}
+
+
+def phase_exchange_pack():
+    """The reference bench's compress recipe (``k`` int64 in [0, 1000),
+    ``qty`` int32, ``flag`` bool, ``price`` f32) at 2^24 rows over 8
+    shards, ``shuffle_compress`` off then pack: delivered rows identical,
+    ``rows_moved`` exact, ``compressed_bytes_saved`` the difference of the
+    two ``bytes_moved``."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+    from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
+    from spark_rapids_jni_tpu_torch.shuffle import ShuffleRegistry, \
+        ShuffleService
+    from spark_rapids_jni_tpu_torch.shuffle.buffers import batch_leaves
+
+    n = N_FACT
+    rng = np.random.default_rng(23)
+    ones = np.ones(n, np.bool_)
+    batch = batch_from_numpy({
+        "k": (rng.integers(0, 1000, n).astype(np.int64), ones, "int64"),
+        "qty": (rng.integers(-50, 50, n).astype(np.int32), ones, "int32"),
+        "flag": (rng.integers(0, 2, n).astype(bool), ones, "boolean"),
+        "price": (rng.standard_normal(n).astype(np.float32), ones,
+                  "float32")})
+    svc = ShuffleService(ShardMesh(P_SHARDS), registry=ShuffleRegistry())
+    res, ms, counts = {}, {}, no_kernels()
+    for mode in ("off", "pack"):
+        config.set("shuffle_compress", mode)
+        try:
+            res[mode], c, _ = driven(
+                lambda: svc.exchange(batch, key_names=["k"]))
+            ms[mode] = time_ms(lambda: svc.exchange(batch, key_names=["k"]),
+                               reps=3)
+        finally:
+            config.reset("shuffle_compress")
+        for k in counts:
+            counts[k] += c[k]
+    off, pack = res["off"], res["pack"]
+    check(torch.equal(off.occupancy, pack.occupancy),
+          "exchange_pack: occupancy differs")
+    check(all(torch.equal(a, b) for a, b in zip(batch_leaves(off.batch),
+                                                batch_leaves(pack.batch))),
+          "exchange_pack: delivered rows differ")
+    check(off.rows_moved == pack.rows_moved == n,
+          f"exchange_pack: rows_moved {off.rows_moved} / {pack.rows_moved}")
+    saved = pack.compressed_bytes_saved
+    check(saved > 0 and saved == off.bytes_moved - pack.bytes_moved,
+          f"exchange_pack: saved {saved} vs {off.bytes_moved} - "
+          f"{pack.bytes_moved}")
+    check(off.compressed_bytes_saved == 0, "exchange_pack: off saved bytes")
+    emit({"phase": "exchange_pack", "rows": n, "shards": P_SHARDS,
+          "rounds": pack.rounds, "capacity": pack.capacity,
+          "bytes_moved_off": off.bytes_moved,
+          "bytes_moved_pack": pack.bytes_moved,
+          "compressed_bytes_saved": saved,
+          "wire_ratio": off.bytes_moved / pack.bytes_moved,
+          "ms_off": ms["off"], "ms_pack": ms["pack"], "launches": counts})
+    return counts
+
+
+def _survivors(res, thresh, P):
+    """Per destination shard, the (k, x) rows with x < thresh, sorted."""
+    xs = res.batch["x"].data.cpu().numpy()
+    ks = res.batch["k"].data.cpu().numpy()
+    ok = res.batch["x"].validity.cpu().numpy() & \
+        res.occupancy.cpu().numpy()
+    rows = len(xs) // P
+    out = []
+    for d in range(P):
+        sl = slice(d * rows, (d + 1) * rows)
+        sel = ok[sl] & (xs[sl] < thresh)
+        k, x = ks[sl][sel], xs[sl][sel]
+        order = np.lexsort((x, k))
+        out.append((k[order], x[order]))
+    return out
+
+
+def phase_stream_zone():
+    """The reference bench's selectivity recipe at 2^24 rows over 8
+    shards, 8 morsels a shard, a frame-of-reference zone sidecar: at 1,
+    10 and 90 % selectivity the pruned stream's surviving rows equal the
+    filtered full stream's shard for shard, the 1 % point skips blocks,
+    and K4 launches once per kept morsel."""
+    from spark_rapids_jni_tpu_torch.columnar import encoded as E
+    from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+    from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
+    from spark_rapids_jni_tpu_torch.shuffle import MorselSource, \
+        ShuffleRegistry, ShuffleService
+
+    n, P = N_FACT, P_SHARDS
+    vals, keys = selectivity_arrays(n)
+    ones = np.ones(n, np.bool_)
+    batch = batch_from_numpy({"k": (keys, ones, "int64"),
+                              "x": (vals, ones, "int64")})
+    # the sidecar of the encode step (the stream's batch stays plain)
+    zone = E.encode_for(batch["x"], block=256).zone
+    check(zone is not None, "stream_zone: no zone sidecar")
+    mesh = ShardMesh(P)
+    M = n // P // 8
+    svc = ShuffleService(mesh, registry=ShuffleRegistry())
+    full_src = MorselSource.from_batch(batch, mesh, morsel_rows=M)
+    full, fcounts, _ = driven(lambda: svc.exchange_stream(full_src,
+                                                          key_names=["k"]))
+    full_ms = time_ms(lambda: svc.exchange_stream(full_src,
+                                                  key_names=["k"]),
+                      reps=2, warmup=0)
+    check(fcounts["partition_scatter"] == len(full_src),
+          "stream_zone: full stream K4 launches != morsels")
+    line = {"phase": "stream_zone", "rows": n, "shards": P,
+            "morsel_rows": M, "morsels": len(full_src),
+            "full_ms": full_ms, "points": []}
+    counts = dict(fcounts)
+    for sel in (0.01, 0.10, 0.90):
+        thresh = int(np.quantile(vals, sel))
+        src = MorselSource.from_batch(batch, mesh, morsel_rows=M,
+                                      predicate=("x", "<", thresh),
+                                      zone_map=zone)
+        res, c, _ = driven(lambda: svc.exchange_stream(src,
+                                                       key_names=["k"]))
+        for k in counts:
+            counts[k] += c[k]
+        check(c["partition_scatter"] == len(src),
+              f"stream_zone {sel}: {c['partition_scatter']} K4 launches "
+              f"for {len(src)} kept morsels")
+        for d, ((ka, xa), (kb, xb)) in enumerate(zip(
+                _survivors(res, thresh, P), _survivors(full, thresh, P))):
+            check(np.array_equal(ka, kb) and np.array_equal(xa, xb),
+                  f"stream_zone {sel}: shard {d}'s surviving rows differ "
+                  "from the filtered full stream")
+        if sel == 0.01:
+            check(src.blocks_skipped > 0, "stream_zone: 1% skipped nothing")
+        ms = time_ms(lambda: svc.exchange_stream(src, key_names=["k"]),
+                     reps=2, warmup=0)
+        line["points"].append({
+            "selectivity": sel, "threshold": thresh,
+            "morsels_kept": len(src), "blocks_skipped": src.blocks_skipped,
+            "blocks_scanned": src.blocks_scanned,
+            "skip_fraction": src.blocks_skipped / max(
+                src.blocks_skipped + src.blocks_scanned, 1),
+            "k4_launches": c["partition_scatter"], "ms": ms})
+    line["launches"] = counts
+    emit(line)
+    return counts
+
 
 
 def main() -> int:
@@ -2358,6 +2779,14 @@ def main() -> int:
     for k in total:
         total[k] += (counts or {}).get(k, 0)
     breadth("stream_str", phase_stream_str, stream_str_batch(q6s))
+
+    # encoded and compressed columns
+    breadth("q6str_enc", phase_q6str_enc, q6s, q6s_arrays, cases)
+    dec_phase("q95_enc", phase_q95_enc, q95_arrays, fact, cases)
+    breadth("q6_packed", phase_q6_packed, q6b, q6_arrays)
+    breadth("packed_filter", phase_packed_filter, fact)
+    breadth("exchange_pack", phase_exchange_pack)
+    breadth("stream_zone", phase_stream_zone)
 
     # multi-GPU: the dry run, q95 over 8 shards, NCCL ranks
     breadth("multichip_dryrun", phase_multichip_dryrun)

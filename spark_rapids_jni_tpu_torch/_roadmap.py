@@ -3,9 +3,6 @@
 from __future__ import annotations
 
 _ITEMS = {
-    10: "relational breadth",
-    11: "multi-GPU",
-    12: "encoded and compressed columns",
     13: "memory and spill",
     14: "I/O",
     17: "tooling edges",

@@ -328,6 +328,11 @@ def _column_from_numpy(name, data, validity, typ, dev):
     st = typ if isinstance(typ, T.SparkType) else T.from_name(str(typ))
     # copies: the source may be a read-only view (a reference array)
     v = np.array(validity, dtype=np.bool_, order="C")
+    if isinstance(data, dict) and "encoding" in data:
+        from .encoded import encoded_from_host
+
+        return encoded_from_host(name, data, torch.from_numpy(v).to(dev),
+                                 st, dev, _column_from_numpy)
     if st.kind is T.Kind.STRING:
         chars, lengths = data
         c = np.array(chars, dtype=np.uint8, order="C")
@@ -377,8 +382,17 @@ def batch_from_numpy(cols: Mapping[str, HostColumn],
     column's ``(chars uint8[n, max_len], lengths int32[n])``; a decimal
     column's ``uint64[n, 2]`` limbs; a list column's ``(offsets
     int32[n + 1], child)`` and a struct column's ``{field: child}``, each
-    child a ``(data, validity, type)`` triple.  ``device=None`` means the
-    GPU; without one this raises unless ``device='cpu'`` is passed.
+    child a ``(data, validity, type)`` triple.  An encoded column's data
+    is a dict naming its ``encoding`` (:mod:`.encoded`): ``dictionary``
+    with ``codes`` (uint32[n]), ``canon`` (uint32[d] or None),
+    ``dictionary`` (its own triple, or None) and ``token`` (equal tokens
+    give equal port tokens); ``rle`` with ``run_values`` and
+    ``run_lengths``; ``bitpacked`` with ``lanes`` (uint32), ``width``,
+    ``reference`` and ``zone``; ``for`` with ``refs``, ``lanes``,
+    ``width``, ``block`` and ``zone`` (a zone is None or a dict of
+    ``mins``, ``maxs``, ``block``, ``rows``, ``crc`` and ``column``,
+    carried as it is).  ``device=None`` means the GPU; without one this
+    raises unless ``device='cpu'`` is passed.
     """
     dev = resolve_device(device)
     return ColumnBatch({name: _column_from_numpy(name, data, validity, typ,
@@ -387,6 +401,10 @@ def batch_from_numpy(cols: Mapping[str, HostColumn],
 
 
 def _column_to_numpy(c):
+    from .encoded import encoded_to_host, is_encoded
+
+    if is_encoded(c):
+        return encoded_to_host(c, _column_to_numpy), c.validity.cpu().numpy()
     if isinstance(c, StringColumn):
         data = (c.chars.cpu().numpy(), c.lengths.cpu().numpy())
     elif isinstance(c, Decimal128Column):

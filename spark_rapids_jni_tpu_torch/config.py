@@ -115,9 +115,31 @@ _register("shuffle_stream", False, _parse_bool,
           "ShuffleService.exchange_stream (plan/compile.py) instead of "
           "materializing the scan first.")
 _register("shuffle_compress", "auto", str,
-          "Wire compression of exchange rounds: 'auto' and 'off' ship raw "
-          "words (what the reference's stream ships for either); 'pack' "
-          "is ROADMAP.md queue 1, item 12.")
+          "Wire compression of exchange rounds (shuffle/service.py): "
+          "'pack' bit-packs every bool leaf at width 1 and every integer "
+          "leaf at its observed range's bucketed width (the stream: bool "
+          "leaves only, its ranges are unknown until its last morsel); "
+          "'auto' packs only a dictionary-carrying exchange's validity "
+          "bools and code words; 'off' ships raw words.  Delivered rows "
+          "are identical either way; compressed_bytes_saved counts the "
+          "difference.")
+_register("encoded_execution", "auto", str,
+          "Where encoding is introduced (columnar/encoded.py): 'on' "
+          "builds dictionary columns at the host boundary (Arrow "
+          "dictionary arrays stay encoded) and operators run on codes, "
+          "'off' decodes up front, 'auto' is on for the CPU and, on the "
+          "GPU, what the H100's q6str / q6str_enc pair chose (PERF.md).  "
+          "Operators take encoded and plain columns either way.")
+_register("packed_predicates", True, _parse_bool,
+          "Compare filters (<, <=, ==, !=, >=, >) on bit-packed and "
+          "frame-of-reference residuals without decoding "
+          "(packed_filter_mask); off = decode, then compare.")
+_register("zone_maps", True, _parse_bool,
+          "Record a CRC32'd per-block min/max sidecar (ZoneMap) on packed "
+          "columns at encode time and let MorselSource.from_batch skip "
+          "morsels a predicate's zone check proves cold (counted as "
+          "blocks_skipped / blocks_scanned); off = no sidecars, no "
+          "skips.")
 _register("shuffle_scatter_engine", "auto", str,
           "Morsel -> round-chunk scatter of the streaming exchange: "
           "'kernel' (the partition-scatter kernel, csrc/"

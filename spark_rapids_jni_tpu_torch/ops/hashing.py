@@ -17,7 +17,9 @@ Counterpart of ``spark_rapids_jni_tpu/ops/hashing.py``:
   unscaled value (Java ``BigInteger.toByteArray``) as a string;
 * a struct hashes as its leaves in order (a null struct nulls them); a
   list folds its elements into the running hash, each element's hash
-  seeding the next, nulls skipped (Murmur3 only, as in the reference).
+  seeding the next, nulls skipped (Murmur3 only, as in the reference);
+* an encoded column hashes its decoded values (one gather), so a
+  dictionary key partitions as its plain column does.
 
 Murmur3 lanes are u32 in the int64 carrier (:mod:`.._u32`).  XXHash64
 lanes are int64 holding the 64-bit pattern: adds, multiplies and left
@@ -32,11 +34,11 @@ from typing import Sequence
 
 import torch
 
-from .._roadmap import not_ported
 from .._u32 import M32, mul32, rotl32, to_i32
 from ..columnar import types as T
 from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
                                ListColumn, StringColumn, StructColumn)
+from ..columnar.encoded import is_encoded, materialize_column
 
 DEFAULT_XXHASH64_SEED = 42
 
@@ -321,6 +323,11 @@ def _columns(columns) -> list:
     out = []
 
     def expand(c, parent_valid=None):
+        if is_encoded(c):
+            # hash VALUES, not codes: the fold carries each row's hash
+            # through every column, so a per-entry hash does not
+            # separate; one gather materializes the column here
+            c = materialize_column(c)
         if isinstance(c, StructColumn):
             v = c.validity if parent_valid is None else \
                 c.validity & parent_valid
@@ -329,7 +336,7 @@ def _columns(columns) -> list:
             return
         if not isinstance(c, (Column, StringColumn, Decimal128Column,
                               ListColumn)):
-            raise not_ported(f"hash of {type(c).__name__}", 12)
+            raise TypeError(f"hash of {type(c).__name__}")
         if parent_valid is not None:
             c = dataclasses.replace(c, validity=c.validity & parent_valid)
         out.append(c)

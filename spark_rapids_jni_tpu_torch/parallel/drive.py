@@ -66,7 +66,29 @@ def _service_exchange(batch, mesh, **kw):
                                                                     **kw)
     return {"batch": res.batch, "occupancy": res.occupancy,
             "stats": [res.rounds, res.capacity, res.rows_moved,
-                      res.bytes_moved, res.oob_rows]}
+                      res.bytes_moved, res.oob_rows,
+                      res.compressed_bytes_saved]}
+
+
+def _service_stream(batch, mesh, morsel_rows, axis=None, key_names=None,
+                    row_valid=None, predicate=None, zone_map=None, **kw):
+    """``ShuffleService.exchange_stream`` of a batch's morsels over the
+    mesh (over one ``axis`` of a :class:`~.mesh.HierMesh`: each of its
+    groups streams its own rows)."""
+    from ..shuffle import MorselSource, ShuffleRegistry, ShuffleService
+
+    if axis is not None:
+        mesh = mesh.axis(axis)
+    src = MorselSource.from_batch(batch, mesh, morsel_rows=morsel_rows,
+                                  row_valid=row_valid, predicate=predicate,
+                                  zone_map=zone_map)
+    res = ShuffleService(mesh, registry=ShuffleRegistry()).exchange_stream(
+        src, key_names=key_names, **kw)
+    return {"batch": res.batch, "occupancy": res.occupancy,
+            "stats": [res.rounds, res.capacity, res.rows_moved,
+                      res.bytes_moved, res.oob_rows, res.morsels,
+                      res.compressed_bytes_saved, res.blocks_skipped,
+                      res.blocks_scanned]}
 
 
 @dataclasses.dataclass
@@ -87,11 +109,21 @@ def _q95(n_rows, mesh):
     return out
 
 
+def _q95_stream(n_rows, mesh, morsel_rows):
+    """The streamed exchange of the q95 fact (``n_rows`` rows made from
+    its seed on the mesh's device) on ``k``."""
+    fact = pipelines.q95_batches(n_rows, device=mesh.device)[0]
+    return _service_stream(shard_batch(fact, mesh), mesh, morsel_rows,
+                           key_names=["k"])
+
+
 # ops beyond the package's exports, each ``fn(*args, **kwargs)``
 EXTRA = {"set_knob": config.set,
          "service_exchange": _service_exchange,
+         "service_stream": _service_stream,
          "sample_splitters": _sample_splitters,
          "q95_distributed": _q95,
+         "q95_stream": _q95_stream,
          "dryrun_multichip": pipelines.dryrun_multichip}
 
 
@@ -119,9 +151,15 @@ def _place(x, mesh, hiers):
 
 
 def to_host(x):
-    """Tensors and batches (nested in tuples, lists, dicts) as numpy."""
+    """Tensors and batches (nested in tuples, lists, dicts) as numpy.  A
+    dictionary column's token is process-local, so it shows only whether
+    the column has one."""
     if isinstance(x, ColumnBatch):
-        return batch_to_numpy(x)
+        out = batch_to_numpy(x)
+        for data, _valid in out.values():
+            if isinstance(data, dict) and "token" in data:
+                data["token"] = int(data["token"] > 0)
+        return out
     if isinstance(x, torch.Tensor):
         return x.cpu().numpy()
     if isinstance(x, (list, tuple)):

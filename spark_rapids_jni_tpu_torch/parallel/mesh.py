@@ -311,16 +311,35 @@ def shard_batch(batch, mesh):
     A :class:`ShardMesh` takes the whole batch to its device as it stands;
     a :class:`ProcessMesh` (or a :class:`HierMesh` over one) takes this
     rank's row block of the global batch.  Every column must be one the
-    exchange carries (``shuffle/buffers.py`` ``column_leaves``; encoded
-    columns are ROADMAP.md queue 1, item 12)."""
-    from ..shuffle.buffers import batch_leaves, rebatch
+    exchange carries (``shuffle/buffers.py`` ``column_leaves``).  A
+    dictionary column shards its codes and replicates its dictionary
+    and canon; run-length and packed columns decode (runs and lanes do
+    not split at shard boundaries)."""
+    from ..columnar.column import ColumnBatch
+    from ..columnar.encoded import (PACKED_COLUMNS, DictionaryColumn,
+                                    RunLengthColumn)
+    from ..shuffle.buffers import batch_leaves, column_leaves, rebatch
 
     flat = mesh.flat if isinstance(mesh, HierMesh) else mesh
-    leaves = batch_leaves(batch)
+    dev = flat.device
     n = batch.num_rows
     if n % flat.size:
         raise ValueError(f"batch rows {n} not divisible by mesh size "
                          f"{flat.size}")
     R = n // flat.size
     lo, hi = flat.first_shard * R, (flat.first_shard + flat.local_shards) * R
-    return rebatch(batch, [t[lo:hi].to(flat.device) for t in leaves])
+
+    def whole(col):
+        one = ColumnBatch({"c": col})
+        return rebatch(one, [t.to(dev) for t in column_leaves(col)])["c"]
+
+    cols = {}
+    for name, col in zip(batch.names, batch.columns):
+        if isinstance(col, (RunLengthColumn,) + PACKED_COLUMNS):
+            col = col.decode()
+        if isinstance(col, DictionaryColumn) and col.dictionary is not None:
+            col = dataclasses.replace(col, canon=col.canon.to(dev),
+                                      dictionary=whole(col.dictionary))
+        cols[name] = col
+    batch = ColumnBatch(cols)
+    return rebatch(batch, [t[lo:hi].to(dev) for t in batch_leaves(batch)])

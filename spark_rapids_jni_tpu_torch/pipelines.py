@@ -16,6 +16,15 @@ Counterparts of the single-chip steps in the reference's
   same stages through the general ``hash_join`` and ``group_by`` — the
   slot-table build and probe kernels.
 
+* the encoded shapes (``_q6str_encoded_variants``,
+  ``_q95_encoded_variants``, ``_q95_encoded_batches`` and
+  ``_q95_encoded_step``): :func:`q6str_encoded_variants` gives q6str
+  batches whose key is a dictionary column over ONE shared dictionary
+  (one token, so the group-by keys on the one canon word),
+  :func:`q95_encoded_batches` / :func:`q95_encoded_variants` the q95
+  fact with ``wh`` and ``seg`` dictionary-encoded, and
+  :func:`q95_encoded_step` runs the q95 stages on them (general hash
+  joins: the rowid path keys on plain data).
 * :func:`q6str_step` (``_q6str_step``): q6 with a 24-byte string group
   key (100 distinct ``cat-NN-xxxxxxxxxxxxxx`` values) through the
   general ``group_by``: the slot-table build kernel over 8 key words.
@@ -36,12 +45,17 @@ caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from . import config
-from .columnar.column import (ColumnBatch, StringColumn, batch_from_numpy,
-                              string_arrays)
+from .columnar import types as T
+from .columnar.column import (Column, ColumnBatch, StringColumn,
+                              batch_from_numpy, string_arrays)
+from .columnar.encoded import (dictionary_from_arrays, encode_batch,
+                               materialize_batch)
 from .parallel.partition import exchange_local
 from .relational import keys as _rk
 from .relational.aggregate import (
@@ -333,6 +347,95 @@ def q95_hashjoin_step(fact: ColumnBatch, dim1: ColumnBatch,
 
 
 # ---------------------------------------------------------------------------
+# encoded shapes (host-side encoding, outside any timed window)
+# ---------------------------------------------------------------------------
+
+def _codes(a: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+
+def q6str_encoded_variants(n_rows: int, seeds, device=None) -> list:
+    """``[(batch,), ...]``: one q6str batch a seed whose key ``k`` is a
+    dictionary column over ONE shared 100-entry dictionary (the
+    ``Q6STR_KEYS`` at width 24), so every batch carries the same token;
+    each seed draws codes, then ``v``, then ``price``.  The q6str oracle
+    applies with the codes as ``kidx``."""
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    chars, lens = string_arrays(Q6STR_KEYS, np.arange(len(Q6STR_KEYS)),
+                                Q6STR_WIDTH)
+    nk = len(Q6STR_KEYS)
+    cats = StringColumn(torch.from_numpy(chars).to(dev),
+                        torch.from_numpy(lens).to(dev),
+                        torch.ones((nk,), dtype=torch.bool, device=dev))
+    ones = torch.ones((n_rows,), dtype=torch.bool, device=dev)
+    base = None
+    out = []
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        codes = _codes(rng.integers(0, nk, n_rows), dev)
+        if base is None:
+            base = k = dictionary_from_arrays(codes, ones, cats)
+        else:
+            k = dataclasses.replace(base, codes=codes)
+        v = rng.integers(-1000, 1000, n_rows).astype(np.int64)
+        price = rng.random(n_rows) * 100.0
+        out.append((ColumnBatch({
+            "k": k,
+            "v": Column(torch.from_numpy(v).to(dev), ones, T.INT64),
+            "price": Column(torch.from_numpy(price).to(dev), ones,
+                            T.FLOAT64)}),))
+    return out
+
+
+def q95_encoded_batches(n_rows: int, seed: int = 19, device=None):
+    """``(fact, dim1, dim2)`` of :func:`q95_batches` with the fact's
+    ``wh`` (25 entries) and ``seg`` (10) dictionary-encoded at the host
+    boundary."""
+    fact, dim1, dim2 = q95_batches(n_rows, seed, device)
+    return encode_batch(fact, dictionary=["wh", "seg"]), dim1, dim2
+
+
+def q95_encoded_variants(n_rows: int, seeds, device=None) -> list:
+    """``[(fact, dim1, dim2), ...]``: q95 batches a seed with ``wh`` and
+    ``seg`` dictionary-encoded against SHARED ``arange`` dictionaries
+    (codes equal values), one token a column across the variants."""
+    base_wh = base_seg = None
+    out = []
+    for seed in seeds:
+        fact, dim1, dim2 = q95_batches(n_rows, seed, device)
+        dev = fact["wh"].device
+        ones = fact["wh"].validity
+        wh, seg = fact["wh"].data, fact["seg"].data
+        if base_wh is None:
+            def arange_dict(n):
+                return Column(torch.arange(n, dtype=torch.int32, device=dev),
+                              torch.ones((n,), dtype=torch.bool, device=dev),
+                              T.INT32)
+            base_wh = ewh = dictionary_from_arrays(wh, ones,
+                                                   arange_dict(Q95_WH))
+            base_seg = eseg = dictionary_from_arrays(seg, ones,
+                                                     arange_dict(Q95_SEG))
+        else:
+            ewh = dataclasses.replace(base_wh, codes=wh)
+            eseg = dataclasses.replace(base_seg, codes=seg)
+        out.append((ColumnBatch({"k": fact["k"], "wh": ewh, "seg": eseg,
+                                 "v": fact["v"]}), dim1, dim2))
+    return out
+
+
+def q95_encoded_step(fact: ColumnBatch, dim1: ColumnBatch,
+                     dim2: ColumnBatch):
+    """The q95 stages on encoded inputs (``_q95_encoded_step``): exchange
+    -> hash join -> exchange -> hash join -> group-by, ``wh`` and ``seg``
+    staying dictionary codes end to end (the exchanges route by their
+    values, the group-by keys on seg's canon word).  The same code as
+    :func:`q95_hashjoin_step`, which plain batches take."""
+    return q95_hashjoin_step(fact, dim1, dim2)
+
+
+# ---------------------------------------------------------------------------
 # numpy oracles (the reference bench.py's baselines)
 # ---------------------------------------------------------------------------
 
@@ -417,6 +520,7 @@ def result_groups(res: ColumnBatch, ng, key: str) -> dict:
     (null key -> ``None``; a string key as its ``str``), for comparing
     results group by group."""
     n = int(ng)
+    res = materialize_batch(res)
     cols = {name: (c.data[:n].cpu().numpy(), c.validity[:n].cpu().numpy())
             for name, c in zip(res.names, res.columns)
             if not isinstance(c, StringColumn)}

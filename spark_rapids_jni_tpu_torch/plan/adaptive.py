@@ -21,15 +21,12 @@ from __future__ import annotations
 from typing import Optional
 
 from .. import config
+from ..columnar.encoded import choose_pack_width
 from . import ir
 
 # past this max/mean per-partition ratio the hash group-by's slot table
 # degenerates on the hot key: pick the sort engine up front
 SKEW_SORT_RATIO = 4.0
-
-# the wire packer's bucketed lane widths (the reference's
-# columnar/encoded.py _PACK_WIDTH_BUCKETS)
-_PACK_WIDTH_BUCKETS = (1, 2, 4, 8, 12, 16, 20, 24, 28, 32)
 
 
 def _enabled() -> bool:
@@ -131,32 +128,19 @@ def choose_exchange_capacity(counts=None, metrics: Optional[dict] = None,
     return None
 
 
-def _pack_width(lo: int, hi: int) -> Optional[int]:
-    """Bucketed lane width for values in ``[lo, hi]`` after subtracting
-    ``lo``, or None past 32 bits (the reference's ``choose_pack_width``)."""
-    rng = int(hi) - int(lo)
-    if rng < 0 or rng >= 1 << 32:
-        return None
-    w = max(1, rng.bit_length())
-    for b in _PACK_WIDTH_BUCKETS:
-        if w <= b:
-            return b
-    return None
-
-
 def choose_shuffle_compress(key_range=None,
                             metrics: Optional[dict] = None) -> Optional[str]:
     """Wire-compression mode for an Exchange, or ``None`` to defer to the
     ``shuffle_compress`` knob: ``'pack'`` when an observed key range packs
     narrower than 64 bits (or earlier exchanges saved bytes packing),
-    ``'off'`` for full-range keys.  The port's exchange ships raw words
-    (``pack`` is ROADMAP.md queue 1, item 12); the decision is made and
-    recorded as the reference makes it."""
+    ``'off'`` for full-range keys (the widths of
+    :func:`~..columnar.encoded.choose_pack_width`, which the exchange's
+    wire packer uses too)."""
     if not _enabled():
         return None
     if key_range is not None:
         lo, hi = key_range
-        w = _pack_width(min(int(lo), 0), max(int(hi), 0))
+        w = choose_pack_width(min(int(lo), 0), max(int(hi), 0))
         return "pack" if w is not None and w < 64 else "off"
     if metrics and int(metrics.get("compressed_bytes_saved", 0)) > 0:
         return "pack"

@@ -3,7 +3,10 @@
 Counterpart of ``spark_rapids_jni_tpu/plan/compile.py``, with the same
 lowering rules, which are the hand-fused pipelines factored:
 
-* Filter -> a row mask carried forward (never a compaction pass).
+* Filter -> a row mask carried forward (never a compaction pass); on a
+  dictionary column the predicate runs over the dictionary's entries
+  once and maps to rows by code, on a bit-packed or frame-of-reference
+  column it compares residuals (``packed_filter_mask``), never decoding.
 * Exchange -> the local shuffle leg (Spark-exact murmur3 pid + stable
   regroup); dead rows go to the trailing pseudo-partition, so live
   prefixes survive the permutation.
@@ -14,7 +17,9 @@ lowering rules, which are the hand-fused pipelines factored:
   engines the one-device exchange is a no-op before a complete local
   aggregation, so it is ELIDED.
 * Join -> ``join_dense_or_hash`` with a dense-domain hint, else the
-  general ``hash_join``; a broadcast join (adaptive decision) probes a
+  general ``hash_join`` (always the general one when any input column
+  is encoded: the rowid path keys on a plain column's raw data, as in
+  the reference); a broadcast join (adaptive decision) probes a
   resident prebuilt :class:`~..relational.join.BuildTable` pinned to the
   engine the plan decided.
 * Aggregate -> ``group_by_onehot`` / ``group_by_domain_or_sort`` /
@@ -40,6 +45,10 @@ import torch
 
 from .. import config
 from ..columnar.column import Column, ColumnBatch, StringColumn
+from ..columnar.encoded import (PACKED_COLUMNS, BitPackedColumn,
+                                DictionaryColumn, FrameOfReferenceColumn,
+                                RunLengthColumn, is_encoded,
+                                packed_filter_mask, predicate_mask)
 from . import adaptive, ir
 from .cache import get_plan_cache
 
@@ -56,19 +65,38 @@ def trace_count() -> int:
 # fingerprints
 # ---------------------------------------------------------------------------
 
+def _layout(c) -> tuple:
+    """A column's buffer and the static layout an operator specializes
+    on: an encoded column's dictionary token, pack width, reference or
+    block, so a new dictionary or layout misses the cache."""
+    if isinstance(c, StringColumn):
+        return c.chars, ()
+    if isinstance(c, DictionaryColumn):
+        return c.codes, (c.dict_token,)
+    if isinstance(c, BitPackedColumn):
+        return c.lanes, (c.width, c.reference)
+    if isinstance(c, FrameOfReferenceColumn):
+        return c.lanes, (c.width, c.block)
+    if isinstance(c, RunLengthColumn):
+        return c.run_values, (c.num_rows,)
+    return getattr(c, "data", getattr(c, "limbs", None)), ()
+
+
 def _schema_fingerprint(inputs: dict) -> tuple:
     """Hashable identity of the input schemas: every column's name, type,
-    shape, dtype and device type — any row-count, width, dtype or
-    column-set change misses the cache by construction."""
+    shape, dtype, device type and encoded layout — any row-count, width,
+    dtype, dictionary or column-set change misses the cache by
+    construction."""
     out = []
     for name in sorted(inputs):
         batch = inputs[name]
-        out.append((name, tuple(
-            (cn, repr(c.dtype), type(c).__name__, tuple(buf.shape),
-             str(buf.dtype), buf.device.type)
-            for cn, c in zip(batch.names, batch.columns)
-            for buf in [c.chars if isinstance(c, StringColumn)
-                        else c.data])))
+        cols = []
+        for cn, c in zip(batch.names, batch.columns):
+            buf, extra = _layout(c)
+            cols.append((cn, repr(c.dtype), type(c).__name__,
+                         tuple(buf.shape), str(buf.dtype), buf.device.type)
+                        + extra)
+        out.append((name, tuple(cols)))
     return tuple(out)
 
 
@@ -119,6 +147,25 @@ _FILTER_OPS = {
 }
 
 
+def _filter_mask(col, op: str, value) -> torch.Tensor:
+    """Row mask of ``col <op> value``: on dictionary codes (the
+    predicate over the entries once, then one gather), on packed
+    residuals (``packed_filter_mask``, no decode), else on the data."""
+    fn = _FILTER_OPS[op]
+    if isinstance(col, PACKED_COLUMNS):
+        return packed_filter_mask(col, op, value)
+    if isinstance(col, DictionaryColumn):
+        return predicate_mask(col, lambda d: fn(d.data, value))
+    if isinstance(col, RunLengthColumn):
+        col = col.decode()
+    return fn(col.data, value)
+
+
+def _inputs_encoded(inputs: dict) -> bool:
+    return any(is_encoded(c) for b in inputs.values()
+               for c in getattr(b, "columns", ()))
+
+
 def _plain_int_key(col) -> bool:
     return isinstance(col, Column) and col.data.dtype in (torch.int32,
                                                           torch.int64)
@@ -160,7 +207,7 @@ def _lower(node: ir.PlanNode, env: dict, prebuilts: tuple, st: _State):
 
     if isinstance(node, ir.Filter):
         b, live, _pfx = _lower(node.child, env, prebuilts, st)
-        mask = _FILTER_OPS[node.op](b[node.column].data, node.value)
+        mask = _filter_mask(b[node.column], node.op, node.value)
         live = mask if live is None else live & mask
         return b, live, False
 
@@ -345,6 +392,9 @@ def _resolve_join_plans(plan, inputs, decisions, ctx):
             dense = node.dense_domain
             if dense == "build":
                 dense = rb.num_rows if rb is not None else None
+            if _inputs_encoded(inputs):
+                # the rowid path keys on a plain column's raw data
+                dense = None
             info = {"strategy": strategy, "dense_domain": dense,
                     "prebuilt": None, "engine": None}
             if strategy == "broadcast":

@@ -77,8 +77,9 @@ class Filter(PlanNode):
 
     Lowered as a row mask carried to the next mask consumer (group-by
     ``row_valid`` / join ``left_valid``) — never as a compaction pass.
-    (The reference's pushdown onto dictionary codes comes with the
-    encoded columns, ROADMAP.md queue 1, item 12.)
+    On a dictionary column the predicate runs over the dictionary once
+    and pushes down onto codes; on a packed column it compares
+    residuals.
     """
 
     child: PlanNode

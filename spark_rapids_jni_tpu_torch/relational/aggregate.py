@@ -31,7 +31,12 @@ decimal(min(38, p + 10), s), null where it reaches 10^precision; its
 avg is Spark's bounded decimal(p + 4, s + 4), HALF_UP; min/max compare
 signed 128-bit values.  Keys may be any mix of plain, string and decimal
 columns: the general engines key on their radix words (a string key: a
-null flag, its char words and its length word).
+null flag, its char words and its length word).  A dictionary key column
+keys on its one canon word (within one batch every dictionary column's
+``canon[codes]`` orders and equates as its full words) and its output
+keys stay encoded; other encoded keys lower to their value words.
+Encoded aggregate VALUE columns materialize where they are summed, and
+the domain engine materializes its inputs (its point of need).
 Output batches are padded to the input row count with a ``num_groups``
 count; groups are in key order, nulls first (the domain engine: key
 order, null group last).
@@ -45,11 +50,12 @@ from typing import Optional, Sequence
 import torch
 
 from .. import config
-from .._roadmap import not_ported
 from .._u32 import M32
 from ..columnar import types as T
 from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
                                StringColumn)
+from ..columnar.encoded import (DictionaryColumn, canon_key_column,
+                                is_encoded, materialize_column)
 from ..ops import decimal as D
 from . import keys as K
 from .gather import gather_column
@@ -86,15 +92,35 @@ def _check_aggs(batch: ColumnBatch, aggs: Sequence[AggSpec]) -> None:
     for spec in aggs:
         if spec.column is not None:
             col = batch[spec.column]
-            if isinstance(col, StringColumn) or col.dtype.is_nested:
+            if (isinstance(col, StringColumn) or col.dtype.is_nested
+                    or col.dtype.kind is T.Kind.STRING):
                 raise NotImplementedError(
                     f"{spec.op} over {col.dtype!r} groups (the reference "
                     "has none either)")
-            if not isinstance(col, (Column, Decimal128Column)):
-                raise not_ported(f"aggregation over {type(col).__name__}",
-                                 12)
+            if not isinstance(col, (Column, Decimal128Column)) \
+                    and not is_encoded(col):
+                raise TypeError(f"aggregation over {type(col).__name__}")
             if spec.op in ("sum", "mean"):
                 _sum_dtype(col.dtype)
+
+
+def _canon_keys(key_cols) -> list:
+    """Each dictionary key column's one canon word in place of its full
+    words (one batch, so one dictionary a column); the output keys
+    still gather from the encoded columns."""
+    return [canon_key_column(c) if isinstance(c, DictionaryColumn) else c
+            for c in key_cols]
+
+
+def _materialize(batch: ColumnBatch, names) -> ColumnBatch:
+    """``batch`` with its encoded columns among ``names`` decoded: the
+    columns an engine computes on, at their point of need (the general
+    engines' key columns stay encoded to the output gather)."""
+    names = {c for c in names if c is not None and is_encoded(batch[c])}
+    if not names:
+        return batch
+    return ColumnBatch({n: materialize_column(col) if n in names else col
+                        for n, col in zip(batch.names, batch.columns)})
 
 
 def _average_decimal_type(p: int, s: int):
@@ -323,8 +349,9 @@ def _group_by_sortscan(batch, key_names, aggs, row_valid, assume_grouped):
     """The sort engine: one stable lexicographic sort, then segment sums."""
     n = batch.num_rows
     dev = batch[key_names[0]].device
-    karr = K.batch_radix_keys([batch[k] for k in key_names], equality=True,
-                              nulls_first=True)
+    batch = _materialize(batch, [spec.column for spec in aggs])
+    karr = K.batch_radix_keys(_canon_keys([batch[k] for k in key_names]),
+                              equality=True, nulls_first=True)
     have_rv = row_valid is not None
     if have_rv:
         occ = row_valid.to(torch.bool)
@@ -361,8 +388,9 @@ def _group_by_hash(batch, key_names, aggs, row_valid, num_slots):
 
     n = batch.num_rows
     dev = batch[key_names[0]].device
-    karr = K.batch_radix_keys([batch[k] for k in key_names], equality=True,
-                              nulls_first=True)
+    batch = _materialize(batch, [spec.column for spec in aggs])
+    karr = K.batch_radix_keys(_canon_keys([batch[k] for k in key_names]),
+                              equality=True, nulls_first=True)
     row_live = (torch.ones((n,), dtype=torch.bool, device=dev)
                 if row_valid is None else row_valid.to(torch.bool))
     S = H.next_pow2(_DEFAULT_GROUP_SLOTS if num_slots is None
@@ -440,6 +468,9 @@ def _domain_partials(batch, key_name, aggs, domain, row_valid=None,
     if any(spec.op in ("min", "max") for spec in aggs):
         raise ValueError("the domain engine computes sum/count/mean only; "
                          "min/max run on the general group_by")
+    # the domain engine works on raw buffers: the key and the summed
+    # columns materialize here, their late point of need
+    batch = _materialize(batch, [key_name] + [s.column for s in aggs])
     if engine == "auto":
         engine = "kernel"
     if engine != "kernel":
@@ -602,7 +633,7 @@ def group_by_domain_or_sort(batch: ColumnBatch, key_name: str,
     n = batch.num_rows
     K = int(domain)
     pad_to = max(n, K + 1)
-    col = batch[key_name]
+    col = materialize_column(batch[key_name])
     if not isinstance(col, Column):
         raise TypeError(f"the domain engine needs an integer key column, "
                         f"not {type(col).__name__}")

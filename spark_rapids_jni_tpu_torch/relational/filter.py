@@ -4,6 +4,10 @@ Counterpart of ``spark_rapids_jni_tpu/relational/filter.py``: ``compact``
 keeps the input length and returns ``(batch, count)`` with the selected
 rows moved, stably, to the front and the tail nulled out;
 ``apply_mask`` nulls the unselected rows in place of moving them.
+The encoded filters are part of this API: ``predicate_mask`` evaluates
+a predicate over a dictionary's entries once and maps it to rows by
+code, and ``packed_filter_mask`` compares bit-packed residuals against
+the once-transformed literal without decoding.
 """
 
 from __future__ import annotations
@@ -13,7 +17,11 @@ import dataclasses
 import torch
 
 from ..columnar.column import ColumnBatch
+from ..columnar.encoded import packed_filter_mask, predicate_mask
 from .gather import gather_batch
+
+__all__ = ["apply_mask", "compact", "packed_filter_mask", "predicate_mask",
+           "selection_indices"]
 
 
 def selection_indices(mask: torch.Tensor):

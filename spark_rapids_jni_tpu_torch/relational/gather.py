@@ -1,26 +1,35 @@
-"""Row gather for plain, string and decimal columns.
+"""Row gather for plain, string, decimal and encoded columns.
 
 Counterpart of ``spark_rapids_jni_tpu/relational/gather.py``: one index
 vector applied to each column's buffers (a string column's whole padded
 char rows, a decimal column's limb pairs); rows where ``valid`` is False
 become nulls (padded filter and join outputs), and a null string row's
-length is zeroed as the reference does.  Encoded columns come with
-ROADMAP.md queue 1, item 12.
+length is zeroed as the reference does.  A dictionary column gathers its
+codes and keeps its dictionary and token; a bit-packed column stays
+packed (its reference survives any permutation); run-length and
+frame-of-reference columns decode first (runs and blocks do not).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from .._roadmap import not_ported
 from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
                                StringColumn)
+from ..columnar.encoded import (BitPackedColumn, DictionaryColumn,
+                                FrameOfReferenceColumn, RunLengthColumn,
+                                gather_bitpacked, pack_bits)
 
 
 def gather_column(col, idx: torch.Tensor, valid=None):
     """Take rows ``idx`` (clipped into range)."""
-    if not isinstance(col, (Column, StringColumn, Decimal128Column)):
-        raise not_ported(f"gather of {type(col).__name__}", 12)
+    if isinstance(col, (RunLengthColumn, FrameOfReferenceColumn)):
+        col = col.decode()
+    if not isinstance(col, (Column, StringColumn, Decimal128Column,
+                            DictionaryColumn, BitPackedColumn)):
+        raise TypeError(f"gather of {type(col).__name__}")
     n = col.num_rows
     dev = col.device
     idx = idx.to(torch.int64).clamp(0, max(n - 1, 0))
@@ -28,6 +37,13 @@ def gather_column(col, idx: torch.Tensor, valid=None):
     if n == 0:
         # nothing to take from: every output row is a null
         none = torch.zeros((m,), dtype=torch.bool, device=dev)
+        zeros = torch.zeros((m,), dtype=torch.int64, device=dev)
+        if isinstance(col, DictionaryColumn):
+            return dataclasses.replace(col, codes=zeros.to(torch.int32),
+                                       validity=none)
+        if isinstance(col, BitPackedColumn):
+            return dataclasses.replace(col, lanes=pack_bits(zeros, col.width),
+                                       validity=none, zone=None)
         if isinstance(col, StringColumn):
             return StringColumn(
                 torch.zeros((m, col.max_len), dtype=torch.uint8,
@@ -40,9 +56,13 @@ def gather_column(col, idx: torch.Tensor, valid=None):
                 col.dtype)
         return Column(torch.zeros((m,), dtype=col.data.dtype, device=dev),
                       none, col.dtype)
+    if isinstance(col, BitPackedColumn):
+        return gather_bitpacked(col, idx, valid)
     v = col.validity[idx]
     if valid is not None:
         v = v & valid
+    if isinstance(col, DictionaryColumn):
+        return dataclasses.replace(col, codes=col.codes[idx], validity=v)
     if isinstance(col, StringColumn):
         return StringColumn(col.chars[idx], col.lengths[idx] * v, v,
                             col.dtype)

@@ -3,10 +3,11 @@
 Counterpart of ``spark_rapids_jni_tpu/relational/join.py``:
 
 * :func:`hash_join`, every join kind (inner, left, right, full, semi,
-  anti) over any mix of plain, string and decimal key columns (string
-  widths aligned across the sides) and payloads of the same kinds, on
-  two engines picked by the
-  ``join_engine`` knob:
+  anti) over any mix of plain, string, decimal and encoded key columns
+  (string widths aligned across the sides) and payloads of the same
+  kinds, on two engines picked by the ``join_engine`` knob.  Key pairs
+  over ONE dictionary (equal tokens) key on the one canon word; every
+  other encoded key lowers to its value words:
 
   - **kernel** (``auto``): the build side's radix words go into a slot
     table (slot-table build kernel), build rows are grouped by slot with
@@ -49,6 +50,10 @@ from .._roadmap import not_ported
 from ..columnar import types as T
 from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
                                StringColumn)
+from ..columnar.encoded import (BitPackedColumn, DictionaryColumn,
+                                FrameOfReferenceColumn, RunLengthColumn,
+                                align_encoded_key_columns, is_encoded,
+                                materialize_column, pack_bits)
 from . import keys as K
 from .filter import compact
 from .gather import gather_batch
@@ -113,7 +118,21 @@ def _one_null_row_like(batch: ColumnBatch) -> ColumnBatch:
     for name, col in zip(batch.names, batch.columns):
         dev = col.device
         none = torch.zeros((1,), dtype=torch.bool, device=dev)
-        if isinstance(col, StringColumn):
+        if isinstance(col, DictionaryColumn):
+            # the dictionary and token stay: one null row of it
+            out[name] = dataclasses.replace(
+                col, codes=torch.zeros((1,), dtype=torch.int32, device=dev),
+                validity=none)
+        elif isinstance(col, (RunLengthColumn, FrameOfReferenceColumn)):
+            out[name] = Column(torch.zeros((1,), dtype=col.dtype.torch_dtype,
+                                           device=dev), none, col.dtype)
+        elif isinstance(col, BitPackedColumn):
+            # the packed layout stays: one zero residual
+            out[name] = dataclasses.replace(
+                col, lanes=pack_bits(torch.zeros((1,), dtype=torch.int64,
+                                                 device=dev), col.width),
+                validity=none, zone=None)
+        elif isinstance(col, StringColumn):
             out[name] = StringColumn(
                 torch.zeros((1, col.max_len), dtype=torch.uint8,
                             device=dev),
@@ -133,8 +152,9 @@ def _require_keys(cols: Sequence, what: str) -> None:
     for c in cols:
         if getattr(c, "dtype", None) is not None and c.dtype.is_nested:
             raise NotImplementedError(f"{what} over {c.dtype!r}")
-        if not isinstance(c, (Column, StringColumn, Decimal128Column)):
-            raise not_ported(f"{what} over {type(c).__name__}", 12)
+        if not isinstance(c, (Column, StringColumn, Decimal128Column)) \
+                and not is_encoded(c):
+            raise TypeError(f"{what} over {type(c).__name__}")
 
 
 def _with_validity(cols, valid):
@@ -205,6 +225,10 @@ def hash_join(left: ColumnBatch, right: ColumnBatch,
     lkcols = [left[k] for k in left_on]
     rkcols = [right[k] for k in right_on]
     _require_keys(lkcols + rkcols, "hash_join keys")
+    if prebuilt is None:
+        # one dictionary on both sides: one canon word a key column (a
+        # prebuilt table's keys are value words, so it keeps them)
+        lkcols, rkcols = align_encoded_key_columns(lkcols, rkcols)
     lcols, rcols = K.align_string_key_columns(lkcols, rkcols)
     if right_valid is not None:
         rcols = _with_validity(rcols, right_valid)
@@ -343,7 +367,7 @@ def join_dense_or_hash(left: ColumnBatch, right: ColumnBatch, left_on: str,
     """Inner join for the dimension-table shape: a rowid table when the
     build keys are unique ints in ``[0, domain)``, else :func:`hash_join`.
     Same output contract either way: matches compacted in left-row order,
-    ``(result, count)``."""
+    ``(result, count)``.  Encoded keys take :func:`hash_join`."""
     lcol, rcol = left[left_on], right[right_on]
     ints = T.INT_KINDS + (T.Kind.DATE, T.Kind.TIMESTAMP)
     eligible = (how == "inner" and domain > 0
@@ -417,6 +441,15 @@ def _merge_parts(lpart: ColumnBatch, rpart: ColumnBatch,
 
 
 def _concat_col(a, b):
+    if isinstance(a, DictionaryColumn) and isinstance(b, DictionaryColumn) \
+            and a.dict_token == b.dict_token and a.dict_token > 0:
+        # one dictionary: the codes concatenate, the column stays encoded
+        return dataclasses.replace(a, codes=torch.cat([a.codes, b.codes]),
+                                   validity=torch.cat([a.validity,
+                                                       b.validity]))
+    # packed lanes and mixed dictionaries do not concatenate: the full
+    # join's append is an output boundary, so they materialize
+    a, b = materialize_column(a), materialize_column(b)
     if isinstance(a, StringColumn):
         (a,), (b,) = K.align_string_key_columns([a], [b])
         return StringColumn(torch.cat([a.chars, b.chars]),
@@ -471,7 +504,7 @@ class BuildTable:
             raise ValueError("cannot pre-build an empty build side")
         rcols = [right[k] for k in self.right_on]
         _require_keys(rcols, "build table keys")
-        if any(isinstance(c, StringColumn) for c in rcols):
+        if any(K.string_key_width(c) is not None for c in rcols):
             raise ValueError(
                 "string join keys cannot be pre-built: their key width "
                 "depends on the probe side (align_string_key_columns)")

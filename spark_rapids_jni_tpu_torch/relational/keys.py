@@ -19,7 +19,14 @@ lexicographic order is Spark's SQL order:
   order): under 128 bits of storage the sign-flipped low limb as a
   (hi, lo) pair; at 128 bits the sign-flipped high limb's pair, then
   the low limb's;
-* validity: one leading flag word placing nulls first or last.
+* validity: one leading flag word placing nulls first or last;
+* encoded columns lower to their VALUE words, so they key against plain
+  columns and other dictionaries alike: a dictionary's own words
+  gathered by code, a run column's by run, and packed and
+  frame-of-reference ints through reference + residual arithmetic,
+  never through ``decode()``.  The one-word canon path of a dictionary
+  is substituted by callers under a token match
+  (:func:`~..columnar.encoded.align_encoded_key_columns`).
 
 The same words feed the stable sorts (:func:`lexsort_u32`), segment
 boundaries and the lexicographic binary search of the sort join engine
@@ -33,11 +40,12 @@ from typing import Sequence
 
 import torch
 
-from .._roadmap import not_ported
 from .._u32 import M32, SIGN32
 from ..columnar import types as T
 from ..columnar.column import (Column, Decimal128Column, ListColumn,
                                StringColumn, StructColumn)
+from ..columnar.encoded import (BitPackedColumn, DictionaryColumn,
+                                FrameOfReferenceColumn, RunLengthColumn)
 
 _F32_QNAN = 0x7FC00000
 _F64_QNAN = 0x7FF8000000000000
@@ -96,6 +104,21 @@ def column_radix_keys(col, *, equality: bool = False) -> list:
     ``equality=True`` applies the equality-domain float normalization
     (``-0.0 -> 0.0``); NaNs canonicalize in both domains.
     """
+    if isinstance(col, DictionaryColumn):
+        # words of the d entries once, then one gather per word by code
+        idx = col.codes.to(torch.int64)
+        return [w[idx] for w in
+                column_radix_keys(col.dictionary, equality=equality)]
+    if isinstance(col, RunLengthColumn):
+        run = col.row_to_run()
+        values = Column(col.run_values, torch.ones(
+            (col.num_runs,), dtype=torch.bool, device=col.device), col.dtype)
+        return [w[run] for w in column_radix_keys(values, equality=equality)]
+    if isinstance(col, BitPackedColumn):
+        return _int_value_words(col.residuals() + int(col.reference),
+                                col.dtype)
+    if isinstance(col, FrameOfReferenceColumn):
+        return _int_value_words(col.values64(), col.dtype)
     if isinstance(col, StringColumn):
         return string_words(col)
     if isinstance(col, Decimal128Column):
@@ -105,8 +128,6 @@ def column_radix_keys(col, *, equality: bool = False) -> list:
                 + list(_split64(col.limbs[:, 0])))
     if isinstance(col, (ListColumn, StructColumn)):
         raise NotImplementedError(f"radix keys for {col.dtype!r}")
-    if not isinstance(col, Column):
-        raise not_ported(f"radix keys of {type(col).__name__}", 12)
     kind = col.dtype.kind
     d = col.data
     if kind is T.Kind.BOOLEAN:
@@ -120,6 +141,17 @@ def column_radix_keys(col, *, equality: bool = False) -> list:
     if kind is T.Kind.FLOAT64:
         return list(_split64(_f64_total_order(d, normalize_zero=equality)))
     raise NotImplementedError(f"radix keys for {col.dtype!r}")
+
+
+def _int_value_words(vals64: torch.Tensor, dtype) -> list:
+    """int64[n] decoded values -> the kind's order-preserving words (the
+    packed lowerings)."""
+    kind = dtype.kind
+    if kind in (T.Kind.INT8, T.Kind.INT16, T.Kind.INT32, T.Kind.DATE):
+        return [(vals64.to(torch.int32).to(torch.int64) & M32) ^ SIGN32]
+    if kind in (T.Kind.INT64, T.Kind.TIMESTAMP):
+        return list(_split64(vals64 ^ _SIGN64))
+    raise NotImplementedError(f"packed radix keys for {dtype!r}")
 
 
 def null_flag(col, nulls_first: bool) -> torch.Tensor:
@@ -246,10 +278,22 @@ def equal_range(sorted_keys, query_keys):
     return _bisect(sk, qk, lower=True), _bisect(sk, qk, lower=False)
 
 
+def string_key_width(c):
+    """The char width of a column that lowers to string words (a string
+    column or a dictionary of strings), else None."""
+    if isinstance(c, StringColumn):
+        return c.max_len
+    if isinstance(c, DictionaryColumn) and isinstance(c.dictionary,
+                                                      StringColumn):
+        return c.dictionary.max_len
+    return None
+
+
 def align_string_key_columns(lcols: Sequence, rcols: Sequence):
-    """Pad paired string key columns to a common char width, so both
-    sides of a join lower to the same number of words."""
-    def pad_to(c, width):
+    """Pad paired string key columns (a dictionary of strings pads its
+    dictionary) to a common char width, so both sides of a join lower to
+    the same number of words."""
+    def pad_chars(c, width):
         if c.max_len == width:
             return c
         chars = torch.cat([c.chars, torch.zeros(
@@ -257,14 +301,20 @@ def align_string_key_columns(lcols: Sequence, rcols: Sequence):
             device=c.chars.device)], 1)
         return dataclasses.replace(c, chars=chars)
 
+    def pad_to(c, width):
+        if isinstance(c, DictionaryColumn):
+            return dataclasses.replace(
+                c, dictionary=pad_chars(c.dictionary, width))
+        return pad_chars(c, width)
+
     lout, rout = [], []
     for lc, rc in zip(lcols, rcols):
-        ls, rs = isinstance(lc, StringColumn), isinstance(rc, StringColumn)
-        if ls != rs:
+        lw, rw = string_key_width(lc), string_key_width(rc)
+        if (lw is None) != (rw is None):
             raise TypeError(f"join key type mismatch: {lc.dtype!r} vs "
                             f"{rc.dtype!r}")
-        if ls and lc.max_len != rc.max_len:
-            width = max(lc.max_len, rc.max_len)
+        if lw is not None and lw != rw:
+            width = max(lw, rw)
             lc, rc = pad_to(lc, width), pad_to(rc, width)
         lout.append(lc)
         rout.append(rc)

@@ -13,27 +13,37 @@ from __future__ import annotations
 
 from typing import Optional
 
+import dataclasses
+
 import torch
 
-from .._roadmap import not_ported
 from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
                                StringColumn)
+from ..columnar.encoded import DictionaryColumn
 
 
 def column_leaves(col) -> list:
     """A column's fixed leaf list, the tensors the exchange moves row by
     row: ``[data, validity]``; a string column's ``[chars, lengths,
-    validity]``; a decimal column's ``[limbs, validity]``.  A list's
-    offsets do not shard by row, so nested columns do not cross."""
+    validity]``; a decimal column's ``[limbs, validity]``; a dictionary
+    column's ``[codes, validity]`` (its dictionary crosses once, beside
+    the rounds).  Run-length and packed columns decode before they
+    cross.  A list's offsets do not shard by row, so nested columns do
+    not cross (the reference's row gather has no nested branch
+    either)."""
     if isinstance(col, StringColumn):
         return [col.chars, col.lengths, col.validity]
     if isinstance(col, Decimal128Column):
         return [col.limbs, col.validity]
+    if isinstance(col, DictionaryColumn):
+        return [col.codes, col.validity]
     if isinstance(col, Column):
         return [col.data, col.validity]
     if getattr(col, "dtype", None) is not None and col.dtype.is_nested:
-        raise not_ported(f"exchanging a {col.dtype!r} column", 11)
-    raise not_ported(f"exchanging a {type(col).__name__}", 12)
+        raise NotImplementedError(
+            f"exchanging a {col.dtype!r} column: a list's offsets do not "
+            "shard by row")
+    raise TypeError(f"exchanging a {type(col).__name__}")
 
 
 def batch_leaves(batch: ColumnBatch) -> list:
@@ -51,6 +61,10 @@ def rebatch(like: ColumnBatch, leaves) -> ColumnBatch:
             at += 3
         elif isinstance(c, Decimal128Column):
             out[name] = Decimal128Column(*leaves[at:at + 2], c.dtype)
+            at += 2
+        elif isinstance(c, DictionaryColumn):
+            out[name] = dataclasses.replace(c, codes=leaves[at],
+                                            validity=leaves[at + 1])
             at += 2
         else:
             out[name] = Column(*leaves[at:at + 2], c.dtype)

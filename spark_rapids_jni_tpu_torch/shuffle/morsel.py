@@ -11,8 +11,11 @@ delivered as a zero-argument *replay* callable returning
 global row range would interleave senders and break bit-identity with the
 materialized exchange): each shard is padded with invalid rows to a whole
 number of morsels, and morsel ``j`` is rows ``[j*M, (j+1)*M)`` of every
-shard.  Zone-map morsel skipping (``predicate=``, ``zone_map=``) is
-ROADMAP.md queue 1, item 12; ``from_parquet`` is item 14.
+shard.  With a ``predicate=`` the caller filters on anyway, a packed
+column's zone map (or an explicit ``zone_map=``) lets it skip every
+morsel whose blocks provably hold no match (``blocks_skipped`` /
+``blocks_scanned``, folded into ``ShuffleMetrics`` by the stream).
+``from_parquet`` is ROADMAP.md queue 1, item 14.
 """
 
 from __future__ import annotations
@@ -24,10 +27,64 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from .. import config
 from .._roadmap import not_ported
 from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
                                ListColumn, StringColumn, StructColumn)
+from ..columnar.encoded import (is_encoded, materialize_batch,
+                                materialize_column)
 from .buffers import batch_leaves, rebatch
+
+_ZONE_OPS = ("<", "<=", "==", "!=", ">=", ">")
+
+
+def _zone_keep(batch: ColumnBatch, predicate, zone_map, P: int, L: int,
+               per_dev: int, k: int, M: int):
+    """Per-morsel keep decisions from the filter column's zone map:
+    ``(keep bool[k], blocks_skipped, blocks_scanned)``.
+
+    Morsel ``j`` covers, per shard ``p``, global rows ``[p*per_dev +
+    j*M, p*per_dev + (j+1)*M)``, the order the sidecar was built over;
+    it is skipped only when EVERY zone block overlapping any of them
+    provably holds no match.  The decision covers all ``P`` shards, so
+    every rank of a process mesh makes the same one (``batch`` holds
+    ``L`` of the shards; the sidecar covers all P).  A block
+    straddling two morsels counts for each.  At least one morsel always
+    stays: the stream takes its schema from one.
+    """
+    all_kept = ([True] * k, 0, 0)
+    column, op, value = predicate
+    if not bool(config.get("zone_maps")):
+        return all_kept
+    if (op not in _ZONE_OPS or not isinstance(value, (int, np.integer))
+            or isinstance(value, bool)):
+        return all_kept
+    zm = zone_map
+    if zm is None and column in batch.names and L == P:
+        zm = getattr(batch[column], "zone", None)
+    if zm is None or zm.rows != P * per_dev or (
+            zm.column is not None and zm.column != column):
+        # no sidecar, or one of another row count or another column:
+        # not skipping is always safe
+        return all_kept
+    zm.verify()
+    hit = zm.block_may_match(op, value)
+    nb = zm.num_blocks
+    covered = []
+    for j in range(k):
+        blocks = set()
+        for p in range(P):
+            lo = p * per_dev + j * M
+            hi = min(lo + M, (p + 1) * per_dev)
+            if hi > lo:
+                blocks.update(range(lo // zm.block, (hi - 1) // zm.block + 1))
+        covered.append({b for b in blocks if b < nb})
+    keep = [bool(any(hit[b] for b in blocks)) for blocks in covered]
+    if not any(keep):
+        keep[0] = True
+    skipped = sum(len(c) for c, kj in zip(covered, keep) if not kj)
+    scanned = sum(len(c) for c, kj in zip(covered, keep) if kj)
+    return keep, skipped, scanned
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -55,7 +112,8 @@ def batch_digest(batch: ColumnBatch) -> str:
     (a plain or decimal column's type name and data with null slots
     zeroed; a string's length and chars per valid row, ``0xff`` per null
     one; a list's offsets then its child; a struct's field names and
-    fields).  The same contents give the same digest in both packages."""
+    fields; an encoded column's decoded values).  The same contents give
+    the same digest in both packages."""
     h = hashlib.sha256()
 
     def eat_col(col):
@@ -84,7 +142,7 @@ def batch_digest(batch: ColumnBatch) -> str:
 
     for name, col in zip(batch.names, batch.columns):
         h.update(name.encode())
-        eat_col(col)
+        eat_col(materialize_column(col))
     return h.hexdigest()
 
 
@@ -112,6 +170,11 @@ class MorselSource:
         self.mesh = mesh
         self._snapshot_id = None
         self._snapshot_of = snapshot_of
+        # the zone-map skip of the constructor, folded into the metrics
+        # by the first exchange that streams this source
+        self.blocks_skipped = 0
+        self.blocks_scanned = 0
+        self._zone_counts_recorded = False
 
     @property
     def snapshot_id(self) -> Optional[str]:
@@ -130,22 +193,36 @@ class MorselSource:
     def from_batch(cls, batch: ColumnBatch, mesh,
                    morsel_rows: Optional[int] = None, row_valid=None,
                    predicate=None, zone_map=None) -> "MorselSource":
-        """Slice a row-sharded batch (a :class:`~..parallel.mesh.ShardMesh`
-        of ``mesh.size`` shards) into per-shard morsels; concatenating the
-        valid rows of every morsel reproduces each shard in row order."""
-        from .. import config
+        """Slice a row-sharded batch (the local shards of ``mesh``: all
+        P of a :class:`~..parallel.mesh.ShardMesh`, a rank's own of a
+        :class:`~..parallel.mesh.ProcessMesh`) into per-shard morsels;
+        concatenating the valid rows of every morsel reproduces each
+        shard in row order.  Encoded columns decode here (the stream
+        decodes them anyway).
 
-        if predicate is not None or zone_map is not None:
-            raise not_ported("zone-map morsel skipping (predicate=, "
-                             "zone_map=)", 12)
+        ``predicate`` is an optional ``(column, op, value)`` filter the
+        consumer applies downstream anyway: when the column carries a
+        zone map (``zone_maps`` knob) or ``zone_map`` supplies one (it
+        must cover all ``P * per_shard`` rows in global order), morsels
+        whose every block provably fails the filter are never built, so
+        the filtered stream equals the filtered full stream.  A sidecar
+        is CRC-checked before it skips anything
+        (:class:`~..columnar.encoded.ZoneMapCorruptionError`), and one
+        tagged with another column never skips."""
         if morsel_rows is None:
             morsel_rows = int(config.get("scan_morsel_rows"))
         M = int(morsel_rows)
         if M <= 0:
             raise ValueError("morsel_rows must be positive")
-        P = mesh.size
+        L = mesh.local_shards
         per_dev = mesh.shard_rows(batch.num_rows)
         k = max(1, math.ceil(per_dev / M))
+        keep, skipped, scanned = [True] * k, 0, 0
+        if predicate is not None:
+            keep, skipped, scanned = _zone_keep(
+                batch, predicate, zone_map, mesh.size, L, per_dev, k, M)
+        if any(is_encoded(c) for c in batch.columns):
+            batch = materialize_batch(batch)
         pad = k * M - per_dev
         dev = batch.columns[0].device if batch.columns else mesh.device
         if row_valid is None:
@@ -153,10 +230,10 @@ class MorselSource:
                                    device=dev)
 
         def shards(x):
-            # [P * per_dev, ...] -> [P, k * M, ...], invalid zero padding
-            v = x.reshape((P, per_dev) + tuple(x.shape[1:]))
+            # [L * per_dev, ...] -> [L, k * M, ...], invalid zero padding
+            v = x.reshape((L, per_dev) + tuple(x.shape[1:]))
             if pad:
-                z = torch.zeros((P, pad) + tuple(x.shape[1:]),
+                z = torch.zeros((L, pad) + tuple(x.shape[1:]),
                                 dtype=x.dtype, device=x.device)
                 v = torch.cat([v, z], dim=1)
             return v
@@ -166,7 +243,7 @@ class MorselSource:
 
         def take(v, j):
             sl = v[:, j * M:(j + 1) * M]
-            return sl.reshape((P * M,) + tuple(sl.shape[2:]))
+            return sl.reshape((L * M,) + tuple(sl.shape[2:]))
 
         def make(j):
             def replay():
@@ -174,8 +251,10 @@ class MorselSource:
                         take(valid, j))
             return replay
 
-        return cls([make(j) for j in range(k)], M, batch.num_rows,
-                   mesh=mesh, snapshot_of=batch)
+        src = cls([make(j) for j in range(k) if keep[j]], M,
+                  batch.num_rows, mesh=mesh, snapshot_of=batch)
+        src.blocks_skipped, src.blocks_scanned = skipped, scanned
+        return src
 
     @classmethod
     def from_parquet(cls, path, mesh, *args, **kwargs):

@@ -8,9 +8,9 @@ at once, and the reference's ``lax.all_to_all`` is a transpose of
 ``[P_s, P_d, C]`` to ``[P_d, P_s, C]``.  On a
 :class:`~..parallel.mesh.ProcessMesh` each rank maps its own rows, an
 all-gather of the count rows gives every rank the same ``[P, P]`` matrix
-and so the same plan, and each round drains through
-``all_to_all_single``.  Delivered arrays are bit-identical, shard for
-shard, to the reference's on its P-device mesh.
+and so the same plan (and the stream the same drain schedule), and each
+round drains through ``all_to_all_single``.  Delivered arrays are
+bit-identical, shard for shard, to the reference's on its P-device mesh.
 
 * **map**: route rows to Spark-exact partition ids (or caller-supplied
   ids; out-of-range ones go to the null partition and are counted) and
@@ -23,18 +23,31 @@ shard, to the reference's on its P-device mesh.
   the stream fixes its capacity up front
   (:func:`~.planner.plan_stream_capacity`) and re-plans its round
   schedule as morsel counts arrive (:meth:`ShuffleService.exchange_stream`).
-* **scatter** (stream, shard mesh only): each morsel lands in its round
-  chunks through the partition-scatter kernel
-  (:class:`~..ops.kernels.PartitionScatter`, one launch per morsel for
-  every round it touches and all shards; the kernel ranks each row
-  within its (shard, destination) bucket itself).
+* **scatter** (stream): each morsel lands in its round chunks through the
+  partition-scatter kernel (:class:`~..ops.kernels.PartitionScatter`,
+  one launch per morsel for every round it touches and every local
+  shard; the kernel ranks each row within its (shard, destination)
+  bucket itself).
+* **wire** (``shuffle_compress``): ``pack`` sends every bool leaf at
+  width 1 and every integer leaf frame-of-reference bit-packed at its
+  observed range's bucketed width, one packed stream per (sender,
+  destination) row, so the all-to-all still splits rows; ``auto`` packs
+  only a dictionary-carrying exchange's bools and code words; the
+  stream packs bool leaves only (its ranges are unknown until its last
+  morsel).  Chunks stay packed until reassembly
+  (:func:`_unpack_chunk`); ``compressed_bytes_saved`` is the reference's
+  static count of the bytes packing saved.
+* **encoded columns**: a dictionary column crosses as codes and its
+  dictionary is reattached once after (counted once in
+  ``bytes_moved``); a key on a dictionary routes by its values; RLE and
+  packed columns decode first.  The stream decodes every encoded column
+  per morsel.
 * **drain + reassemble + account**: rows received must equal rows sent,
   else :class:`ShuffleError` — ``dropped == 0`` is an invariant.
 
 Buffers are resident (:mod:`.buffers`); spill, task-context charging,
 lineage recovery and the durable store are ROADMAP.md queue 1, item 13;
-``shuffle_compress='pack'`` is item 12; the ``shuffle_io_round`` fault
-probe is item 17.
+the ``shuffle_io_round`` fault probe is item 17.
 """
 
 from __future__ import annotations
@@ -49,15 +62,21 @@ import torch
 from .. import config
 from .._roadmap import not_ported
 from ..columnar.column import ColumnBatch
+from ..columnar.encoded import (PACKED_COLUMNS, DictionaryColumn,
+                                RunLengthColumn, choose_pack_width,
+                                detach_dictionaries, is_encoded,
+                                materialize_batch, pack_bits_rows,
+                                reattach_dictionaries, unpack_bits_rows)
 from ..ops.kernels import PartitionScatter
-from ..parallel.collectives import _a2a, send_rows
+from ..parallel.collectives import send_rows
 from ..parallel.partition import spark_partition_id
 from ..parallel.shuffle import bucket_counts, route_out_of_range
 from ..relational.gather import gather_batch
-from .buffers import MorselBuffer, PartitionBuffer, RoundChunk, \
-    batch_leaves, rebatch
+from .buffers import (MorselBuffer, PartitionBuffer, RoundChunk,
+                      batch_leaves, column_leaves, rebatch, tree_nbytes)
 from .planner import plan_rounds, plan_stream_capacity
 from .registry import ShuffleInfo, ShuffleRegistry, get_registry
+
 
 class ShuffleError(RuntimeError):
     """Lossless-invariant violation or strict-mode partition id abuse."""
@@ -83,6 +102,9 @@ class ShuffleResult:
     drain_ms: float = 0.0           # cumulative round drain time (host)
     scatters: int = 0               # (morsel, round) scatters (streamed)
     sync_ms: float = 0.0            # host waits on the per-morsel counts
+    compressed_bytes_saved: int = 0  # wire bytes the pack plan saved
+    blocks_skipped: int = 0         # zone blocks the morsel check excluded
+    blocks_scanned: int = 0         # zone blocks consulted and kept
 
 
 def _concat_rounds(chunks, L: int):
@@ -172,8 +194,6 @@ def _resolve_compress() -> str:
     if compress not in ("auto", "off", "pack"):
         raise ValueError(f"shuffle_compress must be auto/off/pack, "
                          f"got {compress!r}")
-    if compress == "pack":
-        raise not_ported("shuffle_compress='pack'", 12)
     return compress
 
 
@@ -183,6 +203,148 @@ def _no_ctx_store(ctx, store_key) -> None:
                          13)
     if store_key is not None:
         raise not_ported("the persistent shuffle store (store_key=)", 13)
+
+
+# ---------------------------------------------------------------------------
+# the compressed wire
+# ---------------------------------------------------------------------------
+#
+# A wire plan has one spec per batch_leaves leaf: None (ships raw),
+# ("bit", 1, None) for a bool leaf, or ("for", w, ref) for an integer
+# leaf sent as bit-packed residuals over ref at width w.
+
+_BIT = ("bit", 1, None)
+
+
+def _pack_plan(batch: ColumnBatch, dicts, mode: str, mesh):
+    """The wire plan of ``batch``'s leaves, or None.  ``pack`` packs every
+    non-empty 1-D bool and integer leaf whose observed range (widened to
+    cover 0, over all ranks) packs narrower than its dtype; ``auto`` only
+    the bools and code words of an exchange that carries dictionaries
+    (a plain exchange keeps the raw wire)."""
+    if mode == "off" or (mode == "auto" and not dicts):
+        return None
+    plan, ranged = [], []
+    for name, col in zip(batch.names, batch.columns):
+        leaves = column_leaves(col)
+        for i, leaf in enumerate(leaves):
+            sp = None
+            if leaf.dim() == 1 and leaf.numel():
+                if leaf.dtype == torch.bool:
+                    sp = _BIT
+                elif not leaf.is_floating_point() and (
+                        mode == "pack" or (name in dicts and i == 0)):
+                    sp = "range"
+                    ranged.append(leaf)
+            plan.append(sp)
+    if ranged:
+        # every rank must pick the same widths: the all-reduce of each
+        # leaf's (~lo, hi) gives the global range (~ keeps int64 min safe)
+        stats = torch.stack([torch.stack([~leaf.min().to(torch.int64),
+                                          leaf.max().to(torch.int64)])
+                             for leaf in ranged]).reshape(1, -1)
+        stats = mesh.all_reduce(stats, "max").reshape(-1).cpu().tolist()
+        widths = iter([(~stats[2 * j], stats[2 * j + 1])
+                       for j in range(len(ranged))])
+        leaves = iter(ranged)
+        for k, sp in enumerate(plan):
+            if sp != "range":
+                continue
+            lo, hi = next(widths)
+            leaf = next(leaves)
+            lo, hi = min(lo, 0), max(hi, 0)
+            w = choose_pack_width(lo, hi)
+            plan[k] = (("for", w, lo)
+                       if w is not None and w < 8 * leaf.element_size()
+                       else None)
+    return tuple(plan) if any(plan) else None
+
+
+def _bool_plan(like_leaves) -> Optional[tuple]:
+    """The stream's wire plan: its bool leaves only."""
+    plan = tuple(_BIT if x.dim() == 1 and x.numel() and
+                 x.dtype == torch.bool else None for x in like_leaves)
+    return plan if any(plan) else None
+
+
+def _plan_saved_bytes(plan, like_leaves, P: int, C: int) -> int:
+    """Wire bytes one packed round chunk saves against the raw grid, the
+    occupancy mask (always width 1 beside a plan) included."""
+    if plan is None:
+        return 0
+    rows = P * P * C
+
+    def lanes_nbytes(w):
+        return P * P * ((C * w + 31) // 32) * 4
+
+    saved = rows - lanes_nbytes(1)
+    for sp, leaf in zip(plan, like_leaves):
+        if sp is not None:
+            saved += rows * leaf.element_size() - lanes_nbytes(sp[1])
+    return max(int(saved), 0)
+
+
+def _pack_leaf(x: torch.Tensor, sp, rows: int) -> torch.Tensor:
+    """One send-grid leaf as packed lane rows (``rows`` streams)."""
+    _kind, w, ref = sp
+    words = x.to(torch.int64)
+    if ref:
+        words = words - ref
+    return pack_bits_rows(words.reshape(rows, -1), w)
+
+
+def _unpack_leaf(lanes: torch.Tensor, sp, like: torch.Tensor, C: int):
+    """Inverse of :func:`_pack_leaf` into ``like``'s dtype."""
+    _kind, w, ref = sp
+    words = unpack_bits_rows(lanes, w, C).reshape(-1)
+    if like.dtype == torch.bool:
+        return words.to(torch.bool)
+    return (words + ref if ref else words).to(like.dtype)
+
+
+def _send_packed(mesh, tree: ColumnBatch, idx, occ, plan, C: int):
+    """:func:`~..parallel.collectives.send_rows` with a wire plan: the
+    send grid is gathered, each planned leaf packed per (sender,
+    destination) row and every leaf sent through the mesh's all-to-all.
+    Returns the received (still packed) leaves and occupancy lanes."""
+    sent = gather_batch(tree, idx, valid=occ)
+    rows = occ.shape[0] // C
+    out = [mesh.all_to_all(x if sp is None else _pack_leaf(x, sp, rows))
+           for x, sp in zip(batch_leaves(sent), plan)]
+    return out, mesh.all_to_all(_pack_leaf(occ, _BIT, rows))
+
+
+def _unpack_chunk(leaves, occ, plan, like_leaves, C: int):
+    """The one unpack point: a received chunk's lanes back to leaves and
+    occupancy, right before reassembly."""
+    if plan is None:
+        return list(leaves), occ
+    out = [x if sp is None else _unpack_leaf(x, sp, lk, C)
+           for x, sp, lk in zip(leaves, plan, like_leaves)]
+    return out, unpack_bits_rows(occ, 1, C).reshape(-1).to(torch.bool)
+
+
+def _occ_rows(occ: torch.Tensor, packed: bool) -> torch.Tensor:
+    """Received rows of a chunk's occupancy (lanes when packed)."""
+    if not packed:
+        return occ.sum()
+    return unpack_bits_rows(occ, 1, 32 * occ.shape[1]).sum()
+
+
+def _decode_runs_and_packs(batch: ColumnBatch) -> ColumnBatch:
+    enc = (RunLengthColumn,) + PACKED_COLUMNS
+    if not any(isinstance(c, enc) for c in batch.columns):
+        return batch
+    return ColumnBatch({n: c.decode() if isinstance(c, enc) else c
+                        for n, c in zip(batch.names, batch.columns)})
+
+
+def _dict_nbytes(dicts) -> int:
+    """Bytes of the dictionaries an exchange rebinds once."""
+    total = 0
+    for _name, (canon, dictionary, _dt, _tok) in sorted(dicts.items()):
+        total += tree_nbytes([canon] + column_leaves(dictionary))
+    return total
 
 
 class ShuffleService:
@@ -212,14 +374,26 @@ class ShuffleService:
         """
         if (key_names is None) == (pid is None):
             raise ValueError("pass exactly one of key_names / pid")
-        batch_leaves(batch)  # every column can cross, or not_ported
         _no_ctx_store(ctx, store_key)
-        _resolve_compress()
+        compress = _resolve_compress()
         if strict is None:
             strict = bool(config.get("shuffle_strict_pids"))
         mesh = self.mesh
         P, L = mesh.size, mesh.local_shards
         R = mesh.shard_rows(batch.num_rows)
+
+        # 0. encoded columns: runs and packed lanes decode; dictionary
+        # columns cross as codes (a key on one routes by its values)
+        batch = _decode_runs_and_packs(batch)
+        dicts = {}
+        if any(isinstance(c, DictionaryColumn) for c in batch.columns):
+            if key_names is not None and any(
+                    isinstance(batch[k], DictionaryColumn)
+                    for k in key_names):
+                pid = _key_pid(batch, key_names, row_valid, P)
+                key_names = None
+            batch, dicts = detach_dictionaries(batch)
+        batch_leaves(batch)  # every column can cross, or this raises
         sid = self.registry.begin_shuffle()
 
         # 1. map: regroup destination-major + the count matrix
@@ -234,9 +408,13 @@ class ShuffleService:
                 f"shuffle {sid}: {oob_total} out-of-range partition ids "
                 f"(strict mode; ids must lie in [0, {P}])")
 
-        # 2. plan: static (rounds, capacity) from the exact counts
+        # 2. plan: static (rounds, capacity) from the exact counts, and
+        # which leaves cross bit-packed
         plan = plan_rounds(counts_np, round_rows=round_rows)
         C = plan.capacity
+        like_leaves = batch_leaves(regrouped)
+        wire = _pack_plan(regrouped, dicts, compress, mesh)
+        saved_per_chunk = _plan_saved_bytes(wire, like_leaves, P, C)
 
         # 3. drain round r: slots [r*C, (r+1)*C) of every bucket
         map_buf = PartitionBuffer((regrouped, counts),
@@ -254,10 +432,14 @@ class ShuffleService:
                 k = r * C + slot
                 occ = k < cnts[:, :, None]            # [L, P_d, C]
                 src = (offsets[:, :, None] + k).clamp(0, max(R - 1, 0))
-                out, occ_t = send_rows(mesh, tree,
-                                       (src + shard0).reshape(-1),
-                                       occ.reshape(-1))
-                received += occ_t.sum()
+                idx = (src + shard0).reshape(-1)
+                if wire is None:
+                    out, occ_t = send_rows(mesh, tree, idx, occ.reshape(-1))
+                    out = batch_leaves(out)
+                else:
+                    out, occ_t = _send_packed(mesh, tree, idx,
+                                              occ.reshape(-1), wire, C)
+                received += _occ_rows(occ_t, wire is not None)
                 chunks.append(PartitionBuffer(
                     (out, occ_t), name=f"shuffle{sid}-round{r}"))
             # every shard's grids are the same size: the mesh moved P / L
@@ -274,8 +456,10 @@ class ShuffleService:
                 raise ShuffleError(
                     f"shuffle {sid}: lossless invariant violated "
                     f"(sent={sent} received={got} residual={residual})")
-            parts = [batch_leaves(c.get()[0]) + [c.get()[1]]
-                     for c in chunks]
+            parts = []
+            for c in chunks:
+                leaves, occ_v = _unpack_chunk(*c.get(), wire, like_leaves, C)
+                parts.append(leaves + [occ_v])
             merged = _concat_rounds(parts, L)
             final_batch = rebatch(regrouped, merged[:-1])
             final_occ = merged[-1]
@@ -284,16 +468,22 @@ class ShuffleService:
             for c in chunks:
                 c.close()
 
+        if dicts:
+            # the dictionaries cross once, beside the rounds
+            final_batch = reattach_dictionaries(final_batch, dicts)
+            bytes_moved += _dict_nbytes(dicts)
+        compressed_saved = saved_per_chunk * plan.rounds
         info = ShuffleInfo(
             shuffle_id=sid, rounds=plan.rounds, capacity=C,
             rows_moved=got, bytes_moved=bytes_moved, spilled_bytes=0,
-            skew_ratio=plan.skew_ratio, oob_rows=oob_total)
+            skew_ratio=plan.skew_ratio, oob_rows=oob_total,
+            compressed_bytes_saved=compressed_saved)
         self.registry.record(info)
         return ShuffleResult(
             batch=final_batch, occupancy=final_occ, shuffle_id=sid,
             rounds=plan.rounds, capacity=C, rows_moved=got,
             bytes_moved=bytes_moved, skew_ratio=plan.skew_ratio,
-            oob_rows=oob_total)
+            oob_rows=oob_total, compressed_bytes_saved=compressed_saved)
 
     def exchange_stream(self, morsels,
                         key_names: Optional[Sequence[str]] = None, ctx=None,
@@ -307,9 +497,12 @@ class ShuffleService:
 
         ``morsels`` yields a morsel or (preferably) a zero-argument replay
         callable returning one (see :class:`~.morsel.MorselSource`); a
-        morsel is a row-sharded ``ColumnBatch`` or a ``(batch, aux)``
+        morsel is a row-sharded ``ColumnBatch`` (a rank's own rows on a
+        :class:`~..parallel.mesh.ProcessMesh`) or a ``(batch, aux)``
         pair where ``aux`` is the per-row validity (key mode) or the
-        partition id array (pid mode, ``key_names=None``).
+        partition id array (pid mode, ``key_names=None``).  Encoded
+        columns decode per morsel.  On ranks every rank must feed the
+        same number of morsels.
 
         The round capacity is fixed up front and the round schedule is
         re-planned as morsel counts arrive: a round's chunk opens the
@@ -317,45 +510,53 @@ class ShuffleService:
         every bucket's cumulative count clears ``(r+1) * capacity`` (no
         later morsel can touch it), and the round count is whatever the
         largest bucket needs.  Each morsel costs one host read of its
-        count matrix and oob count (``sync_ms``), which the round
-        schedule needs.
+        count matrix and oob count (``sync_ms``; on ranks, after an
+        all-gather of every rank's count row, so every rank plans the
+        same drains).
         """
         _no_ctx_store(ctx, store_key)
-        if not self.mesh.holds_all:
-            raise not_ported("exchange_stream over torch.distributed "
-                             "ranks", 11)
-        _resolve_compress()
+        compress = _resolve_compress()
         if strict is None:
             strict = bool(config.get("shuffle_strict_pids"))
         _resolve_scatter_engine()
-        P = self.mesh.size
+        mesh = self.mesh
+        P, L = mesh.size, mesh.local_shards
+        if mesh.holds_all and L != P:
+            raise ValueError("exchange_stream over one axis of a shard "
+                             "mesh: stream each group's rows on its own "
+                             "ShardMesh")
+        first = 0 if mesh.holds_all else mesh.first_shard
+        gather = None if mesh.holds_all else mesh
         sid = self.registry.begin_shuffle()
         C = plan_stream_capacity(round_rows=round_rows)
 
         cum = np.zeros((P, P), np.int64)
-        cum_dev = None        # the same counts on the device: the base
+        cum_dev = None        # the local shards' counts on the device
         send_chunks = {}
         recv = []
-        like = scatter = None
+        like = scatter = wire = like_leaves = None
+        saved_per_chunk = 0
         oob_total = 0
         n_morsels = scatters = rounds_overlapped = next_drain = 0
         decode_ms = drain_ms = sync_ms = 0.0
 
         def run_map(item):
             b, aux = item if isinstance(item, tuple) else (item, None)
+            if any(is_encoded(c) for c in b.columns):
+                b = materialize_batch(b)
             if key_names is not None:
                 aux = _key_pid(b, key_names, aux, P)
             elif aux is None:
                 raise ValueError("pid-mode streaming morsels must be "
                                  "(batch, pid) pairs")
-            return (b,) + _route_count(aux, P)[:3]
+            return (b,) + _route_count(aux, P, L)[:3]
 
         def open_chunk(rr, m_leaves):
-            # P * P * C slots per leaf, sender-major then destination
-            leaves = [torch.zeros((P * P * C,) + tuple(x.shape[1:]),
+            # L * P * C slots per leaf, sender-major then destination
+            leaves = [torch.zeros((L * P * C,) + tuple(x.shape[1:]),
                                   dtype=x.dtype, device=x.device)
                       for x in m_leaves]
-            occ = torch.zeros((P * P * C,), dtype=torch.bool,
+            occ = torch.zeros((L * P * C,), dtype=torch.bool,
                               device=m_leaves[0].device)
             send_chunks[rr] = RoundChunk((leaves, occ),
                                          name=f"shuffle{sid}-send{rr}")
@@ -364,9 +565,17 @@ class ShuffleService:
         def drain_round(rr):
             chunk = send_chunks[rr]
             leaves, occ = chunk.get()
-            recv.append(PartitionBuffer(
-                ([_a2a(x, P) for x in leaves], _a2a(occ, P)),
-                name=f"shuffle{sid}-recv{rr}"))
+            if wire is None:
+                out = [mesh.all_to_all(x) for x in leaves]
+                occ_t = mesh.all_to_all(occ)
+            else:
+                rows = L * P
+                out = [mesh.all_to_all(
+                    x if sp is None else _pack_leaf(x, sp, rows))
+                    for x, sp in zip(leaves, wire)]
+                occ_t = mesh.all_to_all(_pack_leaf(occ, _BIT, rows))
+            recv.append(PartitionBuffer((out, occ_t),
+                                        name=f"shuffle{sid}-recv{rr}"))
             chunk.close()  # resident: nothing re-drives a drained round
             scatter.close_round(rr)
 
@@ -376,7 +585,7 @@ class ShuffleService:
                 t0 = time.perf_counter()
                 b, pid, counts, oob = run_map(replay())
                 t1 = time.perf_counter()
-                counts_np, oob_n = _host_counts(counts, oob, P)
+                counts_np, oob_n = _host_counts(counts, oob, P, gather)
                 t2 = time.perf_counter()
                 decode_ms += (t2 - t0) * 1e3
                 sync_ms += (t2 - t1) * 1e3
@@ -387,10 +596,14 @@ class ShuffleService:
                         f"ids (strict mode; ids must lie in [0, {P}])")
                 m_leaves = [x.contiguous() for x in batch_leaves(b)]
                 if like is None:
-                    like = b
-                    scatter = PartitionScatter(m_leaves, P, P, C)
-                    cum_dev = torch.zeros((P, P), dtype=torch.int64,
+                    like, like_leaves = b, m_leaves
+                    scatter = PartitionScatter(m_leaves, L, P, C)
+                    cum_dev = torch.zeros((L, P), dtype=torch.int64,
                                           device=pid.device)
+                    if compress == "pack":
+                        wire = _bool_plan(m_leaves)
+                        saved_per_chunk = _plan_saved_bytes(
+                            wire, m_leaves, P, C)
                 base = cum.copy()
                 cum = cum + counts_np
                 m_idx = n_morsels
@@ -410,11 +623,17 @@ class ShuffleService:
                         for rr in range(r_lo, r_hi + 1):
                             if rr not in send_chunks:
                                 open_chunk(rr, m_leaves)
-                        # one launch for every round the morsel touches;
-                        # cum_dev is this morsel's base until the add
-                        scatter(m_leaves, m_pid, cum_dev, r_lo, r_hi)
+                        mine = counts_np[first:first + L] > 0
+                        if mine.any():
+                            # this process's rows: one launch for every
+                            # round they touch; cum_dev is their base
+                            m_lo = int((base[first:first + L][mine]
+                                        // C).min())
+                            m_hi = int(((cum[first:first + L][mine] - 1)
+                                        // C).max())
+                            scatter(m_leaves, m_pid, cum_dev, m_lo, m_hi)
+                            scatters += m_hi - m_lo + 1
                         cum_dev += counts
-                        scatters += r_hi - r_lo + 1
                 finally:
                     mbuf.close()
                 # early drain: rounds no future morsel can touch
@@ -437,15 +656,20 @@ class ShuffleService:
             drain_ms += (time.perf_counter() - t0) * 1e3
 
             sent = int(cum.sum())
-            got = int(sum(b.get()[1].sum() for b in recv).item())
+            local = sum(_occ_rows(b.get()[1], wire is not None)
+                        for b in recv)
+            got = int(mesh.all_reduce(local.reshape(1), "sum").item())
             if got != sent:
                 self.registry.metrics.record_dropped(abs(sent - got))
                 raise ShuffleError(
                     f"shuffle {sid}: lossless invariant violated "
                     f"(sent={sent} received={got} rounds={rounds})")
-            bytes_moved = sum(b.nbytes for b in recv)
-            merged = _concat_rounds(
-                [list(b.get()[0]) + [b.get()[1]] for b in recv], P)
+            bytes_moved = sum(b.nbytes for b in recv) * P // L
+            parts = []
+            for b in recv:
+                leaves, occ_v = _unpack_chunk(*b.get(), wire, like_leaves, C)
+                parts.append(leaves + [occ_v])
+            merged = _concat_rounds(parts, L)
             final_batch = rebatch(like, merged[:-1])
             final_occ = merged[-1]
         finally:
@@ -457,13 +681,24 @@ class ShuffleService:
         # the materialized planner over the FINAL counts supplies the skew
         # diagnostics; rounds/capacity record what actually ran
         plan = plan_rounds(cum, round_rows=round_rows)
+        compressed_saved = saved_per_chunk * rounds
+        # the source's one skip decision counts toward its first exchange
+        # only (a reused source would count it again)
+        blocks_skipped = int(getattr(morsels, "blocks_skipped", 0))
+        blocks_scanned = int(getattr(morsels, "blocks_scanned", 0))
+        if getattr(morsels, "_zone_counts_recorded", False):
+            blocks_skipped = blocks_scanned = 0
+        elif hasattr(morsels, "blocks_skipped"):
+            morsels._zone_counts_recorded = True
         info = ShuffleInfo(
             shuffle_id=sid, rounds=rounds, capacity=C, rows_moved=got,
             bytes_moved=bytes_moved, spilled_bytes=0,
             skew_ratio=plan.skew_ratio, oob_rows=oob_total, streamed=True,
             morsels=n_morsels, rounds_overlapped=rounds_overlapped,
-            decode_ms=decode_ms, drain_ms=drain_ms, scatters=scatters,
-            sync_ms=sync_ms)
+            decode_ms=decode_ms, drain_ms=drain_ms,
+            compressed_bytes_saved=compressed_saved,
+            blocks_skipped=blocks_skipped, blocks_scanned=blocks_scanned,
+            scatters=scatters, sync_ms=sync_ms)
         self.registry.record(info)
         return ShuffleResult(
             batch=final_batch, occupancy=final_occ, shuffle_id=sid,
@@ -472,4 +707,5 @@ class ShuffleService:
             oob_rows=oob_total, streamed=True,
             morsels=n_morsels, rounds_overlapped=rounds_overlapped,
             decode_ms=decode_ms, drain_ms=drain_ms, scatters=scatters,
-            sync_ms=sync_ms)
+            sync_ms=sync_ms, compressed_bytes_saved=compressed_saved,
+            blocks_skipped=blocks_skipped, blocks_scanned=blocks_scanned)

@@ -631,3 +631,29 @@ def test_partition_scatter_string_and_decimal_leaves(dev, case):
     for r in got:
         assert torch.equal(got[r][1], ref[r][1])
         _same(got[r][0], ref[r][0])
+
+
+@pytest.mark.parametrize("n,card", [(1 << 22, 100), (1 << 16, 4096),
+                                    (1 << 20, 1)])
+def test_slot_table_build_over_a_canon_word_matches_plain(dev, n, card):
+    """K2 over a dictionary column's canon key: the null flag and ONE
+    canon word (two words), as the q6str_enc group-by builds it."""
+    from spark_rapids_jni_tpu_torch.columnar import encoded as E
+    from spark_rapids_jni_tpu_torch.relational import aggregate as AGG
+
+    g = torch.Generator().manual_seed(n + card)
+    dict_vals = Column(torch.randperm(10 * card, generator=g)[:card]
+                       .to(dev), torch.ones(card, dtype=torch.bool,
+                                            device=dev), TT.INT64)
+    codes = torch.randint(0, card, (n,), generator=g).to(dev)
+    valid = (torch.rand(n, generator=g) > 0.01).to(dev)
+    col = E.dictionary_from_arrays(codes, valid, dict_vals)
+    words = RK.batch_radix_keys(AGG._canon_keys([col]), equality=True,
+                                nulls_first=True)
+    assert len(words) == 2
+    live = (torch.rand(n, generator=g) > 0.5).to(dev)
+    S = 4096 if card <= 1024 else H.next_pow2(2 * card)
+    KER.reset_launches()
+    got = KER.slot_table_build(words, live, S)
+    assert KER.launches["slot_table_build"] == 1
+    _same(got, KER.slot_table_build_plain(words, live, S, S))

@@ -5,9 +5,13 @@ One spawn of 4 CPU ranks (:func:`parallel.launch.spawn`) runs every case
 through :func:`parallel.drive.run_ops`; the test process runs the same
 ops on ``ShardMesh(4, device='cpu')``.  Rank r's result must equal shard
 r's bit for bit (replicated results: every rank's equals the mesh's).
-The 2-D cases run on the 2 x 2 ``HierMesh`` over each.  A second spawn
-shows that a rank stuck in a collective fails its call within the wall
-limit instead of hanging the suite.
+The 2-D cases run on the 2 x 2 ``HierMesh`` over each.  The streamed
+exchange (``exchange_stream``) runs over the 4 ranks, raw and packed,
+with a zone-map predicate and with a dictionary column, and over one
+axis of the 2 x 2 mesh, where each 2-rank group must equal a
+``ShardMesh(2)`` stream of its own rows.  A second spawn shows that a
+rank stuck in a collective fails its call within the wall limit instead
+of hanging the suite.
 """
 
 import datetime
@@ -20,6 +24,7 @@ import pytest
 import torch.distributed as dist
 
 from spark_rapids_jni_tpu_torch import config as tconfig
+from spark_rapids_jni_tpu_torch.columnar.encoded import ZoneMap
 from spark_rapids_jni_tpu_torch.parallel import drive, launch
 from spark_rapids_jni_tpu_torch.parallel.drive import (MESH, Hier, Op,
                                                        Sharded, Whole)
@@ -68,6 +73,21 @@ def _cases():
     big = {"k": (rng.integers(0, 5000, nb), rng.random(nb) > 0.1, "int64"),
            "v": (rng.integers(-999, 999, nb), np.ones(nb, bool), "int64")}
     live = rng.random(n) > 0.15
+    # a sorted column with a zone sidecar over all WORLD * 32 rows, and a
+    # dictionary column (codes into 5 strings; its token is the host's)
+    x = np.sort(rng.integers(0, 1 << 16, n))
+    zone = ZoneMap.build(x, 16, "x")
+    zb = {"k": b["k"], "x": (x, ones, "int64"), "v": b["v"]}
+    dchars = np.zeros((5, 8), np.uint8)
+    for i in range(5):
+        dchars[i, :6] = np.frombuffer(f"dict-{i}".encode(), np.uint8)
+    db = {"k": b["k"], "v": b["v"],
+          "w": ({"encoding": "dictionary",
+                 "codes": rng.integers(0, 5, n).astype(np.uint32),
+                 "canon": None, "token": 7,
+                 "dictionary": ((dchars, np.full(5, 6, np.int32)),
+                                np.ones(5, bool), "string")},
+                rng.random(n) > 0.1, "string")}
     aggs = [AggSpec("sum", "v", "sv"), AggSpec("count", None, "c"),
             AggSpec("mean", "p", "mp"), AggSpec("sum", "d", "sd"),
             AggSpec("max", "v", "hi")]
@@ -123,16 +143,43 @@ def _cases():
         ("sort_2d", Op("distributed_sort_2d", (S(b), ["k"], Hier(2, 2)))),
         ("dryrun", Op("dryrun_multichip", (WORLD, 32, MESH, None),
                       replicated=True)),
+        ("stream_keys", Op("service_stream", (S(b), MESH, 8),
+                           {"key_names": ["s"], "round_rows": 4,
+                            "row_valid": S(live)})),
+        ("stream_pack_knob", Op("set_knob", ("shuffle_compress", "pack"),
+                                replicated=True)),
+        ("stream_pack", Op("service_stream", (S(b), MESH, 8),
+                           {"key_names": ["k"], "round_rows": 64})),
+        ("exchange_pack", Op("service_exchange", (S(b), MESH),
+                             {"key_names": ["k"], "round_rows": 2})),
+        ("stream_auto_knob", Op("set_knob", ("shuffle_compress", "auto"),
+                                replicated=True)),
+        ("stream_zone", Op("service_stream", (S(zb), MESH, 4),
+                           {"key_names": ["k"],
+                            "predicate": ("x", "<", int(x[n // 10])),
+                            "zone_map": zone})),
+        ("stream_dict", Op("service_stream", (S(db), MESH, 8),
+                           {"key_names": ["w"]})),
+        ("exchange_dict", Op("service_exchange", (S(db), MESH),
+                             {"key_names": ["w"]})),
     ]
 
 
 CASES = _cases()
 
+# the stream over the 'ici' axis of the 2 x 2 mesh: ranks only (each
+# 2-rank group streams its own rows; see test_stream_over_one_axis)
+AXIS_BATCH = CASES[1][1].args[0].value
+AXIS_KW = {"axis": "ici", "key_names": ["k"], "round_rows": 4}
+AXIS_OPS = [Op("service_stream", (Sharded(AXIS_BATCH), Hier(2, 2), 8),
+               AXIS_KW)]
+
 
 @pytest.fixture(scope="module")
 def results():
     ops = [op for _, op in CASES]
-    ranks = launch.spawn(WORLD, BODY, ops, backend="gloo", wall_s=240.0)
+    ranks = launch.spawn(WORLD, BODY, ops + AXIS_OPS, backend="gloo",
+                         wall_s=240.0)
     try:
         shards = drive.run_ops(ShardMesh(WORLD, device="cpu"), ops)
     finally:
@@ -167,6 +214,50 @@ def test_ranks_match_shard_mesh(results, i):
             same(ranks[r][i], shards[i], f"{name} rank {r}")
         else:
             same(ranks[r][i], [shards[i][r]], f"{name} rank {r}")
+
+
+def _host_rows(hb: dict, lo: int, hi: int) -> dict:
+    def cut(x):
+        if isinstance(x, tuple):
+            return tuple(cut(v) for v in x)
+        return np.asarray(x)[lo:hi]
+    return {k: (cut(d), np.asarray(v)[lo:hi], t)
+            for k, (d, v, t) in hb.items()}
+
+
+def test_stream_over_one_axis(results):
+    """Over the 2 x 2 mesh's 'ici' axis each group of 2 ranks streams its
+    own rows: ranks 2h and 2h + 1 equal the two shards of a
+    ``ShardMesh(2)`` stream of group h's rows."""
+    ranks, _ = results
+    n = len(AXIS_BATCH["k"][0])
+    half = n // 2
+    for h in range(2):
+        try:
+            # the ranks ran CASES' knob op first
+            want = drive.run_ops(ShardMesh(2, device="cpu"), [CASES[0][1], Op(
+                "service_stream", (Sharded(_host_rows(AXIS_BATCH, h * half,
+                                                      (h + 1) * half)),
+                                   MESH, 8),
+                {k: v for k, v in AXIS_KW.items() if k != "axis"})])[1]
+        finally:
+            tconfig.reset()
+        for j in range(2):
+            same(ranks[2 * h + j][len(CASES)], [want[j]],
+                 f"axis stream rank {2 * h + j}")
+
+
+def test_streams_move_rows_and_skip_blocks(results):
+    _, shards = results
+    names = [name for name, _ in CASES]
+    pack = shards[names.index("stream_pack")][0]["stats"]
+    raw = shards[names.index("stream_keys")][0]["stats"]
+    zone = shards[names.index("stream_zone")][0]["stats"]
+    # [rounds, capacity, rows, bytes, oob, morsels, saved, skipped, kept]
+    assert pack[6] > 0 and raw[6] == 0
+    assert zone[7] > 0 and zone[5] < 32 // 4
+    ex = shards[names.index("exchange_pack")][0]["stats"]
+    assert ex[5] > 0
 
 
 def test_dryrun_on_ranks_reports_its_checks(results):
@@ -220,8 +311,14 @@ def test_one_rank_mesh_and_what_it_leaves_to_later(one_rank_group):
               op.replicated) for op in ops]
     same(drive.run_ops(mesh, ops),
          drive.run_ops(ShardMesh(1, device="cpu"), ops), "world 1")
+    # the stream runs on a rank mesh too (ROADMAP item 11 is closed):
+    # world 1 equals the one-shard mesh's stream
     b = drive._place(CASES[1][1].args[0], mesh, {})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ShuffleService(mesh).exchange_stream(
-            MorselSource.from_batch(b, ShardMesh(1, device="cpu"), 32),
-            key_names=["k"])
+    got = ShuffleService(mesh).exchange_stream(
+        MorselSource.from_batch(b, mesh, 32), key_names=["k"])
+    one = ShardMesh(1, device="cpu")
+    want = ShuffleService(one).exchange_stream(
+        MorselSource.from_batch(b, one, 32), key_names=["k"])
+    same(drive.to_host(got.batch), drive.to_host(want.batch), "stream")
+    assert (got.rows_moved, got.bytes_moved, got.morsels) == \
+        (want.rows_moved, want.bytes_moved, want.morsels)

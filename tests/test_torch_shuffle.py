@@ -285,12 +285,22 @@ def test_unported_options_raise(eight_devices):
     with pytest.raises(NotImplementedError, match="item 13"):
         svc.exchange_stream(MorselSource.from_batch(tb, tm, morsel_rows=4),
                             key_names=["k"], store_key="q")
+    # shuffle_compress='pack' and a zone-map predicate are ported: the
+    # packed exchange delivers the raw one's rows, and a predicate over a
+    # column with no sidecar skips nothing
+    raw = svc.exchange(tb, key_names=["k"])
     tconfig.set("shuffle_compress", "pack")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    packed = svc.exchange(tb, key_names=["k"])
+    tconfig.reset("shuffle_compress")
+    assert packed.compressed_bytes_saved > 0
+    assert torch.equal(packed.occupancy, raw.occupancy)
+    assert torch.equal(packed.batch["k"].data, raw.batch["k"].data)
+    src = MorselSource.from_batch(tb, tm, predicate=("k", "<", 3))
+    assert (len(src), src.blocks_skipped, src.blocks_scanned) == (1, 0, 0)
+    with pytest.raises(ValueError, match="shuffle_compress"):
+        tconfig.set("shuffle_compress", "zip")
         svc.exchange(tb, key_names=["k"])
     tconfig.reset("shuffle_compress")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        MorselSource.from_batch(tb, tm, predicate=("k", "<", 3))
     with pytest.raises(NotImplementedError, match="item 14"):
         MorselSource.from_parquet("x.parquet", tm)
     with pytest.raises(ValueError, match="at least one morsel"):
@@ -424,9 +434,10 @@ def test_nested_columns_do_not_cross(eight_devices):
                  "l": JL.from_pylist([[i] for i in range(n)], JT.INT64)})
     tb = to_port(jb)
     svc = ShuffleService(tm, registry=ShuffleRegistry())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # the reference's row gather has no nested branch either
+    with pytest.raises(NotImplementedError, match="do not shard by row"):
         svc.exchange(tb, key_names=["k"])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="do not shard by row"):
         MorselSource.from_batch(tb, tm, morsel_rows=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="do not shard by row"):
         tree_nbytes(tb)

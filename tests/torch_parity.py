@@ -1,7 +1,8 @@
 """Helpers the PyTorch port's parity tests share: reference columns carried
 into the port through ``batch_from_numpy`` (plain, string, decimal, list
-and struct, at any depth), seeded decimal values, and bit-for-bit column
-comparisons."""
+and struct, at any depth, and the four encoded kinds: dictionary, RLE,
+bit-packed and frame-of-reference with their zone sidecars), seeded
+decimal values, and bit-for-bit column comparisons."""
 
 import numpy as np
 
@@ -11,6 +12,11 @@ from spark_rapids_jni_tpu.columnar.column import \
 from spark_rapids_jni_tpu.columnar.column import ListColumn as JList
 from spark_rapids_jni_tpu.columnar.column import StringColumn as JString
 from spark_rapids_jni_tpu.columnar.column import StructColumn as JStruct
+from spark_rapids_jni_tpu.columnar.encoded import BitPackedColumn as JPacked
+from spark_rapids_jni_tpu.columnar.encoded import DictionaryColumn as JDict
+from spark_rapids_jni_tpu.columnar.encoded import \
+    FrameOfReferenceColumn as JFor
+from spark_rapids_jni_tpu.columnar.encoded import RunLengthColumn as JRle
 
 from spark_rapids_jni_tpu_torch.columnar.column import (Decimal128Column,
                                                         StringColumn,
@@ -19,10 +25,34 @@ from spark_rapids_jni_tpu_torch.columnar.column import (Decimal128Column,
 MAX38 = 10 ** 38 - 1
 
 
+def zone_form(z):
+    """A reference zone sidecar in ``batch_from_numpy``'s form."""
+    if z is None:
+        return None
+    return {"mins": z.mins, "maxs": z.maxs, "block": z.block,
+            "rows": z.rows, "crc": z.crc, "column": z.column}
+
+
 def host_form(c):
     """A reference column as ``batch_from_numpy``'s ``(data, validity,
     type)`` triple."""
-    if isinstance(c, JString):
+    if isinstance(c, JDict):
+        data = {"encoding": "dictionary", "codes": np.asarray(c.codes),
+                "canon": None if c.canon is None else np.asarray(c.canon),
+                "dictionary": None if c.dictionary is None
+                else host_form(c.dictionary), "token": c.dict_token}
+    elif isinstance(c, JRle):
+        data = {"encoding": "rle", "run_values": np.asarray(c.run_values),
+                "run_lengths": np.asarray(c.run_lengths)}
+    elif isinstance(c, JPacked):
+        data = {"encoding": "bitpacked", "lanes": np.asarray(c.lanes),
+                "width": c.width, "reference": c.reference,
+                "zone": zone_form(c.zone)}
+    elif isinstance(c, JFor):
+        data = {"encoding": "for", "refs": np.asarray(c.refs),
+                "lanes": np.asarray(c.lanes), "width": c.width,
+                "block": c.block, "zone": zone_form(c.zone)}
+    elif isinstance(c, JString):
         data = (np.asarray(c.chars), np.asarray(c.lengths))
     elif isinstance(c, JDecimal):
         data = np.asarray(c.limbs)
@@ -91,3 +121,39 @@ def assert_col_equal(jc, tc, rows=None, msg=""):
         np.testing.assert_array_equal(
             tc.data[sl].numpy()[jv].view(np.uint8),
             np.asarray(jc.data)[sl][jv].view(np.uint8), err_msg=msg)
+
+
+def u32(t):
+    """A port int32 carrier of u32 bits (codes, canon, lanes) as uint32."""
+    return t.numpy().astype(np.int32).view(np.uint32)
+
+
+def assert_encoded_equal(jc, tc, msg=""):
+    """An encoded port column holds the reference's buffers bit for bit
+    (codes, canon and dictionary; runs; lanes, width and reference;
+    refs and block) and the same validity."""
+    np.testing.assert_array_equal(tc.validity.numpy(),
+                                  np.asarray(jc.validity), f"{msg} validity")
+    if isinstance(jc, JDict):
+        np.testing.assert_array_equal(u32(tc.codes), np.asarray(jc.codes),
+                                      f"{msg} codes")
+        np.testing.assert_array_equal(u32(tc.canon), np.asarray(jc.canon),
+                                      f"{msg} canon")
+        assert_col_equal(jc.dictionary, tc.dictionary, msg=f"{msg} dict")
+        if isinstance(jc.dictionary, JString):
+            assert tc.dictionary.max_len == jc.dictionary.max_len, msg
+    elif isinstance(jc, JRle):
+        np.testing.assert_array_equal(tc.run_values.numpy(),
+                                      np.asarray(jc.run_values), msg)
+        np.testing.assert_array_equal(tc.run_lengths.numpy(),
+                                      np.asarray(jc.run_lengths), msg)
+    else:
+        np.testing.assert_array_equal(u32(tc.lanes), np.asarray(jc.lanes),
+                                      f"{msg} lanes")
+        assert tc.width == jc.width, msg
+        if isinstance(jc, JPacked):
+            assert tc.reference == jc.reference, msg
+        else:
+            np.testing.assert_array_equal(tc.refs.numpy(),
+                                          np.asarray(jc.refs), msg)
+            assert tc.block == jc.block, msg

@@ -56,10 +56,18 @@ two-line summary.  It measures, at the main path's shapes:
   rows and the streamed exchange of the string fact with a decimal
   column.
 
+* the encoded steps (``encoded``): the same profile of ``q6str_enc``
+  (the shared-dictionary q6str) beside ``q6str``, ``q95_enc`` (the q95
+  stages on dictionary-encoded ``wh`` and ``seg``) and the exchange of
+  the compress recipe with ``shuffle_compress`` off and ``pack`` (8
+  shards), plus CUDA-event ms of the plain-torch encoded pieces at 2^24
+  rows: ``pack_bits``/``unpack_bits`` at widths 9 and 12, a dictionary
+  decode and ``canon[codes]``.
+
 ``--only probe,onehot`` runs only those sections (the names: ``map``,
 ``stream``, ``build``, ``probe``, ``onehot``, ``steps``, ``plan``,
-``breadth``, ``decimal``; the default runs all but ``breadth`` and
-``decimal``).  With ``--stream-reps N``
+``breadth``, ``decimal``, ``encoded``; the default runs all but
+``breadth``, ``decimal`` and ``encoded``).  With ``--stream-reps N``
 it only times N whole streamed exchanges of the 2^24-row fact table (512
 morsels); run it for two trees in turns to compare them.
 """
@@ -516,6 +524,75 @@ def trace_decimal(rows):
     return out
 
 
+def trace_encoded(rows):
+    """One profiled call of each encoded step at ``rows`` (busy and idle
+    share, device ms by kind), and the plain-torch encoded pieces."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.columnar import encoded as E
+    from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+    from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
+    from spark_rapids_jni_tpu_torch.shuffle import ShuffleRegistry, \
+        ShuffleService
+
+    ((qe,),) = PL.q6str_encoded_variants(rows, (7,))
+    q6s = PL.q6str_batch(rows)
+    fact, dim1, dim2 = PL.q95_encoded_batches(rows)
+    rng = np.random.default_rng(23)
+    ones = np.ones(rows, np.bool_)
+    cb = batch_from_numpy({
+        "k": (rng.integers(0, 1000, rows).astype(np.int64), ones, "int64"),
+        "qty": (rng.integers(-50, 50, rows).astype(np.int32), ones,
+                "int32"),
+        "flag": (rng.integers(0, 2, rows).astype(bool), ones, "boolean"),
+        "price": (rng.standard_normal(rows).astype(np.float32), ones,
+                  "float32")})
+    svc = ShuffleService(ShardMesh(8), registry=ShuffleRegistry())
+
+    def exchange(mode):
+        def run():
+            config.set("shuffle_compress", mode)
+            try:
+                return svc.exchange(cb, key_names=["k"])
+            finally:
+                config.reset("shuffle_compress")
+        return run
+
+    steps = {"q6str_enc": lambda: PL.q6str_step(qe),
+             "q6str": lambda: PL.q6str_step(q6s),
+             "q95_enc": lambda: PL.q95_encoded_step(fact, dim1, dim2),
+             "exchange_off": exchange("off"),
+             "exchange_pack": exchange("pack")}
+    out = {}
+    for name, fn in steps.items():
+        fn()
+        wall, busy, kern, _cpu = profile(fn)
+        out[name] = {
+            "wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall,
+            "kernel_launches": sum(c for c, _ in kern.values()),
+            "device_ms_by_kind": kernel_kinds(kern),
+            "top_kernels": dict(sorted(kern.items(),
+                                       key=lambda kv: -kv[1][1])[:8])}
+    dev = qe["k"].codes.device
+    words = torch.randint(0, 1 << 12, (rows,), device=dev)
+    pieces = {}
+    for w in (9, 12):
+        lanes = E.pack_bits(words & ((1 << w) - 1), w)
+        pieces[f"pack_bits_w{w}"] = ev_ms(
+            lambda w=w: E.pack_bits(words & ((1 << w) - 1), w), reps=5)
+        pieces[f"unpack_bits_w{w}"] = ev_ms(
+            lambda w=w, lanes=lanes: E.unpack_bits(lanes, w, rows), reps=5)
+    pieces["dictionary_decode"] = ev_ms(lambda: qe["k"].decode(), reps=5)
+    pieces["canon_of_codes"] = ev_ms(
+        lambda: E.canon_key_column(qe["k"]), reps=5)
+    out["pieces_ms"] = pieces
+    return out
+
+
 def limbs_gather(limbs):
     """CUDA-event ms of gathering int64[n, 2] decimal limbs by a
     sequential and a random permutation: torch's row gather against the
@@ -780,6 +857,8 @@ def main() -> int:
         out["breadth"] = trace_breadth(args.rows)
     if "decimal" in only:
         out["decimal"] = trace_decimal(args.rows)
+    if "encoded" in only:
+        out["encoded"] = trace_encoded(args.rows)
 
     with open(path, "w") as f:
         json.dump(out, f, indent=1, default=str)
