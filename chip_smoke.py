@@ -106,7 +106,22 @@ Phases, each printing one JSON line:
    ``bytes_moved``, the wire ratio and the ms of each); ``stream_zone``
    (the selectivity recipe with a zone sidecar at 1, 10 and 90 %: each
    pruned stream's surviving rows equal the filtered full stream's, the
-   1 % point skips blocks, one K4 launch per kept morsel).
+   1 % point skips blocks, one K4 launch per kept morsel);
+13. the Spark-exact string path (BASELINE config #4): ``qstr``
+   (``qstr_step`` at 2^20 rows: ``tails`` byte for byte against
+   ``json.loads`` and the hit count, 3 host reads, no flagged row, its
+   CUDA launches, and ``left_compact_rows``' two engines timed in turns
+   on its substring), ``qstr_bench`` (2^14 rows, seeds 17-20),
+   ``qstr_dirty`` (every 20th document dirty: exactly those rows
+   flagged, one scan-machine run a 65 536-row chunk, every row against
+   the recipe and a 4096-row sample against ``tests/json_oracle.py``;
+   the scan machine's ms and launches), ``qstr_groupby`` (groups and
+   counts against a ``Counter``, exactly one K2 build, its key words;
+   K2 at that shape against its plain version) and ``casts``
+   (``string_to_float`` f64/f32, ``float_to_string``,
+   ``string_to_integer``, ``string_to_decimal`` at 2^20 rows, bit for
+   bit against the port's CPU result, and ``float_to_string`` against
+   Java's ``Double.toString`` on a 4096-row sample).
 
 It then prints one ``kernels`` line and, last, ``{"ok": true, "device":
 ...}``.  Any mismatch or exception exits nonzero without that line, as
@@ -2590,6 +2605,432 @@ def phase_stream_zone():
 
 
 
+# ---------------------------------------------------------------------------
+# the Spark-exact string path (BASELINE.md config #4, qstr)
+# ---------------------------------------------------------------------------
+
+QSTR_ROWS = 1 << 20          # a Spark batch (the benchmark's 2^14 below)
+QSTR_BENCH_ROWS = 1 << 14    # bench.py's qstr_string_heavy rows
+QSTR_BENCH_SEEDS = 4         # seeds 17 + k, as bench.py draws them
+QSTR_DIRTY_EVERY = 20        # qstr_dirty: every 20th document dirty
+QSTR_SAMPLE_ROWS = 4096      # rows held against tests/json_oracle.py
+CAST_ROWS = 1 << 20
+CAST_SAMPLE_ROWS = 4096
+
+
+def json_oracle():
+    """``tests/json_oracle.py``: the pure-Python model of Spark's
+    ``get_json_object`` and Java's ``Double.toString``."""
+    import importlib
+    import os
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module("json_oracle")
+
+
+def cuda_profile(fn):
+    """One call of ``fn`` under ``torch.profiler``: the CUDA kernels it
+    launched and their summed device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches, dev_us = 0, 0.0
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            launches += e.count
+            dev_us += us
+    return launches, dev_us / 1e3
+
+
+def host_syncs():
+    """The string path's host reads so far (fast engine branches, the
+    flagged count) and its scan-machine runs."""
+    from spark_rapids_jni_tpu_torch.ops import get_json_object as GJ
+    from spark_rapids_jni_tpu_torch.ops import json_fast as JF
+
+    return {**GJ.HOST_SYNCS, **JF.HOST_SYNCS}
+
+
+def reset_host_syncs():
+    from spark_rapids_jni_tpu_torch.ops import get_json_object as GJ
+    from spark_rapids_jni_tpu_torch.ops import json_fast as JF
+
+    for d in (GJ.HOST_SYNCS, JF.HOST_SYNCS):
+        for k in d:
+            d[k] = 0
+
+
+def qstr_expected(n, seed=17):
+    """Host oracle of qstr: each document's ``json.loads(doc)["owner"]``
+    characters [3, 11) and the hit count (an 'a' then a digit)."""
+    import json
+    import re
+
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
+    tails = [json.loads(d)["owner"][3:11] for d in PL.qstr_docs(n, seed)]
+    hits = sum(1 for t in tails if re.search("a[0-9]", t))
+    return tails, hits
+
+
+def same_tails(tails, want, label):
+    """``tails`` equal to the host strings byte for byte: every row valid,
+    the lengths, the bytes, and zeros past each length."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
+    wc, wl = PL.ascii_arrays(want)
+    w = wc.shape[1]
+    chars = tails.chars.cpu()
+    check(bool(tails.validity.all()), f"{label}: null tails")
+    check(np.array_equal(tails.lengths.cpu().numpy(), wl),
+          f"{label}: tail lengths differ from the host oracle")
+    check(np.array_equal(chars[:, :w].numpy(), wc)
+          and not bool(chars[:, w:].any()),
+          f"{label}: tail bytes differ from the host oracle")
+
+
+def flagged_rows(batch):
+    """Rows of ``batch`` the fast JSON engine hands to the scan machine."""
+    from spark_rapids_jni_tpu_torch.ops import json_fast as JF
+
+    doc = batch["doc"]
+    return int(JF.fast_path(doc.chars, doc.lengths, doc.validity,
+                            (("named", b"owner"),), 6 * doc.max_len + 20
+                            )[3].sum())
+
+
+def phase_qstr():
+    """qstr at 2^20 rows: ``tails`` byte for byte and ``n_hits`` against
+    the host oracle, the step's time and launches, and
+    ``left_compact_rows``'s scatter and sort engines timed in turns on
+    qstr's substring (the winner is ``strings.AUTO_ON_CUDA``)."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.ops import strings as STR
+    from spark_rapids_jni_tpu_torch.ops.get_json_object import \
+        get_json_object
+    from spark_rapids_jni_tpu_torch.ops.regex_rewrite import \
+        literal_range_pattern
+
+    n = QSTR_ROWS
+    t0 = time.perf_counter()
+    batch = PL.qstr_batch(n)
+    setup_s = time.perf_counter() - t0
+    want, want_hits = qstr_expected(n)
+    reset_host_syncs()
+    (tails, n_hits), counts, first_s = driven(PL.qstr_step, batch)
+    syncs = host_syncs()
+    check_counts("qstr", counts, (), no_kernels())
+    same_tails(tails, want, "qstr")
+    check(int(n_hits) == want_hits,
+          f"qstr: n_hits {int(n_hits)}, oracle {want_hits}")
+    flagged = flagged_rows(batch)
+    check(flagged == 0, f"qstr: the fast engine flagged {flagged} rows")
+    check(syncs["scan_runs"] == 0, "qstr: the scan machine ran")
+    ms = time_ms(lambda: PL.qstr_step(batch), reps=3, warmup=0)
+    launches, dev_ms = cuda_profile(lambda: PL.qstr_step(batch))
+    owners = get_json_object(batch["doc"], "$.owner")
+    sub = {e: lambda e=e: STR.substring(owners, PL.QSTR_SUB_POS,
+                                        PL.QSTR_SUB_LEN, engine=e)
+           for e in ("scatter", "sort")}
+    a, b = sub["scatter"](), sub["sort"]()
+    check(torch.equal(a.chars, b.chars) and torch.equal(a.lengths,
+                                                        b.lengths),
+          "qstr: the scatter and sort compactions differ")
+    eng = paired_ms(sub)
+    stages = {"get_json_object_ms": time_ms(
+        lambda: get_json_object(batch["doc"], "$.owner"), reps=3),
+        "substring_ms": time_ms(lambda: STR.substring(
+            owners, PL.QSTR_SUB_POS, PL.QSTR_SUB_LEN), reps=3),
+        "literal_range_ms": time_ms(lambda: literal_range_pattern(
+            a, "a", 1, ord("0"), ord("9")), reps=3)}
+    faster = min(eng, key=eng.get)
+    emit({"phase": "qstr", "rows": n, "width": batch["doc"].max_len,
+          "max_out": owners.max_len, "launches": counts,
+          "first_run_s": first_s, "setup_s": setup_s, "ms": ms,
+          "mrows_per_s": n / (ms * 1e-3) / 1e6,
+          "cuda_launches_per_step": launches, "device_ms_per_step": dev_ms,
+          "host_syncs_per_step": syncs["n_flagged"] + syncs["fast_path"],
+          "host_syncs": syncs, "flagged_rows": flagged, "n_hits":
+          int(n_hits), "stages": stages, "compaction_ms": eng,
+          "faster_compaction": faster, "auto_on_cuda": STR.AUTO_ON_CUDA})
+    return counts
+
+
+def phase_qstr_bench():
+    """qstr at bench.py's 2^14 rows, seeds 17 + k: each run against the
+    host oracle, then timed."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
+    n = QSTR_BENCH_ROWS
+    total = no_kernels()
+    per_seed = []
+    for k in range(QSTR_BENCH_SEEDS):
+        batch = PL.qstr_batch(n, seed=17 + k)
+        want, want_hits = qstr_expected(n, seed=17 + k)
+        (tails, n_hits), counts, _ = driven(PL.qstr_step, batch)
+        check_counts("qstr_bench", counts, (), no_kernels())
+        same_tails(tails, want, f"qstr_bench seed {17 + k}")
+        check(int(n_hits) == want_hits, f"qstr_bench seed {17 + k}: n_hits")
+        per_seed.append(time_ms(lambda: PL.qstr_step(batch), reps=3))
+        for key in total:
+            total[key] += counts[key]
+    ms = float(np.mean(per_seed))
+    emit({"phase": "qstr_bench", "rows": n, "seeds": QSTR_BENCH_SEEDS,
+          "launches": total, "ms": ms, "ms_by_seed": per_seed,
+          "mrows_per_s": n / (ms * 1e-3) / 1e6})
+    return total
+
+
+def phase_qstr_dirty():
+    """qstr at 2^20 rows with every 20th document dirty (an escaped owner
+    or a single-quoted key, alternately): the fast engine flags them, the
+    compact fallback runs the scan machine over ceil(n / 16)-row
+    sub-batches; every row against the recipe's owner, and a 4096-row
+    sample (dirty rows included) against ``tests/json_oracle.py``."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.ops import get_json_object as GJ
+
+    n = QSTR_ROWS
+    docs = PL.qstr_docs(n, dirty_every=QSTR_DIRTY_EVERY)
+    ones = np.ones((n,), np.bool_)
+    from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+
+    batch = batch_from_numpy({"doc": (PL.ascii_arrays(docs, 32), ones,
+                                      "string")})
+    want = [("amya%d" % (i % 1000))[3:11] for i in range(n)]
+    reset_host_syncs()
+    (tails, n_hits), counts, first_s = driven(PL.qstr_step, batch)
+    syncs = host_syncs()
+    check_counts("qstr_dirty", counts, (), no_kernels())
+    same_tails(tails, want, "qstr_dirty")
+    check(int(n_hits) == n, f"qstr_dirty: n_hits {int(n_hits)} of {n}")
+    flagged = flagged_rows(batch)
+    ndirty = n // QSTR_DIRTY_EVERY
+    check(flagged == ndirty,
+          f"qstr_dirty: {flagged} flagged rows, {ndirty} dirty documents")
+    cap = -(-n // int(config.get("json_fallback_div")))
+    iters = -(-flagged // cap)
+    check(syncs["scan_runs"] == iters,
+          f"qstr_dirty: {syncs['scan_runs']} scan-machine runs, expected "
+          f"{iters}")
+    # the sample: every 4th row of the first 16384, dirty rows included
+    oracle = json_oracle()
+    rows = list(range(0, 4 * QSTR_SAMPLE_ROWS, 4)) + list(
+        range(QSTR_DIRTY_EVERY - 1, 4 * QSTR_SAMPLE_ROWS, 2 * QSTR_DIRTY_EVERY))
+    rows = sorted(set(rows))[:QSTR_SAMPLE_ROWS]
+    idx = torch.tensor(rows, device=tails.chars.device)
+    owners = GJ.get_json_object(batch["doc"], "$.owner")
+    got = type(owners)(owners.chars[idx], owners.lengths[idx],
+                       owners.validity[idx]).to_pylist()
+    bad = [r for r, g in zip(rows, got)
+           if g != oracle.get_json_object(docs[r], "$.owner")]
+    check(not bad, f"qstr_dirty: {len(bad)} sample rows differ from "
+          f"json_oracle, e.g. row {bad[:1]}")
+    ms = time_ms(lambda: PL.qstr_step(batch), reps=3, warmup=0)
+    # the scan machine alone, at the fallback's sub-batch shape
+    doc = batch["doc"]
+    sub = torch.arange(QSTR_DIRTY_EVERY - 1, n, QSTR_DIRTY_EVERY,
+                       device=doc.chars.device)[:cap]
+    sub = torch.cat([sub, sub.new_full((cap - sub.numel(),), n - 1)])
+    args = (doc.chars[sub], doc.lengths[sub], doc.validity[sub],
+            (("named", b"owner"),), owners.max_len)
+    scan_ms = time_ms(lambda: GJ._run(*args), reps=2)
+    scan_launches, scan_dev_ms = cuda_profile(lambda: GJ._run(*args))
+    launches, dev_ms = cuda_profile(lambda: PL.qstr_step(batch))
+    emit({"phase": "qstr_dirty", "rows": n, "dirty_every":
+          QSTR_DIRTY_EVERY, "launches": counts, "first_run_s": first_s,
+          "ms": ms, "mrows_per_s": n / (ms * 1e-3) / 1e6,
+          "flagged_rows": flagged, "fallback_rows_per_run": cap,
+          "loop_iterations": iters, "host_syncs": syncs,
+          "scan_machine_ms": scan_ms, "scan_machine_launches":
+          scan_launches, "scan_machine_device_ms": scan_dev_ms,
+          "scan_steps": doc.max_len + 1,
+          "cuda_launches_per_step": launches, "device_ms_per_step": dev_ms,
+          "sample_rows": len(rows)})
+    return counts
+
+
+def phase_qstr_groupby(cases):
+    """``qstr_groupby_step`` at 2^20 rows: groups and counts against a
+    ``collections.Counter`` of the host oracle's tails, exactly one K2
+    build (its key words recorded), then timed; K2 at that shape against
+    its plain version."""
+    import collections
+
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.plan import adaptive as AD
+    from spark_rapids_jni_tpu_torch.relational import aggregate as AGG
+    from spark_rapids_jni_tpu_torch.relational import keys as RK
+
+    n = QSTR_ROWS
+    batch = PL.qstr_batch(n)
+    want, want_hits = qstr_expected(n)
+    (out, counts, first_s), widths = watch_build_words(
+        lambda: driven(PL.qstr_groupby_step, batch))
+    res, ng, n_hits = out
+    check_counts("qstr_groupby", counts, ("slot_table_build",),
+                 {"slot_table_build": 1, "slot_table_records": 0,
+                  "slot_table_probe": 0, "onehot_groupby": 0})
+    got = PL.result_groups(res, ng, "tails")
+    cnt = collections.Counter(want)
+    check(sorted(got) == sorted(cnt), "qstr_groupby: groups differ")
+    check(all(got[k]["n"] == c and got[k]["hits"] == c
+              for k, c in cnt.items() if k in got),
+          "qstr_groupby: counts differ from the Counter oracle")
+    check(int(n_hits) == want_hits, "qstr_groupby: n_hits")
+    ms = time_ms(lambda: PL.qstr_groupby_step(batch), reps=3)
+    emit({"phase": "qstr_groupby", "rows": n, "groups": int(ng),
+          "launches": counts, "build_key_words": widths,
+          "first_run_s": first_s, "ms": ms,
+          "mrows_per_s": n / (ms * 1e-3) / 1e6})
+    tails, hits = PL._qstr_tails(batch)
+    gb = PL.qstr_group_batch(tails, hits)
+    words = RK.batch_radix_keys(AGG._canon_keys([gb["tails"]]),
+                                equality=True, nulls_first=True)
+    live = torch.ones((n,), dtype=torch.bool, device=tails.chars.device)
+    kernel_case(cases, "slot_table_build", "groupby_qstr_tails", k2_case,
+                "groupby_qstr_tails", words, live, 4096,
+                AD.bound_build_rounds(n, 4096))
+    return counts
+
+
+def cast_inputs(n, seed=41):
+    """Host inputs of the cast phase: doubles (random bit patterns, random
+    magnitudes and the edge values: subnormals, +-0, NaN, +-Inf,
+    2^53 +- 1, powers of ten) and strings (their ``repr``, integers,
+    decimals, overlong digit runs, whitespace, junk)."""
+    rng = np.random.default_rng(seed)
+    edges = [0.0, -0.0, float("nan"), float("inf"), float("-inf"), 5e-324,
+             -5e-324, 2.2250738585072014e-308, 2.225073858507201e-308,
+             float(2**53 - 1), float(2**53 + 1), float(2**53), 1e7, 1e-3,
+             9.999999999999999e22, 1e23, 1.7976931348623157e308, 0.1, 1e21,
+             1e-7, 123456.789] + [10.0 ** k for k in range(-20, 23)]
+    q = n // 4
+    bits = rng.integers(0, 2**63, q, dtype=np.int64)
+    bits = np.where(rng.random(q) < 0.5, bits, bits | np.int64(-2**63))
+    mags = rng.random(n - q - len(edges)) * 10.0 ** rng.integers(
+        -30, 30, n - q - len(edges))
+    doubles = np.concatenate([np.asarray(edges), bits.view(np.float64),
+                              mags])
+    pool = ["  12 ", "-9223372036854775808", "9223372036854775808", "20.5",
+            "7.8.3", ".", "+5", "1e5", "1e", " nan", "-nan", "Infinity",
+            "-inf", "1f", "0f", "1e-320", "4.9e-324", "1e309",
+            "123456789012345678901234567890", "0.000000000000000000000123",
+            "\t-7.25\n", "abc", "", "   ", "99999999.99", "-0.5", "9.23"]
+    k = rng.integers(0, 5, n)
+    strs = []
+    for i, (d, kk) in enumerate(zip(doubles.tolist(), k.tolist())):
+        if kk == 0:
+            strs.append(pool[i % len(pool)])
+        elif kk == 1:
+            strs.append(str(int(rng.integers(-10**12, 10**12))))
+        elif kk == 2:
+            strs.append("%.2f" % (d % 1e6) if d == d and abs(d) < 1e300
+                        else "1.5")
+        else:
+            strs.append(repr(d))
+    return doubles, strs
+
+
+def run_casts(doubles, strings):
+    """The four casts over one batch: a dict of result tensors."""
+    from spark_rapids_jni_tpu_torch.columnar import types as TT
+    from spark_rapids_jni_tpu_torch.ops import cast_string as CS
+    from spark_rapids_jni_tpu_torch.ops import float_to_string as FS
+
+    f2s = FS.float_to_string(doubles)
+    s2f = CS.string_to_float(strings, TT.FLOAT64)
+    s2f32 = CS.string_to_float(strings, TT.FLOAT32)
+    s2i = CS.string_to_integer(strings, TT.INT64)
+    s2d = CS.string_to_decimal(strings, 18, -4)
+    return {"float_to_string": (f2s.chars, f2s.lengths, f2s.validity),
+            "string_to_float": (s2f.data.view(torch.int64), s2f.validity),
+            "string_to_float32": (s2f32.data.view(torch.int32),
+                                  s2f32.validity),
+            "string_to_integer": (s2i.data, s2i.validity),
+            "string_to_decimal": (s2d.limbs, s2d.validity)}
+
+
+def cast_columns(doubles, strs, device):
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.columnar import types as TT
+    from spark_rapids_jni_tpu_torch.columnar.column import (Column,
+                                                            StringColumn)
+
+    chars, lengths = PL.ascii_arrays(strs)
+    n = len(strs)
+    ones = torch.ones((n,), dtype=torch.bool)
+    d = Column(torch.from_numpy(doubles).to(device), ones.to(device),
+               TT.FLOAT64)
+    s = StringColumn(torch.from_numpy(chars).to(device),
+                     torch.from_numpy(lengths).to(device), ones.to(device))
+    return d, s
+
+
+def phase_casts():
+    """``string_to_float`` (f64, f32), ``float_to_string``,
+    ``string_to_integer`` and ``string_to_decimal`` at 2^20 rows: every
+    row bit-identical to the port's CPU result, and ``float_to_string``
+    equal to ``json_oracle.java_double_to_string`` on a 4096-row
+    sample."""
+    from spark_rapids_jni_tpu_torch.columnar import types as TT
+    from spark_rapids_jni_tpu_torch.columnar.column import Column
+    from spark_rapids_jni_tpu_torch.ops import cast_string as CS
+    from spark_rapids_jni_tpu_torch.ops import float_to_string as FS
+
+    from spark_rapids_jni_tpu_torch.columnar.column import resolve_device
+
+    n = CAST_ROWS
+    doubles, strs = cast_inputs(n)
+    d, s = cast_columns(doubles, strs, resolve_device(None))
+    out, counts, first_s = driven(run_casts, d, s)
+    check_counts("casts", counts, (), no_kernels())
+    cd, cs = cast_columns(doubles, strs, "cpu")
+    t0 = time.perf_counter()
+    cpu = run_casts(cd, cs)
+    cpu_s = time.perf_counter() - t0
+    for name, tensors in out.items():
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(tensors,
+                                                          cpu[name])),
+              f"casts: {name} on the card differs from the CPU result")
+    oracle = json_oracle()
+    step = n // CAST_SAMPLE_ROWS
+    idx = list(range(0, n, step))[:CAST_SAMPLE_ROWS]
+    sample = Column(torch.from_numpy(doubles[idx]).to(d.device),
+                    torch.ones((len(idx),), dtype=torch.bool,
+                               device=d.device), TT.FLOAT64)
+    got = FS.float_to_string(sample).to_pylist()
+    bad = [i for i, g in zip(idx, got)
+           if g != oracle.java_double_to_string(float(doubles[i]))]
+    check(not bad, f"casts: float_to_string differs from Java's "
+          f"Double.toString at {len(bad)} sample rows, e.g. {bad[:1]}")
+    ms = {"float_to_string": time_ms(lambda: FS.float_to_string(d), reps=3),
+          "string_to_float": time_ms(
+              lambda: CS.string_to_float(s, TT.FLOAT64), reps=3),
+          "string_to_integer": time_ms(
+              lambda: CS.string_to_integer(s, TT.INT64), reps=3),
+          "string_to_decimal": time_ms(
+              lambda: CS.string_to_decimal(s, 18, -4), reps=3)}
+    emit({"phase": "casts", "rows": n, "width": s.max_len,
+          "launches": counts, "first_run_s": first_s, "ms_by_op": ms,
+          "ms": sum(ms.values()), "cpu_check_s": cpu_s,
+          "valid_rows": {k: int(v[-1].sum()) for k, v in cpu.items()},
+          "sample_rows": len(idx)})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an "
@@ -2787,6 +3228,13 @@ def main() -> int:
     breadth("packed_filter", phase_packed_filter, fact)
     breadth("exchange_pack", phase_exchange_pack)
     breadth("stream_zone", phase_stream_zone)
+
+    # the Spark-exact string path (qstr, BASELINE.md config #4)
+    breadth("qstr", phase_qstr)
+    breadth("qstr_bench", phase_qstr_bench)
+    breadth("qstr_dirty", phase_qstr_dirty)
+    breadth("qstr_groupby", phase_qstr_groupby, cases)
+    breadth("casts", phase_casts)
 
     # multi-GPU: the dry run, q95 over 8 shards, NCCL ranks
     breadth("multichip_dryrun", phase_multichip_dryrun)

@@ -146,6 +146,28 @@ _register("shuffle_scatter_engine", "auto", str,
           "partition_scatter.cu; its plain version on CPU tensors) or "
           "'auto' (= 'kernel').")
 
+_register("json_max_out", 0, int,
+          "get_json_object output width cap (0 = provable 6*L+20 bound).")
+_register("json_fast_path", True, _parse_bool,
+          "Route wildcard-free get_json_object paths through the "
+          "bit-parallel fast engine (ops/json_fast.py): data-parallel "
+          "passes over the char matrix instead of one scan-machine step "
+          "per char column; rows it cannot prove it handles fall back to "
+          "the scan machine.")
+_register("json_fallback_div", 16, int,
+          "Per-row fallback compaction capacity for the JSON hybrid: "
+          "flagged rows are gathered into chunks of ceil(n/div) rows and "
+          "only those chunks run the scan machine (a host loop of "
+          "ceil(n_flagged / chunk) iterations after one read of the "
+          "flagged count; clean batches run none).  div=1 degenerates to "
+          "whole-batch chunks; 0 disables compaction (any flagged row "
+          "routes the whole batch through the scan machine).")
+_register("json_scan_unroll", 2, int,
+          "Chars per iteration of the reference's JSON scan (lax.scan "
+          "unroll).  Accepted with the reference's name and default; the "
+          "port's scan is a host loop over the char columns, so the value "
+          "changes nothing.")
+
 
 def knob_fingerprint() -> tuple:
     """Every registered knob's resolved value, by key: a flip of any knob

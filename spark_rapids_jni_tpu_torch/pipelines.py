@@ -34,6 +34,11 @@ Counterparts of the single-chip steps in the reference's
   running sum over sales descending, 1000 partitions), then a top-100
   ``apply_mask``.
 
+* :func:`qstr_step` (``_qstr_step``, BASELINE.md config #4, string/regex
+  heavy): ``get_json_object`` -> ``substring`` -> the literal-range
+  pattern -> a sum; :func:`qstr_groupby_step` groups its ``tails`` by
+  the general ``group_by`` (one slot-table build over the key words).
+
 q9 exists only as IR (:func:`plan.queries.q9_plan`); :func:`q9_oracle`
 is its numpy oracle.
 
@@ -535,6 +540,114 @@ def result_groups(res: ColumnBatch, ng, key: str) -> dict:
                    for name, (d, v) in cols.items() if name != key}
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# qstr: the string/regex-heavy flagship (BASELINE.md config #4)
+# ---------------------------------------------------------------------------
+
+QSTR_DOC = '{"store":{"basket":[%d,%d]},"owner":"%s"}'
+QSTR_DIRTY_KINDS = ("escape", "single_quote")
+QSTR_SUB_POS, QSTR_SUB_LEN = 4, 8   # substring(owners, 4, 8)
+
+
+def qstr_docs(n_rows: int, seed: int = 17, dirty_every: int = 0) -> list:
+    """The reference's qstr documents (``_qstr_batch``: the same draws in
+    the same order), ``owner`` = ``amya<i mod 1000>``.  ``dirty_every=k``
+    rewrites every k-th document (rows k-1, 2k-1, ...) into one the fast
+    JSON engine cannot take, alternating two kinds with the same owner:
+    the owner's ``y`` written as the escape ``\\u0079``, or the key
+    ``'owner'`` single-quoted."""
+    rng = np.random.default_rng(seed)
+    basket = rng.integers(1, 99, 2 * n_rows).reshape(n_rows, 2)
+    docs = [QSTR_DOC % (a, b, "amya%d" % (i % 1000))
+            for i, (a, b) in enumerate(basket.tolist())]
+    if dirty_every > 0:
+        for k, i in enumerate(range(dirty_every - 1, n_rows, dirty_every)):
+            a, b = basket[i].tolist()
+            if QSTR_DIRTY_KINDS[k % 2] == "escape":
+                docs[i] = QSTR_DOC % (a, b, "am\\u0079a%d" % (i % 1000))
+            else:
+                docs[i] = (QSTR_DOC % (a, b, "amya%d" % (i % 1000))
+                           ).replace('"owner"', "'owner'")
+    return docs
+
+
+def ascii_arrays(docs: list, pad_to_multiple: int = 1):
+    """Host ``(chars uint8[n, W], lengths int32[n])`` of ASCII strings,
+    ``W`` the longest rounded up to ``pad_to_multiple`` (the bytes
+    :meth:`StringColumn.from_pylist` gives), filled a column at a time."""
+    lengths = np.fromiter(map(len, docs), dtype=np.int32, count=len(docs))
+    blob = np.frombuffer("".join(docs).encode("ascii"), dtype=np.uint8)
+    width = max(int(lengths.max(initial=0)), 1)
+    width = -(-width // pad_to_multiple) * pad_to_multiple
+    starts = np.concatenate([[0], np.cumsum(lengths[:-1], dtype=np.int64)])
+    chars = np.zeros((len(docs), width), dtype=np.uint8)
+    for k in range(width):
+        rows = np.nonzero(lengths > k)[0]
+        chars[rows, k] = blob[starts[rows] + k]
+    return chars, lengths
+
+
+def qstr_batch(n_rows: int, seed: int = 17, device=None) -> ColumnBatch:
+    """``{"doc": ...}`` of :func:`qstr_docs`, padded to a multiple of 32
+    bytes as the reference pads it (64 bytes a row)."""
+    docs = qstr_docs(n_rows, seed)
+    ones = np.ones((n_rows,), np.bool_)
+    return batch_from_numpy(
+        {"doc": (ascii_arrays(docs, pad_to_multiple=32), ones, "string")},
+        device)
+
+
+def _qstr_tails(batch: ColumnBatch):
+    """``(tails, hits)``: the owners' characters [3, 11) and the
+    literal-range pattern over them."""
+    from .ops.get_json_object import get_json_object
+    from .ops.regex_rewrite import literal_range_pattern
+    from .ops.strings import substring
+
+    owners = get_json_object(batch["doc"], "$.owner")
+    tails = substring(owners, QSTR_SUB_POS, QSTR_SUB_LEN)
+    return tails, literal_range_pattern(tails, "a", 1, ord("0"), ord("9"))
+
+
+def _hit_count(hits: Column) -> torch.Tensor:
+    return torch.where(hits.validity, hits.data,
+                       torch.zeros_like(hits.data)).sum()
+
+
+def qstr_step(batch: ColumnBatch):
+    """``get_json_object(doc, '$.owner')`` -> ``substring(., 4, 8)`` ->
+    ``literal_range_pattern(., 'a', 1, '0', '9')`` -> the hit count.
+    Returns ``(tails, n_hits)``; ``tails`` keeps the owners' width (the
+    JSON output's ``max_out``)."""
+    tails, hits = _qstr_tails(batch)
+    return tails, _hit_count(hits)
+
+
+QSTR_GROUP_AGGS = (AggSpec("count", None, "n"), AggSpec("sum", "hit", "hits"))
+
+
+def qstr_group_batch(tails: StringColumn, hit: Column) -> ColumnBatch:
+    """The group-by's input: ``tails`` narrowed to the substring's byte
+    bound (4 UTF-8 bytes a char, so no byte is cut) and the per-row hit
+    as int64.  At the JSON output's width the key would lower to
+    ``max_out / 4 + 2`` words, past the slot-table kernel's 32."""
+    width = min(tails.max_len, 4 * QSTR_SUB_LEN)
+    key = StringColumn(tails.chars[:, :width].contiguous(), tails.lengths,
+                       tails.validity)
+    hits = Column(hit.data.to(torch.int64), hit.validity, T.INT64)
+    return ColumnBatch({"tails": key, "hit": hits})
+
+
+def qstr_groupby_step(batch: ColumnBatch):
+    """``qstr_step``, then ``group_by(tails)`` with ``count(*)`` and the
+    hit count, on the ``groupby_engine`` knob (the slot-table build
+    kernel by default).  Returns ``(result, num_groups, n_hits)``."""
+    tails, hits = _qstr_tails(batch)
+    res, ng = group_by(qstr_group_batch(tails, hits), ["tails"],
+                       list(QSTR_GROUP_AGGS))
+    return res, ng, _hit_count(hits)
 
 
 # ---------------------------------------------------------------------------

@@ -80,3 +80,49 @@ class TestBucketing:
         widened = b.apply(lambda s: s)
         assert isinstance(widened, BucketedStringColumn)
         assert isinstance(widened.merge(), StringColumn)
+
+
+class TestBucketedJson:
+    """The reference's ``TestBucketedJson`` cases on the port: a bucketed
+    input evaluates per bucket and returns a bucketed result equal to the
+    flat column's (``get_json_object`` also against the JSON oracle;
+    ``substring`` also against the JAX package's flat result)."""
+
+    def test_get_json_object_parity_with_flat(self):
+        import json_oracle
+
+        from spark_rapids_jni_tpu_torch.ops.get_json_object import \
+            get_json_object
+
+        docs = (['{"owner":"amy%d","id":%d}' % (i, i) for i in range(40)]
+                + ['{"pad":"%s","owner":"big"}' % ("p" * 600)]  # outlier
+                + [None, "not json", '{"owner": null}'])
+        flat = StringColumn.from_pylist(docs, pad_to_multiple=32,
+                                        device="cpu")
+        want = get_json_object(flat, "$.owner").to_pylist()
+        assert want == [json_oracle.get_json_object(d, "$.owner")
+                        for d in docs]
+        b = BucketedStringColumn.from_pylist(docs, device="cpu")
+        got = get_json_object(b, "$.owner")
+        assert isinstance(got, BucketedStringColumn)
+        assert got.to_pylist() == want
+        assert got.merge().to_pylist() == want
+
+    def test_substring_parity(self):
+        from spark_rapids_jni_tpu.ops.strings import substring as jsubstring
+
+        from spark_rapids_jni_tpu_torch.ops.strings import substring
+
+        uris = ([f"https://h{i}.example.com:80/p{i}?q={i}#f"
+                 for i in range(30)]
+                + ["https://long.example.com/" + "seg/" * 200, None,
+                   "not a uri"])
+        want = jsubstring(JString.from_pylist(uris, pad_to_multiple=16),
+                          9, 12).to_pylist()
+        flat = StringColumn.from_pylist(uris, pad_to_multiple=16,
+                                        device="cpu")
+        assert substring(flat, 9, 12).to_pylist() == want
+        b = BucketedStringColumn.from_pylist(uris, device="cpu")
+        got = substring(b, 9, 12)
+        assert isinstance(got, BucketedStringColumn)
+        assert got.to_pylist() == want

@@ -657,3 +657,101 @@ def test_slot_table_build_over_a_canon_word_matches_plain(dev, n, card):
     got = KER.slot_table_build(words, live, S)
     assert KER.launches["slot_table_build"] == 1
     _same(got, KER.slot_table_build_plain(words, live, S, S))
+
+
+# ---------------------------------------------------------------------------
+# the string path (ops/get_json_object, json_fast, strings, regex_rewrite,
+# cast_string, float_to_string): plain torch, no kernel of its own, so on
+# CUDA tensors it must give the CPU's bytes exactly
+# ---------------------------------------------------------------------------
+
+_JSON_DOCS = [
+    '{"owner":"amya1","a":[1,2.5,{"b":-0}],"c":"x\\ny"}', "{'owner': 'q'}",
+    '{"owner": null}', '{"a\\u0062c": 1, "owner":"\\u0079o"}',
+    '[1, [2, 3], {"a": 1e400}]', '{"owner": 1.50e-3}', "not json", None,
+    '{"a": {"b": [true, false, null]}}', '{"owner": "\\t\\"q\\""}',
+    '{"a":[{"b":1},{"b":2.0}]}', '  {"owner" : [ 1 , 2 ] }  ',
+    '{"owner": -0}', '{"a": [[1,2],[3,4]]}', '{"owner":"é"}']
+
+
+def _string_cols(values, dev, pad=16):
+    from spark_rapids_jni_tpu_torch.columnar.column import StringColumn
+
+    return (StringColumn.from_pylist(values, pad_to_multiple=pad,
+                                     device="cpu"),
+            StringColumn.from_pylist(values, pad_to_multiple=pad,
+                                     device=dev))
+
+
+def _same_strings(a, b):
+    assert torch.equal(a.chars.cpu(), b.chars)
+    assert torch.equal(a.lengths.cpu(), b.lengths)
+    assert torch.equal(a.validity.cpu(), b.validity)
+
+
+@pytest.mark.parametrize("path", ["$.owner", "$.a[1]", "$.a[*].b", "$"])
+@pytest.mark.parametrize("div", [-1, 0, 2])
+def test_get_json_object_on_card_equals_cpu(dev, path, div):
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch.ops.get_json_object import \
+        get_json_object
+
+    cpu, card = _string_cols(_JSON_DOCS * 3, dev)
+    config.set("json_fast_path", div >= 0)
+    config.set("json_fallback_div", max(div, 0))
+    try:
+        _same_strings(get_json_object(card, path),
+                      get_json_object(cpu, path))
+    finally:
+        config.reset("json_fast_path")
+        config.reset("json_fallback_div")
+
+
+@pytest.mark.parametrize("engine", ["scatter", "sort"])
+def test_substring_and_pattern_on_card_equal_cpu(dev, engine):
+    from spark_rapids_jni_tpu_torch.ops.regex_rewrite import \
+        literal_range_pattern
+    from spark_rapids_jni_tpu_torch.ops.strings import substring
+
+    vals = ["amya12", "été-a9", "", None, "a", "xa0ya", "b" * 40]
+    cpu, card = _string_cols(vals * 5, dev)
+    for pos, ln in ((4, 8), (-3, 2), (0, 5), (2, -1)):
+        _same_strings(substring(card, pos, ln, engine),
+                      substring(cpu, pos, ln, engine))
+    a = literal_range_pattern(card, "a", 1, ord("0"), ord("9"))
+    b = literal_range_pattern(cpu, "a", 1, ord("0"), ord("9"))
+    assert torch.equal(a.data.cpu(), b.data)
+    assert torch.equal(a.validity.cpu(), b.validity)
+
+
+def test_casts_on_card_equal_cpu(dev):
+    from spark_rapids_jni_tpu_torch.ops import cast_string as CS
+    from spark_rapids_jni_tpu_torch.ops import float_to_string as FS
+
+    rng = np.random.default_rng(5)
+    bits = rng.integers(0, 2**63, 4096, dtype=np.int64)
+    d = np.concatenate([[0.0, -0.0, np.nan, np.inf, -np.inf, 5e-324,
+                         2.0**53 + 1, 1e23], bits.view(np.float64)])
+    strs = [repr(x) for x in d[:2048].tolist()] + [
+        " 12 ", "-9223372036854775808", "1e-320", "1f", "0f", ".", "7.8.3",
+        "123456789012345678901234567890", "nan", "-Infinity", "9.23", None]
+    cpu, card = _string_cols(strs, dev, pad=1)
+    for dtype in (TT.FLOAT64, TT.FLOAT32):
+        a, b = CS.string_to_float(card, dtype), CS.string_to_float(cpu, dtype)
+        assert torch.equal(a.data.cpu().view(torch.uint8),
+                           b.data.view(torch.uint8))
+        assert torch.equal(a.validity.cpu(), b.validity)
+    for fn in (lambda c: CS.string_to_integer(c, TT.INT64),
+               lambda c: CS.string_to_integer(c, TT.INT8)):
+        a, b = fn(card), fn(cpu)
+        assert torch.equal(a.data.cpu(), b.data)
+        assert torch.equal(a.validity.cpu(), b.validity)
+    a, b = CS.string_to_decimal(card, 18, -4), CS.string_to_decimal(cpu, 18,
+                                                                    -4)
+    assert torch.equal(a.limbs.cpu(), b.limbs)
+    assert torch.equal(a.validity.cpu(), b.validity)
+    for t, arr in ((TT.FLOAT64, d), (TT.FLOAT32, d.astype(np.float32))):
+        ones = torch.ones(arr.shape[0], dtype=torch.bool)
+        x = Column(torch.from_numpy(arr), ones, t)
+        y = Column(torch.from_numpy(arr).to(dev), ones.to(dev), t)
+        _same_strings(FS.float_to_string(y), FS.float_to_string(x))

@@ -64,10 +64,16 @@ two-line summary.  It measures, at the main path's shapes:
   rows: ``pack_bits``/``unpack_bits`` at widths 9 and 12, a dictionary
   decode and ``canon[codes]``.
 
+* the string path (``strings``): the same profile of ``qstr_step`` at
+  2^20 rows and of its pieces (``get_json_object``, ``substring`` on
+  each compaction engine, ``literal_range_pattern``), of the JSON scan
+  machine alone at the compact fallback's 65 536-row sub-batch, and of
+  the four casts at 2^20 rows, each with its top kernels and host ops.
+
 ``--only probe,onehot`` runs only those sections (the names: ``map``,
 ``stream``, ``build``, ``probe``, ``onehot``, ``steps``, ``plan``,
-``breadth``, ``decimal``, ``encoded``; the default runs all but
-``breadth``, ``decimal`` and ``encoded``).  With ``--stream-reps N``
+``breadth``, ``decimal``, ``encoded``, ``strings``; the default runs
+all but ``breadth``, ``decimal``, ``encoded`` and ``strings``).  With ``--stream-reps N``
 it only times N whole streamed exchanges of the 2^24-row fact table (512
 morsels); run it for two trees in turns to compare them.
 """
@@ -593,6 +599,63 @@ def trace_encoded(rows):
     return out
 
 
+def trace_strings(rows=1 << 20):
+    """One profiled call of qstr, its pieces, the scan machine and the
+    casts (the phases ``qstr``, ``qstr_dirty`` and ``casts`` of
+    chip_smoke.py)."""
+    import chip_smoke as C
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.columnar import types as TT
+    from spark_rapids_jni_tpu_torch.columnar.column import resolve_device
+    from spark_rapids_jni_tpu_torch.ops import cast_string as CS
+    from spark_rapids_jni_tpu_torch.ops import float_to_string as FS
+    from spark_rapids_jni_tpu_torch.ops import get_json_object as GJ
+    from spark_rapids_jni_tpu_torch.ops import strings as STR
+    from spark_rapids_jni_tpu_torch.ops.regex_rewrite import \
+        literal_range_pattern
+
+    import torch
+
+    batch = PL.qstr_batch(rows)
+    doc = batch["doc"]
+    owners = GJ.get_json_object(doc, "$.owner")
+    tails = STR.substring(owners, PL.QSTR_SUB_POS, PL.QSTR_SUB_LEN)
+    cap = -(-rows // 16)
+    sub = torch.arange(19, 20 * cap, 20, device=doc.chars.device) % rows
+    scan_args = (doc.chars[sub], doc.lengths[sub], doc.validity[sub],
+                 (("named", b"owner"),), owners.max_len)
+    doubles, strs = C.cast_inputs(rows)
+    d, s = C.cast_columns(doubles, strs, resolve_device(None))
+    steps = {
+        "qstr_step": lambda: PL.qstr_step(batch),
+        "get_json_object": lambda: GJ.get_json_object(doc, "$.owner"),
+        "substring_sort": lambda: STR.substring(
+            owners, PL.QSTR_SUB_POS, PL.QSTR_SUB_LEN, engine="sort"),
+        "substring_scatter": lambda: STR.substring(
+            owners, PL.QSTR_SUB_POS, PL.QSTR_SUB_LEN, engine="scatter"),
+        "literal_range": lambda: literal_range_pattern(
+            tails, "a", 1, ord("0"), ord("9")),
+        "scan_machine_65536": lambda: GJ._run(*scan_args),
+        "float_to_string": lambda: FS.float_to_string(d),
+        "string_to_float": lambda: CS.string_to_float(s, TT.FLOAT64),
+        "string_to_integer": lambda: CS.string_to_integer(s, TT.INT64),
+        "string_to_decimal": lambda: CS.string_to_decimal(s, 18, -4),
+    }
+    out = {}
+    for name, fn in steps.items():
+        fn()  # warm: the allocator fills
+        wall, busy, kern, _ = profile(fn)
+        out[name] = {
+            "wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall,
+            "kernel_launches": sum(c for c, _ in kern.values()),
+            "device_ms_by_kind": kernel_kinds(kern),
+            "top_kernels": dict(sorted(kern.items(),
+                                       key=lambda kv: -kv[1][1])[:8]),
+            "top_host_ops": host_ops(fn, top=6)}
+    return out
+
+
 def limbs_gather(limbs):
     """CUDA-event ms of gathering int64[n, 2] decimal limbs by a
     sequential and a random permutation: torch's row gather against the
@@ -859,6 +922,8 @@ def main() -> int:
         out["decimal"] = trace_decimal(args.rows)
     if "encoded" in only:
         out["encoded"] = trace_encoded(args.rows)
+    if "strings" in only:
+        out["strings"] = trace_strings()
 
     with open(path, "w") as f:
         json.dump(out, f, indent=1, default=str)
