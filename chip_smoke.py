@@ -8,7 +8,32 @@ Phases, each printing one JSON line:
 
 1. device: the card's name and its ``nvidia-smi`` name/power-limit line;
 2. build: compile every CUDA kernel of the port from ``csrc/`` (nvcc,
-   ``sm_90a``, one process per source, all started together);
+   ``sm_90a``, one process per source, all started together), and the
+   memory arena's host library from ``mem/native/resource_adaptor.cpp``
+   (``g++``, its version printed);
+   then the memory arena (``mem/``), while little else is on the card:
+   ``mem_arena`` (the reference's Monte-Carlo recipe on the adaptor as
+   built here: 6 task threads, a 3 MiB pool, 2 MiB a task, seeds 11 and
+   42; every task done, no deadlock, the arena drained; wall ms, retries,
+   splits); ``mem_q6_inject`` (the reference's
+   ``TestPipelineUnderInjectedOOM`` at 2^24 rows: the q6 one-hot step
+   inside ``TaskContext(7)`` charging its batch, one injected RetryOOM,
+   then one injected SplitAndRetryOOM whose retry runs the two halves
+   and merges them; each equal to the oracle, K1 launched 1 then 2 times,
+   the native retry and split metrics moved, the arena at 0);
+   ``mem_q6_oom`` (the q6 hash step, K2, under
+   ``set_per_process_memory_fraction`` set between the whole batch's
+   and one half's peak: the first attempt hits a real
+   ``torch.OutOfMemoryError``, the native protocol sees it, the step
+   re-runs and equals the oracle; the peaks, the limit, the attempts and
+   the ladder's path from the adaptor's transition log); ``mem_tasks``
+   (four task threads, each the q6 hash step on its own 2^24-row batch,
+   seeds 7-10, charging through ``TaskContext`` under ``run_with_retry``
+   with a halving split, on one arena of 2.5 charges: all done within
+   the deadline and equal to their oracles, one task at least blocked,
+   the arena drained, the watchdog joined; each task's retries, splits,
+   block and lost-compute ms and max charge, and the four tasks' wall
+   beside four serial runs);
 3. kernels: each kernel at the shapes the main path gives it, held
    against its plain PyTorch version on the same inputs (ints, owners,
    slot records and slots bit-identical; float sums rel 1e-5 of the sum
@@ -131,6 +156,7 @@ does a machine without CUDA or a directory without the port.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -834,8 +860,15 @@ def driven(fn, *args):
 def check_q6(res, ng, arrays, label):
     from spark_rapids_jni_tpu_torch import pipelines as PL
 
+    return check_q6_groups(PL.result_groups(res, ng, "k"), arrays, label)
+
+
+def check_q6_groups(got, arrays, label):
+    """q6's groups (``result_groups``' form) against the numpy oracle:
+    sums and counts exact, avg(price) rel ``FLOAT_RTOL``."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
     uniq, sums, cnts, avgs = PL.q6_oracle(*arrays)
-    got = PL.result_groups(res, ng, "k")
     check(sorted(got) == uniq.tolist(), f"{label}: groups differ")
     worst = 0.0
     for k, s, c, a in zip(uniq.tolist(), sums, cnts, avgs):
@@ -3031,6 +3064,413 @@ def phase_casts():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the memory arena (mem/): retry/block/split under injected OOMs, a real
+# CUDA OOM and four tasks sharing one oversubscribed arena
+# ---------------------------------------------------------------------------
+
+MEM_FUZZ_SEEDS = (11, 42)   # the reference's Monte-Carlo seeds
+MEM_TASK_SEEDS = (7, 8, 9, 10)  # mem_tasks: one q6 batch per task
+MEM_POOL_TASKS = 2.5        # mem_tasks' pool, in one task's charges
+MEM_DEADLINE_S = 120.0      # the reference's Monte-Carlo deadline
+
+
+def mem_monte_carlo(seed, pool=3 << 20, task_max=2 << 20, n_tasks=6):
+    """The reference's seeded oversubscription fuzz (``tests/
+    test_mem_adaptor.py`` ``TestMonteCarlo``) on the port's adaptor:
+    wall ms, the RetryOOM and SplitAndRetryOOM the tasks caught, the
+    native metrics, and whether every task completed and the arena
+    drained."""
+    import random
+    import threading
+
+    from spark_rapids_jni_tpu_torch.mem import rmm_spark as R
+
+    adaptor = R.SparkResourceAdaptor(pool, poll_ms=10.0)
+    failures, caught = [], {"retry": 0, "split": 0}
+    lock = threading.Lock()
+
+    def bump(kind):
+        with lock:
+            caught[kind] += 1
+
+    def task_fn(task_id):
+        rng = random.Random(seed * 1000 + task_id)
+        adaptor.start_dedicated_task_thread(task_id)
+        held = []
+        try:
+            ops, budget = 0, task_max
+            while ops < 40:
+                want = rng.randrange(1, max(2, budget // 4))
+                try:
+                    adaptor.allocate(want)
+                    held.append(want)
+                    ops += 1
+                    if rng.random() < 0.4 and held:
+                        adaptor.deallocate(held.pop(rng.randrange(len(held))))
+                    if sum(held) > task_max - want:
+                        while held:
+                            adaptor.deallocate(held.pop())
+                except R.SplitAndRetryOOM:
+                    bump("split")
+                    while held:
+                        adaptor.deallocate(held.pop())
+                    budget = max(budget // 2, 4)
+                except R.RetryOOM:
+                    bump("retry")
+                    while held:
+                        adaptor.deallocate(held.pop())
+                    try:
+                        adaptor.block_thread_until_ready()
+                    except R.SplitAndRetryOOM:
+                        bump("split")
+                        budget = max(budget // 2, 4)
+                    except R.RetryOOM:
+                        bump("retry")
+            while held:
+                adaptor.deallocate(held.pop())
+        except BaseException as e:  # noqa: BLE001 - reported by the phase
+            failures.append((task_id, repr(e)))
+        finally:
+            adaptor.task_done(task_id)
+
+    threads = [threading.Thread(target=task_fn, args=(i + 1,), daemon=True)
+               for i in range(n_tasks)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    deadline = time.monotonic() + MEM_DEADLINE_S
+    for th in threads:
+        th.join(timeout=max(0.1, deadline - time.monotonic()))
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    alive = sum(th.is_alive() for th in threads)
+    native = {"num_retry": 0, "num_split_retry": 0}
+    for t in range(1, n_tasks + 1):
+        native["num_retry"] += adaptor.get_and_reset_num_retry(t)
+        native["num_split_retry"] += adaptor.get_and_reset_num_split_retry(t)
+    total = adaptor.total_allocated()
+    adaptor.close()
+    return {"seed": seed, "wall_ms": wall_ms, "retries": caught["retry"],
+            "splits": caught["split"], **native, "alive": alive,
+            "failures": failures, "total_allocated": total,
+            "watchdog_joined": adaptor._h is None}
+
+
+def phase_mem_arena():
+    """The native adaptor as built on this machine: the Monte-Carlo
+    recipe at both seeds; no deadlock, every task done, arena drained."""
+    runs = [mem_monte_carlo(s) for s in MEM_FUZZ_SEEDS]
+    for r in runs:
+        tag = f"mem_arena seed {r['seed']}"
+        check(r["alive"] == 0, f"{tag}: {r['alive']} tasks deadlocked")
+        check(not r["failures"], f"{tag}: {r['failures']}")
+        check(r["total_allocated"] == 0,
+              f"{tag}: {r['total_allocated']} bytes left in the arena")
+        check(r["watchdog_joined"], f"{tag}: the watchdog was not joined")
+    emit({"phase": "mem_arena", "runs": runs})
+
+
+def row_slice(batch, a, b):
+    """Rows ``[a, b)`` of a batch of plain columns, as views."""
+    from spark_rapids_jni_tpu_torch.columnar.column import Column, ColumnBatch
+
+    return ColumnBatch({name: Column(c.data[a:b], c.validity[a:b], c.dtype)
+                        for name, c in zip(batch.names, batch.columns)})
+
+
+def merge_q6_groups(parts):
+    """q6 groups of row slices merged: sums and counts add, the mean is
+    the merged price sum over the merged count."""
+    out = {}
+    for groups in parts:
+        for k, g in groups.items():
+            m = out.setdefault(k, {"sum_v": 0, "cnt": 0, "price": 0.0})
+            m["sum_v"] += g["sum_v"]
+            m["cnt"] += g["cnt"]
+            m["price"] += g["avg_price"] * g["cnt"]
+    return {k: {"sum_v": m["sum_v"], "cnt": m["cnt"],
+                "avg_price": m["price"] / m["cnt"]} for k, m in out.items()}
+
+
+def q6_in_parts(ctx, batch, parts):
+    """The arena's q6 step: ``parts`` equal row slices of ``batch``, each
+    charged to the task (``batch_nbytes``) while its q6 step runs and
+    released in a ``finally``; the slices' groups merged."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
+    n = batch.num_rows // parts
+    groups = []
+    for i in range(parts):
+        part = row_slice(batch, i * n, (i + 1) * n)
+        charged = ctx.charge(part)
+        try:
+            groups.append(PL.result_groups(*PL.q6_step(part), "k"))
+        finally:
+            ctx.release(charged)
+    return merge_q6_groups(groups)
+
+
+def phase_mem_q6_inject(q6b, arrays):
+    """``TestPipelineUnderInjectedOOM`` at 2^24 rows on the one-hot path
+    (K1): one injected RetryOOM (the retry runs the whole batch: one K1
+    launch), then one injected SplitAndRetryOOM (the two halves: two)."""
+    from spark_rapids_jni_tpu_torch.mem import (
+        RmmSpark, TaskContext, batch_nbytes, run_with_retry)
+
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
+    PL.q6_step(q6b)  # warm-up: the process's first K1 call loads it
+    charge = batch_nbytes(q6b)
+    adaptor = RmmSpark.set_event_handler(4 * charge)
+    passes, all_counts = {}, no_kernels()
+    try:
+        state = {"parts": 1}
+
+        def split():
+            state["parts"] *= 2
+
+        with TaskContext(7) as ctx:
+            for name, inject in (("retry", RmmSpark.force_retry_oom),
+                                 ("split",
+                                  RmmSpark.force_split_and_retry_oom)):
+                inject(None, 1, 0)
+                groups, counts, s = driven(
+                    run_with_retry, lambda: q6_in_parts(ctx, q6b,
+                                                        state["parts"]),
+                    None, split)
+                err = check_q6_groups(groups, arrays, f"mem_q6_inject {name}")
+                passes[name] = {"parts": state["parts"], "wall_ms": s * 1e3,
+                                "k1_launches": counts["onehot_groupby"],
+                                "avg_price_max_rel_err": err}
+                check_counts(f"mem_q6_inject {name}", counts,
+                             ("onehot_groupby",),
+                             {"onehot_groupby": 1 if name == "retry" else 2,
+                              "slot_table_build": 0})
+                for k, v in counts.items():
+                    all_counts[k] += v
+        RmmSpark.task_done(7)
+        metrics = {"num_retry": adaptor.get_and_reset_num_retry(7),
+                   "num_split_retry": adaptor.get_and_reset_num_split_retry(7),
+                   "max_allocated": adaptor.get_max_memory_allocated(7),
+                   "total_allocated": adaptor.total_allocated()}
+    finally:
+        RmmSpark.clear_event_handler()
+    check(metrics["num_retry"] >= 1, "mem_q6_inject: no native retry")
+    check(metrics["num_split_retry"] >= 1, "mem_q6_inject: no native split")
+    check(metrics["total_allocated"] == 0,
+          f"mem_q6_inject: {metrics['total_allocated']} bytes left")
+    emit({"phase": "mem_q6_inject", "rows": q6b.num_rows,
+          "charge_bytes": charge, "passes": passes, **metrics})
+    return all_counts
+
+
+def transition_notes(path):
+    """The notes of a transition log's state changes, in order."""
+    with open(path) as f:
+        rows = [ln.split(",") for ln in f.read().splitlines()[1:]]
+    return [r[6] or f"{r[4]}->{r[5]}" for r in rows if r[1] == "transition"]
+
+
+def phase_mem_q6_oom(q6b, arrays):
+    """A real ``torch.OutOfMemoryError`` through the ladder: the q6 hash
+    step (K2) under a per-process memory limit set between the peak of
+    the whole 2^24-row batch and that of one half.  The first attempt
+    must hit the CUDA OOM, the native protocol must see it (its retry
+    metric moves), and the step must re-run and equal the oracle."""
+    import tempfile
+
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.mem import (
+        RmmSpark, TaskContext, run_with_retry)
+
+    dev = torch.device("cuda")
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    n = q6b.num_rows
+    config.set("q6_group_path", "sort")
+    try:
+        def peaks(b):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            PL.q6_step(b)
+            torch.cuda.synchronize()
+            return (torch.cuda.max_memory_allocated(),
+                    torch.cuda.max_memory_reserved())
+
+        whole = peaks(q6b)
+        half = peaks(row_slice(q6b, 0, n // 2))
+        # above everything the half needs, below what the whole needs
+        lo, hi = half[1], whole[0]
+        check(lo < hi, f"mem_q6_oom: no window: half's reserved peak {lo} "
+              f">= whole's allocated peak {hi}")
+        limit = (lo + hi) // 2
+        events = []
+        state = {"parts": 1}
+
+        def split():
+            events.append(("split", state["parts"] * 2))
+            state["parts"] *= 2
+
+        with tempfile.TemporaryDirectory() as tmp:
+            log = os.path.join(tmp, "transitions.csv")
+            adaptor = RmmSpark.set_event_handler(total_mem, log_path=log)
+            try:
+                torch.cuda.empty_cache()
+                torch.cuda.set_per_process_memory_fraction(limit / total_mem)
+                with TaskContext(8) as ctx:
+                    def step():
+                        events.append(("attempt", state["parts"]))
+                        try:
+                            return q6_in_parts(ctx, q6b, state["parts"])
+                        except torch.OutOfMemoryError:
+                            events.append(("cuda_oom", state["parts"]))
+                            raise
+
+                    groups, counts, s = driven(run_with_retry, step, None,
+                                               split)
+                RmmSpark.task_done(8)
+                metrics = {
+                    "num_retry": adaptor.get_and_reset_num_retry(8),
+                    "num_split_retry":
+                        adaptor.get_and_reset_num_split_retry(8),
+                    "block_time_ms":
+                        adaptor.get_and_reset_block_time_ns(8) / 1e6,
+                    "total_allocated": adaptor.total_allocated()}
+                peak_run = torch.cuda.max_memory_reserved()
+            finally:
+                torch.cuda.set_per_process_memory_fraction(1.0)
+                RmmSpark.clear_event_handler()
+                torch.cuda.empty_cache()
+            notes = transition_notes(log)
+    finally:
+        config.reset("q6_group_path")
+    err = check_q6_groups(groups, arrays, "mem_q6_oom")
+    check(events[:2] == [("attempt", 1), ("cuda_oom", 1)],
+          f"mem_q6_oom: the first attempt did not hit a CUDA OOM: {events}")
+    check(metrics["num_retry"] >= 1,
+          "mem_q6_oom: the native retry metric did not move")
+    attempts = [e for e in events if e[0] == "attempt"]
+    check(len(attempts) >= 2, f"mem_q6_oom: the step did not re-run: "
+          f"{events}")
+    check(metrics["total_allocated"] == 0,
+          f"mem_q6_oom: {metrics['total_allocated']} bytes left")
+    check_counts("mem_q6_oom", counts, ("slot_table_build",),
+                 {"onehot_groupby": 0})
+    path = (["retry"] * (metrics["num_retry"] > 0)
+            + ["park"] * ("bufn_wait" in notes)
+            + ["split"] * (metrics["num_split_retry"] > 0))
+    emit({"phase": "mem_q6_oom", "rows": n,
+          "peak_whole": {"allocated": whole[0], "reserved": whole[1]},
+          "peak_half": {"allocated": half[0], "reserved": half[1]},
+          "limit_bytes": limit, "limit_fraction": limit / total_mem,
+          "reserved_peak_under_limit": peak_run, "events": events,
+          "attempts": len(attempts), "path": path, "transitions": notes,
+          "k2_launches": counts["slot_table_build"], "wall_ms": s * 1e3,
+          "avg_price_max_rel_err": err, **metrics})
+    return counts
+
+
+def phase_mem_tasks(q6b, arrays):
+    """Four dedicated task threads (task ids 1-4), each the q6 hash step
+    (K2) on its own 2^24-row batch (seeds 7-10) under ``run_with_retry``
+    with a halving split, charging its batch through ``TaskContext``; the
+    pool holds 2.5 charges, so a third task blocks until one releases."""
+    import threading
+    import traceback
+
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.mem import (
+        RmmSpark, TaskContext, batch_nbytes, run_with_retry)
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+
+    n = q6b.num_rows
+    data = {1: (q6b, arrays)}
+    for tid, seed in enumerate(MEM_TASK_SEEDS[1:], start=2):
+        data[tid] = (PL.example_batch(n, seed), PL.example_arrays(n, seed))
+    charge = batch_nbytes(q6b)
+    pool = int(MEM_POOL_TASKS * charge)
+    config.set("q6_group_path", "sort")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b, _ in data.values():
+            PL.result_groups(*PL.q6_step(b), "k")
+        torch.cuda.synchronize()
+        serial_ms = (time.perf_counter() - t0) * 1e3
+
+        adaptor = RmmSpark.set_event_handler(pool)
+        results, errors = {}, {}
+        try:
+            def task(tid):
+                state = {"parts": 1}
+
+                def split():
+                    state["parts"] *= 2
+
+                try:
+                    with TaskContext(tid) as ctx:
+                        groups = run_with_retry(
+                            lambda: q6_in_parts(ctx, data[tid][0],
+                                                state["parts"]),
+                            split=split)
+                    results[tid] = (groups, state["parts"])
+                except BaseException:  # noqa: BLE001 - reported below
+                    errors[tid] = traceback.format_exc()
+                finally:
+                    RmmSpark.task_done(tid)
+
+            threads = [threading.Thread(target=task, args=(tid,),
+                                        daemon=True) for tid in data]
+            torch.cuda.synchronize()
+            KER.reset_launches()
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            deadline = time.monotonic() + MEM_DEADLINE_S
+            for th in threads:
+                th.join(timeout=max(0.1, deadline - time.monotonic()))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            counts = dict(KER.launches)
+            alive = sum(th.is_alive() for th in threads)
+            tasks = {tid: {
+                "num_retry": adaptor.get_and_reset_num_retry(tid),
+                "num_split_retry": adaptor.get_and_reset_num_split_retry(tid),
+                "block_time_ms":
+                    adaptor.get_and_reset_block_time_ns(tid) / 1e6,
+                "compute_time_lost_ms":
+                    adaptor.get_and_reset_compute_time_lost_ns(tid) / 1e6,
+                "max_allocated": adaptor.get_max_memory_allocated(tid),
+                "parts": results.get(tid, (None, None))[1]}
+                for tid in data}
+            drained = adaptor.total_allocated()
+            arena_max = adaptor.max_allocated()
+        finally:
+            RmmSpark.clear_event_handler()
+    finally:
+        config.reset("q6_group_path")
+    check(alive == 0, f"mem_tasks: {alive} tasks still running after "
+          f"{MEM_DEADLINE_S} s")
+    check(not errors, f"mem_tasks: {errors}")
+    for tid, (_, arrs) in data.items():
+        if tid in results:
+            check_q6_groups(results[tid][0], arrs, f"mem_tasks task {tid}")
+    check(drained == 0, f"mem_tasks: {drained} bytes left in the arena")
+    check(adaptor._h is None, "mem_tasks: the watchdog was not joined")
+    check(arena_max <= pool, f"mem_tasks: arena peak {arena_max} > {pool}")
+    check(any(t["block_time_ms"] > 0 for t in tasks.values()),
+          "mem_tasks: no task blocked on the oversubscribed arena")
+    check(counts["slot_table_build"] > 0, "mem_tasks: K2 was not launched")
+    emit({"phase": "mem_tasks", "rows_per_task": n, "charge_bytes": charge,
+          "pool_bytes": pool, "arena_max_allocated": arena_max,
+          "tasks": tasks, "wall_ms": wall_ms, "serial_ms": serial_ms,
+          "launches": counts})
+    del data
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an "
@@ -3039,6 +3479,7 @@ def main() -> int:
     from spark_rapids_jni_tpu_torch import config
     from spark_rapids_jni_tpu_torch import pipelines as PL
     from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+    from spark_rapids_jni_tpu_torch.mem import rmm_spark as RS
     from spark_rapids_jni_tpu_torch.ops import _build
 
     kind = torch.cuda.get_device_name(0)
@@ -3052,11 +3493,28 @@ def main() -> int:
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in _build.build_logs.items()}
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    t0 = time.perf_counter()
+    arena_lib = _build.build_host(RS.LIB_SOURCE)
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+          "arena": {"library": os.path.relpath(arena_lib),
+                    "seconds": time.perf_counter() - t0,
+                    "gxx": _build.gxx_version()}})
 
     n6 = int(config.get("bench_rows_tpu"))
     q6_arrays = PL.example_arrays(n6)
     q6b = PL.example_batch(n6)
+    total = {k: 0 for k in REPLACES}
+
+    def add_counts(counts):
+        for k in total:
+            total[k] += (counts or {}).get(k, 0)
+
+    # the memory arena, first: the real-OOM window is cleanest while
+    # little else is on the card
+    guarded("mem_arena", phase_mem_arena)
+    add_counts(guarded("mem_q6_inject", phase_mem_q6_inject, q6b, q6_arrays))
+    add_counts(guarded("mem_q6_oom", phase_mem_q6_oom, q6b, q6_arrays))
+    add_counts(guarded("mem_tasks", phase_mem_tasks, q6b, q6_arrays))
     q95_arrays = PL.q95_arrays(N_FACT)
     fact, dim1, dim2 = PL.q95_batches(N_FACT)
 
@@ -3070,8 +3528,6 @@ def main() -> int:
     dec = dec_batches()
     cases = guarded("kernels", phase_kernels, q6b, fact, dim1, dim2, q6s,
                     sdim, dec) or {}
-
-    total = {k: 0 for k in REPLACES}
 
     def path(name, group_path, fn, args, rows, verify, needs, stages=None,
              exact=None):

@@ -5,6 +5,7 @@ from __future__ import annotations
 _ITEMS = {
     13: "memory and spill",
     14: "I/O",
+    16: "serving fleet",
     17: "tooling edges",
 }
 

@@ -167,6 +167,13 @@ _register("json_scan_unroll", 2, int,
           "unroll).  Accepted with the reference's name and default; the "
           "port's scan is a host loop over the char columns, so the value "
           "changes nothing.")
+_register("watchdog_poll_ms", 100.0, float,
+          "Deadlock watchdog period of the memory arena's resource adaptor "
+          "(mem/rmm_spark.py; reference: "
+          "ai.rapids.cudf.spark.rmmWatchdogPollingPeriod).")
+_register("mem_pool_bytes", 0, int,
+          "Default logical device-memory arena size for "
+          "RmmSpark.set_event_handler (0 = the caller must pass one).")
 
 
 def knob_fingerprint() -> tuple:

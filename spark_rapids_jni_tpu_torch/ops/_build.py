@@ -13,6 +13,13 @@ of its source and flags, so an edited source rebuilds and a stale
 library is never loaded.  A build that fails raises, with ``nvcc``'s
 output in the message.
 
+Host C++ sources with a C ABI (the memory arena's
+``mem/native/resource_adaptor.cpp``) are built the same way with ``g++``
+(:func:`load_host`): at first use, into ``_kernels_build/``, under a name
+that carries the hash of the source and flags.  Several processes may
+build one source at once (test workers), so each writes its own
+temporary file and renames it into place.
+
 The slot-table build's grid-wide barrier (``cooperative_groups`` grid
 sync, launched with ``cudaLaunchCooperativeKernel``) and the partition
 scatter's thread-block clusters need no ``-rdc=true`` and no
@@ -120,3 +127,62 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(_lib_path(name))
         return _libs[name]
+
+
+HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
+HOST_LIBS = ("-lpthread",)
+
+
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: the port's host libraries are "
+                           "built from their C++ sources at first use")
+    return found
+
+
+def gxx_version() -> str:
+    """First line of ``g++ --version``."""
+    out = subprocess.run([_gxx(), "--version"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.splitlines()[0] if out.stdout else ""
+
+
+def _host_lib_path(src: str) -> str:
+    with open(src, "rb") as f:
+        code = f.read()
+    flags = " ".join(HOST_FLAGS + HOST_LIBS).encode()
+    tag = hashlib.sha256(code + flags).hexdigest()
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{tag[:16]}.so")
+
+
+def build_host(src: str) -> str:
+    """Compile the host C++ source ``src`` into a shared library unless it
+    is built already; returns the library's path.  A failed build raises
+    with the compiler's output."""
+    out = _host_lib_path(src)
+    with _lock:
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            proc = subprocess.run([_gxx(), *HOST_FLAGS, "-o", tmp, src,
+                                   *HOST_LIBS], capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise RuntimeError(f"g++ failed on {src} "
+                                   f"(rc={proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+    return out
+
+
+def load_host(src: str) -> ctypes.CDLL:
+    """The loaded library built from the host C++ source ``src``."""
+    path = build_host(src)
+    with _lock:
+        if path not in _libs:
+            _libs[path] = ctypes.CDLL(path)
+        return _libs[path]

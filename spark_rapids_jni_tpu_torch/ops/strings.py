@@ -101,8 +101,11 @@ def substring(col: StringColumn, pos: int, length: int = -1,
         e0 = torch.full((n,), 2**31 - 1, dtype=torch.int32, device=dev)
     else:
         # window end BEFORE clamping the start (Spark: the negative-start
-        # window loses the part hanging off the front of the string)
-        e0 = s0 + length
+        # window loses the part hanging off the front of the string), in
+        # int64: Spark's UTF8String.substringSQL clamps start + length to
+        # the int range instead of wrapping, so substring(s, 5, 2**31 - 1)
+        # runs to the end of s
+        e0 = s0.to(torch.int64) + length
     lo = s0.clamp(min=0)
 
     keep = in_str & (char_idx >= lo[:, None]) & (char_idx < e0[:, None])

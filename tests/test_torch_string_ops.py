@@ -61,6 +61,25 @@ def test_substring_bit_for_bit(cols, pos, length, engine):
                                                       engine))
 
 
+# Windows whose end start + length passes 2**31 - 1: Spark's
+# UTF8String.substringSQL clamps the end, and so does the port. The
+# reference computes the end in int32 and wraps to an empty result
+# (ROADMAP queue 3, item 8), so these hold the port against the reference
+# test file's Spark oracle instead of the reference.
+@pytest.mark.parametrize("s,pos,length,want", [
+    ("abcdefgh", 5, 2**31 - 1, "efgh"), ("abcdefgh", -3, 2**31 - 1, "fgh"),
+    ("日本語テキスト", 2, 2**31 - 2, "本語テキスト"),
+    ("abc", -5, 2**31 - 1, "abc")])
+@pytest.mark.parametrize("engine", ["scatter", "sort"])
+def test_substring_window_end_past_int32(s, pos, length, want, engine):
+    from test_strings import oracle
+
+    assert oracle(s, pos, length) == want
+    col = StringColumn.from_pylist([s, None], pad_to_multiple=8,
+                                   device="cpu")
+    assert TS.substring(col, pos, length, engine).to_pylist() == [want, None]
+
+
 @pytest.mark.parametrize("literal,rlen,lo,hi", [
     ("a", 1, ord("0"), ord("9")), ("a", 2, ord("0"), ord("9")),
     ("ya", 1, ord("a"), ord("z")), ("é", 1, 0, 0x10FFFF),

@@ -70,10 +70,19 @@ two-line summary.  It measures, at the main path's shapes:
   machine alone at the compact fallback's 65 536-row sub-batch, and of
   the four casts at 2^20 rows, each with its top kernels and host ops.
 
+* the memory arena (``mem``; the phases ``mem_q6_inject``,
+  ``mem_q6_oom`` and ``mem_tasks`` of chip_smoke.py): the same profile
+  of the four q6 hash steps of ``mem_tasks`` run in turn and of the four
+  tasks sharing the oversubscribed arena, and the arena's cost a step:
+  the q6 one-hot step and its groups' host read bare and inside
+  ``TaskContext`` and ``run_with_retry`` with its charge (host clock, 20
+  calls).
+
 ``--only probe,onehot`` runs only those sections (the names: ``map``,
 ``stream``, ``build``, ``probe``, ``onehot``, ``steps``, ``plan``,
-``breadth``, ``decimal``, ``encoded``, ``strings``; the default runs
-all but ``breadth``, ``decimal``, ``encoded`` and ``strings``).  With ``--stream-reps N``
+``breadth``, ``decimal``, ``encoded``, ``strings``, ``mem``; the default
+runs all but ``breadth``, ``decimal``, ``encoded``, ``strings`` and
+``mem``).  With ``--stream-reps N``
 it only times N whole streamed exchanges of the 2^24-row fact table (512
 morsels); run it for two trees in turns to compare them.
 """
@@ -656,6 +665,67 @@ def trace_strings(rows=1 << 20):
     return out
 
 
+def trace_mem(rows):
+    """The four ``mem_tasks`` steps in turn and as tasks on the arena,
+    profiled, and the arena's cost a q6 one-hot step."""
+    import threading
+
+    import chip_smoke as C
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.mem import (
+        RmmSpark, TaskContext, batch_nbytes, run_with_retry)
+
+    batches = [PL.example_batch(rows, s) for s in C.MEM_TASK_SEEDS]
+    charge = batch_nbytes(batches[0])
+
+    def serial():
+        for b in batches:
+            PL.result_groups(*PL.q6_step(b), "k")
+
+    def tasks():
+        RmmSpark.set_event_handler(int(C.MEM_POOL_TASKS * charge))
+        try:
+            def task(tid, b):
+                with TaskContext(tid) as ctx:
+                    run_with_retry(lambda: C.q6_in_parts(ctx, b, 1))
+                RmmSpark.task_done(tid)
+
+            threads = [threading.Thread(target=task, args=(i + 1, b))
+                       for i, b in enumerate(batches)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(C.MEM_DEADLINE_S)
+        finally:
+            RmmSpark.clear_event_handler()
+
+    out = {"charge_bytes": charge}
+    config.set("q6_group_path", "sort")
+    try:
+        for name, fn in (("serial_4", serial), ("tasks_4", tasks)):
+            fn()  # warm
+            wall, busy, kern, _ = profile(fn)
+            out[name] = {"wall_ms": wall, "device_busy_ms": busy,
+                         "idle_share": 1 - busy / wall,
+                         "kernel_launches": sum(c for c, _ in kern.values()),
+                         "device_ms_by_kind": kernel_kinds(kern)}
+    finally:
+        config.reset("q6_group_path")
+    q6b = batches[0]
+    out["q6_onehot_bare_ms"] = host_ms(
+        lambda: PL.result_groups(*PL.q6_step(q6b), "k"))
+    RmmSpark.set_event_handler(4 * charge)
+    try:
+        with TaskContext(1) as ctx:
+            out["q6_onehot_in_arena_ms"] = host_ms(
+                lambda: run_with_retry(lambda: C.q6_in_parts(ctx, q6b, 1)))
+        RmmSpark.task_done(1)
+    finally:
+        RmmSpark.clear_event_handler()
+    return out
+
+
 def limbs_gather(limbs):
     """CUDA-event ms of gathering int64[n, 2] decimal limbs by a
     sequential and a random permutation: torch's row gather against the
@@ -924,6 +994,8 @@ def main() -> int:
         out["encoded"] = trace_encoded(args.rows)
     if "strings" in only:
         out["strings"] = trace_strings()
+    if "mem" in only:
+        out["mem"] = trace_mem(args.rows)
 
     with open(path, "w") as f:
         json.dump(out, f, indent=1, default=str)
