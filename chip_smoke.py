@@ -147,6 +147,23 @@ Phases, each printing one JSON line:
    ``string_to_integer``, ``string_to_decimal`` at 2^20 rows, bit for
    bit against the port's CPU result, and ``float_to_string`` against
    Java's ``Double.toString`` on a 4096-row sample).
+14. the tiered spill store (``mem/spill.py``), last: ``spill_q6`` (the
+   reference's ``bench.py --spill`` at 2^24 rows: two task threads, four
+   q6 one-hot steps each on fresh batches, at most three held as
+   ``SpillableHandle`` s, a device arena of 2.5 batch charges and a host
+   tier of half a charge, so evicted batches go to disk; every step and
+   read-back against the oracle, the transitions' bytes, the time and
+   GB/s of each copy, CRC32, ``np.save`` and ``np.load``, both arenas,
+   the store and the spill directory empty; and one unreferenced batch
+   whose spill lowers ``memory_allocated`` by its charge);
+   ``spill_faults`` (at 2^24 rows: a failed disk write keeps the batch
+   in the host tier, a corrupt spill file is rebuilt through
+   ``recompute=`` or raises without it, a damaged host copy is caught at
+   promotion); ``spill_q9`` (q9's broadcast tables under a
+   ``TaskContext`` dropped by ``spill_to_fit``, each rebuilt once by the
+   next run, which equals the first bit for bit); ``spill_exchange``
+   (the skewed exchange of the q95 fact and its stream over 8 shards on
+   arenas smaller than their buffers: lossless, spilled, none dropped).
 
 It then prints one ``kernels`` line and, last, ``{"ok": true, "device":
 ...}``.  Any mismatch or exception exits nonzero without that line, as
@@ -3471,6 +3488,523 @@ def phase_mem_tasks(q6b, arrays):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the tiered spill store (mem/spill.py) at full width
+# ---------------------------------------------------------------------------
+
+SPILL_TASK_BATCHES = 4       # bench.py --spill: q6 batches per task
+SPILL_HELD = 3               # ... of which a task holds at most three
+SPILL_POOL_CHARGES = 2.5     # the device arena, in batch charges
+SPILL_SKEW_CHUNKS = 4        # the skewed exchange's arena: map + chunks
+SPILL_STREAM_CHUNKS = 4.5    # spill_exchange's stream arena, in chunks
+
+
+class SpillTimers:
+    """Wall time and bytes of each tier transition's pieces, summed over
+    threads: the device -> host copy, the CRC32s, the ``np.save`` and
+    ``np.load`` of the disk tier and the host -> device copy (with a
+    synchronize, so the copy is inside its time).  Patches the spill
+    module's helpers for the block and restores them after."""
+
+    NAMES = ("_to_host", "_leaf_meta", "_write_leaf", "_read_leaf",
+             "_to_device")
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.acc = {n: [0, 0, 0] for n in self.NAMES}  # ns, bytes, calls
+
+    def _wrap(self, name, fn):
+        def timed(*args):
+            t0 = time.perf_counter_ns()
+            out = fn(*args)
+            if name == "_to_device" and out.is_cuda:
+                torch.cuda.synchronize()
+            dt = time.perf_counter_ns() - t0
+            arr = out if name in ("_to_host", "_read_leaf") else \
+                args[-1] if name == "_write_leaf" else args[0]
+            with self.lock:
+                a = self.acc[name]
+                a[0] += dt
+                a[1] += int(arr.nbytes)
+                a[2] += 1
+            return out
+        return timed
+
+    def __enter__(self):
+        from spark_rapids_jni_tpu_torch.mem import spill as SP
+
+        self.saved = {n: getattr(SP, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(SP, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from spark_rapids_jni_tpu_torch.mem import spill as SP
+
+        for n, fn in self.saved.items():
+            setattr(SP, n, fn)
+        return False
+
+    def report(self) -> dict:
+        labels = {"_to_host": "device_to_host_copy", "_leaf_meta": "crc32",
+                  "_write_leaf": "disk_write", "_read_leaf": "disk_read",
+                  "_to_device": "host_to_device_copy"}
+        out = {}
+        for n, (ns, nbytes, calls) in self.acc.items():
+            ms = ns / 1e6
+            out[labels[n]] = {"ms": ms, "bytes": nbytes, "calls": calls,
+                              "gb_per_s": nbytes / (ms * 1e6) if ms else None}
+        return out
+
+
+def spill_transitions(snap: dict) -> dict:
+    return {t: {"bytes": snap[t + "_bytes"], "count": snap[t + "_count"]}
+            for t in ("device_to_host", "host_to_disk", "disk_to_host",
+                      "host_to_device")}
+
+
+def spill_free_check(fw, arrays):
+    """One unreferenced 2^24-row q6 handle: its spill lowers
+    ``memory_allocated`` by at least its ``batch_nbytes``, its ``get()``
+    restores it, and the batch it gives back runs q6 to the oracle."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.mem import SpillableHandle, batch_nbytes
+
+    n = arrays[0].shape[0]
+    b = PL.example_batch(n)
+    charge = batch_nbytes(b)
+    h = SpillableHandle(b, name="q6-free")
+    del b
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    h.spill()
+    spill_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    got = h.get()
+    torch.cuda.synchronize()
+    get_ms = (time.perf_counter() - t0) * 1e3
+    back = torch.cuda.memory_allocated()
+    check(before - after >= charge, f"spill_q6: a spill freed "
+          f"{before - after} device bytes of a {charge}-byte handle")
+    check(back - after >= charge, f"spill_q6: get() restored "
+          f"{back - after} of {charge} device bytes")
+    check(all(c.data.is_cuda for c in got.columns),
+          "spill_q6: a leaf came back off the card")
+    check_q6(*PL.q6_step(got), arrays, "spill_q6 freed handle")
+    del got
+    h.close()
+    return {"charge_bytes": charge, "freed_bytes": before - after,
+            "restored_bytes": back - after, "spill_ms": spill_ms,
+            "get_ms": get_ms, "tier_after_spill": "host"}
+
+
+def phase_spill_q6(q6_arrays):
+    """The reference's ``bench.py --spill`` at full width: two task
+    threads, each four q6 one-hot steps (K1) on fresh 2^24-row batches
+    (seeds 100 * tid + i), each batch a ``SpillableHandle`` under its
+    ``TaskContext``, at most three held; a device arena of 2.5 batch
+    charges and a host tier of half a charge, so evictions go device ->
+    host -> disk; no ``make_spillable``, ``max_retries`` 50; then each
+    task reads its survivors back and runs q6 again.  Every step's groups
+    against the numpy oracle, the transitions' bytes, both arenas, the
+    store and the spill directory empty at the end."""
+    import threading
+    import traceback
+
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+    from spark_rapids_jni_tpu_torch.mem import (
+        RmmSpark, SpillableHandle, TaskContext, batch_nbytes,
+        install_spill_framework, run_with_retry, shutdown_spill_framework)
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+
+    n = q6_arrays[0].shape[0]
+    PL.q6_step(PL.example_batch(1 << 16))  # warm: K1 is loaded
+    fw = install_spill_framework()
+    spill_dir = fw.spill_dir
+    try:
+        free = spill_free_check(fw, q6_arrays)
+        fw.metrics.reset()
+        seeds = {tid: [100 * tid + i for i in range(SPILL_TASK_BATCHES)]
+                 for tid in (1, 2)}
+        host = {s: PL.example_arrays(n, s) for v in seeds.values()
+                for s in v}
+        ones = np.ones(n, np.bool_)
+
+        def upload(s):
+            k, v, price = host[s]
+            return batch_from_numpy({"k": (k, ones, "int32"),
+                                     "v": (v, ones, "int64"),
+                                     "price": (price, ones, "float64")})
+
+        charge = batch_nbytes(upload(seeds[1][0]))
+        pool = int(SPILL_POOL_CHARGES * charge)
+        host_pool = charge // 2
+        adaptor = RmmSpark.set_event_handler(pool, host_pool_bytes=host_pool,
+                                             poll_ms=10.0)
+        results, errors = {}, {}
+        try:
+            def task(tid):
+                try:
+                    with TaskContext(tid) as ctx:
+                        held = []
+                        for i, s in enumerate(seeds[tid]):
+                            def step(s=s, i=i):
+                                b = upload(s)
+                                h = SpillableHandle(
+                                    b, ctx=ctx, name=f"q6-t{tid}-{i}")
+                                return h, PL.result_groups(
+                                    *PL.q6_step(b), "k")
+
+                            h, results[("step", s)] = run_with_retry(
+                                step, max_retries=50)
+                            held.append((h, s))
+                            if len(held) > SPILL_HELD:
+                                held.pop(0)[0].close()
+                        for h, s in held:
+                            def read(h=h):
+                                return PL.result_groups(
+                                    *PL.q6_step(h.get()), "k")
+
+                            results[("read", s)] = run_with_retry(
+                                read, max_retries=50)
+                            h.close()
+                except BaseException:  # noqa: BLE001 - reported below
+                    errors[tid] = traceback.format_exc()
+                finally:
+                    RmmSpark.task_done(tid)
+
+            threads = [threading.Thread(target=task, args=(tid,),
+                                        daemon=True) for tid in seeds]
+            with SpillTimers() as timers:
+                torch.cuda.synchronize()
+                KER.reset_launches()
+                t0 = time.perf_counter()
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=MEM_DEADLINE_S)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+            counts = dict(KER.launches)
+            alive = sum(th.is_alive() for th in threads)
+            snap = fw.metrics.snapshot()
+            tasks = {tid: {"num_retry": adaptor.get_and_reset_num_retry(tid),
+                           "spill": RmmSpark.get_and_reset_task_spill_metrics(
+                               tid)} for tid in seeds}
+            drained = (adaptor.total_allocated(),
+                       adaptor.host_total_allocated())
+        finally:
+            RmmSpark.clear_event_handler()
+        left_handles = len(fw.store)
+        left_files = os.listdir(spill_dir)
+    finally:
+        shutdown_spill_framework()
+    check(alive == 0, f"spill_q6: {alive} tasks still running")
+    check(not errors, f"spill_q6: {errors}")
+    for (what, s), groups in sorted(results.items()):
+        check_q6_groups(groups, host[s], f"spill_q6 {what} seed {s}")
+    want_steps = 2 * (SPILL_TASK_BATCHES + SPILL_HELD)
+    check(len(results) == want_steps,
+          f"spill_q6: {len(results)} steps checked, expected {want_steps}")
+    check(counts["onehot_groupby"] == want_steps,
+          f"spill_q6: {counts['onehot_groupby']} K1 launches, expected "
+          f"{want_steps}")
+    check(snap["device_to_host_bytes"] > 0, "spill_q6: nothing left the card")
+    check(snap["host_to_disk_bytes"] > 0, "spill_q6: nothing reached disk")
+    check(snap["disk_to_host_bytes"] > 0 and snap["host_to_device_bytes"] > 0,
+          "spill_q6: nothing was read back")
+    check(snap["disk_write_failures"] == 0, "spill_q6: a disk write failed")
+    check(drained == (0, 0), f"spill_q6: arenas left at {drained}")
+    check(left_handles == 0, f"spill_q6: {left_handles} handles left")
+    check(left_files == [], f"spill_q6: spill files left {left_files}")
+    check(not os.path.exists(spill_dir),
+          "spill_q6: the spill directory was not removed")
+    rows = 2 * SPILL_TASK_BATCHES * n
+    emit({"phase": "spill_q6", "metric": "q6_spill_oversubscribed",
+          "mrows_per_s": rows / wall_s / 1e6, "rows": rows,
+          "wall_ms": wall_s * 1e3, "charge_bytes": charge,
+          "device_pool_bytes": pool, "host_pool_bytes": host_pool,
+          "transitions": spill_transitions(snap),
+          "eviction_ms": snap["eviction_ns"] / 1e6,
+          "disk_write_failures": snap["disk_write_failures"],
+          "pieces": timers.report(), "tasks": tasks, "launches": counts,
+          "k1_launches": counts["onehot_groupby"], "freed_handle": free,
+          "card": nvidia_smi_line()})
+    return counts
+
+
+def phase_spill_faults(q6_arrays):
+    """At 2^24 rows: one injected ``spill_io_write`` fault leaves the
+    batch in the host tier (``disk_write_failures``) and it still runs
+    q6 right; one ``spill_corrupt_file`` fault is caught at read-back and
+    rebuilt through ``recompute=`` (``lineage_rebuilds`` 1), and without
+    lineage raises ``SpillCorruptionError``; one ``host_corrupt_probe``
+    fault is caught at promotion."""
+    from spark_rapids_jni_tpu_torch import faultinj
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.mem import (
+        SpillableHandle, install_spill_framework, shutdown_spill_framework)
+
+    n = q6_arrays[0].shape[0]
+    total = no_kernels()
+    out = {}
+
+    def q6_of(h, label):
+        (res, ng), counts, _ = driven(lambda: PL.q6_step(h.get()))
+        for k, v in counts.items():
+            total[k] += v
+        check_q6(res, ng, q6_arrays, f"spill_faults {label}")
+
+    def one(fault, probe):
+        return {"faults": [{"match": probe, "fault": fault, "count": 1}]}
+
+    fw = install_spill_framework()
+    try:
+        # a failed disk write: the batch stays host-resident
+        h = SpillableHandle(PL.example_batch(n), name="fault-io")
+        h.spill()
+        with faultinj.scope(one("spill_io", "spill_io_write")):
+            t0 = time.perf_counter()
+            freed = h.spill_host()
+            io_ms = (time.perf_counter() - t0) * 1e3
+            fired = faultinj.fire_counts()
+        m = fw.metrics.snapshot()
+        check(fired == {"spill_io_write": 1}, f"spill_faults: io {fired}")
+        check(h.tier == "host" and freed == 0,
+              f"spill_faults: after a failed write the tier is {h.tier}")
+        check(m["disk_write_failures"] == 1 and m["host_to_disk_count"] == 0,
+              "spill_faults: the failed write was not counted")
+        check(os.listdir(fw.spill_dir) == [],
+              "spill_faults: a failed write left files")
+        q6_of(h, "after spill_io")
+        h.close()
+        out["spill_io"] = {"tier": "host", "failed_write_ms": io_ms,
+                           "disk_write_failures": m["disk_write_failures"]}
+
+        # a corrupt spill file: rebuilt with lineage, raised without
+        for lineage in (True, False):
+            label = "lineage" if lineage else "no_lineage"
+            h = SpillableHandle(
+                PL.example_batch(n), name=f"fault-file-{label}",
+                recompute=(lambda: PL.example_batch(n)) if lineage else None)
+            h.spill()
+            with faultinj.scope(one("spill_corrupt", "spill_corrupt_file")):
+                h.spill_host()
+            check(h.tier == "disk", f"spill_faults: {label} tier {h.tier}")
+            t0 = time.perf_counter()
+            if lineage:
+                q6_of(h, "rebuilt")
+                check(h.lineage_rebuilds == 1,
+                      f"spill_faults: {h.lineage_rebuilds} rebuilds")
+                got = "rebuilt"
+            else:
+                try:
+                    h.get()
+                    got = "read"
+                except faultinj.SpillCorruptionError:
+                    got = "SpillCorruptionError"
+                check(got == "SpillCorruptionError",
+                      f"spill_faults: a corrupt file without lineage {got}")
+            out[f"spill_corrupt_{label}"] = {
+                "outcome": got, "ms": (time.perf_counter() - t0) * 1e3}
+            h.close()
+
+        # a damaged host copy: caught at promotion
+        h = SpillableHandle(PL.example_batch(n), name="fault-host")
+        with faultinj.scope(one("host_corrupt", "host_corrupt_probe")):
+            h.spill()
+        try:
+            h.get()
+            got = "read"
+        except faultinj.HostCorruptionError:
+            got = "HostCorruptionError"
+        check(got == "HostCorruptionError",
+              f"spill_faults: a damaged host copy was {got}")
+        h.close()
+        out["host_corrupt"] = {"outcome": got}
+        snap = fw.metrics.snapshot()
+    finally:
+        shutdown_spill_framework()
+    check(snap["corrupt_reads"] == 3,
+          f"spill_faults: {snap['corrupt_reads']} corrupt reads, expected 3")
+    check(snap["lineage_rebuilds"] == 1,
+          f"spill_faults: {snap['lineage_rebuilds']} lineage rebuilds")
+    check(total["onehot_groupby"] == 2,
+          f"spill_faults: {total['onehot_groupby']} K1 launches")
+    emit({"phase": "spill_faults", "rows": n, "cases": out,
+          "corrupt_reads": snap["corrupt_reads"],
+          "lineage_rebuilds": snap["lineage_rebuilds"],
+          "disk_write_failures": snap["disk_write_failures"],
+          "launches": total, "card": nvidia_smi_line()})
+    return total
+
+
+def phase_spill_q9(inputs, arrays):
+    """The reference's ``test_compiled_q9_probes_survive_eviction`` at
+    ``plan_q9``'s size: q9 compiled and run under a spill framework and a
+    ``TaskContext``; ``fw.spill_to_fit()`` drops every broadcast table;
+    the next run rebuilds each once (one K2 build and one record build a
+    table) and equals the first bit for bit."""
+    from spark_rapids_jni_tpu_torch import plan as PLAN
+    from spark_rapids_jni_tpu_torch.mem import (
+        RmmSpark, TaskContext, install_spill_framework,
+        shutdown_spill_framework)
+    from spark_rapids_jni_tpu_torch.mem import spill as SP
+    from spark_rapids_jni_tpu_torch.plan import queries as Q
+
+    PLAN.reset_plan_cache()
+    fw = install_spill_framework()
+    RmmSpark.set_event_handler(16 << 30, poll_ms=10.0)
+    try:
+        with TaskContext(51) as ctx:
+            cp = PLAN.compile_plan(Q.q9_plan(), inputs, ctx=ctx)
+            (res1, ng1), counts1, _ = driven(cp, inputs)
+            handles = [h for _name, h in cp.build_handles]
+            charged = RmmSpark._adaptor.total_allocated()
+            t0 = time.perf_counter()
+            freed = fw.spill_to_fit()
+            drop_ms = (time.perf_counter() - t0) * 1e3
+            tiers = [h.tier for h in handles]
+            (res2, ng2), counts2, s2 = driven(cp, inputs)
+            rebuilds = [h.rebuilds for h in handles]
+            tiers_after = [h.tier for h in handles]
+        RmmSpark.task_done(51)
+        drained = RmmSpark._adaptor.total_allocated()
+    finally:
+        RmmSpark.clear_event_handler()
+        shutdown_spill_framework()
+        PLAN.reset_plan_cache()
+    err = check_q9(res1, ng1, arrays, "spill_q9")
+    a, b = [], []
+    same = (SP._flatten((res1, ng1), a) == SP._flatten((res2, ng2), b)
+            and all(torch.equal(x, y) for x, y in zip(a, b)))
+    nh = len(handles)
+    check(nh >= 1, "spill_q9: the plan built no broadcast table")
+    check(all(t == "dropped" for t in tiers),
+          f"spill_q9: tiers after spill_to_fit {tiers}")
+    check(all(t == "device" for t in tiers_after),
+          f"spill_q9: tiers after the rerun {tiers_after}")
+    check(rebuilds == [1] * nh, f"spill_q9: rebuilds {rebuilds}")
+    check(same, "spill_q9: the rerun differs from the first run")
+    check(counts2["slot_table_build"] == nh,
+          f"spill_q9: {counts2['slot_table_build']} K2 builds in the rerun, "
+          f"expected {nh}")
+    check(counts2["slot_table_records"] == nh,
+          f"spill_q9: {counts2['slot_table_records']} record builds")
+    check(freed > 0 and freed <= charged, f"spill_q9: freed {freed} of "
+          f"{charged} charged bytes")
+    check(drained == 0, f"spill_q9: {drained} bytes left in the arena")
+    emit({"phase": "spill_q9", "rows": inputs["fact"].num_rows,
+          "handles": nh, "charged_bytes": charged, "freed_bytes": freed,
+          "drop_ms": drop_ms, "rerun_ms": s2 * 1e3,
+          "launches_first": counts1, "launches_rerun": counts2,
+          "avg_hi_max_rel_err": err, "card": nvidia_smi_line()})
+    total = no_kernels()
+    for c in (counts1, counts2):
+        for k, v in c.items():
+            total[k] += v
+    return total
+
+
+def phase_spill_exchange(fact):
+    """``TestOutOfCore`` at full width over 8 shards, under a
+    ``TaskContext`` on arenas smaller than the exchanges' buffers: the
+    skewed ``exchange`` (every row to partition 0: 32 rounds of 2^16
+    slots a bucket) on an arena of the map output plus four round chunks
+    (the buffers: the map and 32 chunks), then the ``exchange_stream`` of
+    the 2^24-row fact (K4 once a morsel) on an arena of 4.5 round chunks
+    (the buffers: about four send and four received chunks).  Each
+    lossless against the sent multiset, with two rounds or more, spilled
+    bytes and no dropped row."""
+    from spark_rapids_jni_tpu_torch.mem import (
+        RmmSpark, TaskContext, batch_nbytes, install_spill_framework,
+        shutdown_spill_framework)
+    from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
+    from spark_rapids_jni_tpu_torch.relational.keys import lexsort
+    from spark_rapids_jni_tpu_torch.shuffle import (MorselSource,
+                                                    ShuffleService,
+                                                    get_registry)
+    from spark_rapids_jni_tpu_torch.shuffle.planner import \
+        plan_stream_capacity
+
+    P = P_SHARDS
+    n = fact.num_rows
+    mesh = ShardMesh(P)
+    cols = ("k", "wh", "seg", "v")
+    charge = batch_nbytes(fact)
+    C = plan_stream_capacity()
+    # one round chunk: P * P * C slot rows of every leaf plus occupancy
+    chunk = P * P * C * (charge // n + 1)
+    b = [fact[c].data.to(torch.int64) for c in cols]
+    pb = lexsort(b)
+    want = [x[pb] for x in b]
+    total = no_kernels()
+    out = {}
+
+    def run(label, arena, fn):
+        get_registry().reset()
+        fw = install_spill_framework()
+        adaptor = RmmSpark.set_event_handler(arena, poll_ms=10.0)
+        try:
+            with SpillTimers() as timers:
+                with TaskContext(61) as ctx:
+                    res, counts, s = driven(fn, ctx)
+                    left = len(fw.store)
+            RmmSpark.task_done(61)
+            drained = adaptor.total_allocated()
+            snap = fw.metrics.snapshot()
+        finally:
+            RmmSpark.clear_event_handler()
+            shutdown_spill_framework()
+        summary = get_registry().metrics.snapshot()
+        occ = res.occupancy
+        a = [res.batch[c].data[occ].to(torch.int64) for c in cols]
+        pa = lexsort(a)
+        check(res.rows_moved == n, f"spill_exchange {label}: rows_moved "
+              f"{res.rows_moved}")
+        check(all(torch.equal(x[pa], y) for x, y in zip(a, want)),
+              f"spill_exchange {label}: delivered multiset differs")
+        check(res.rounds >= 2, f"spill_exchange {label}: {res.rounds} round")
+        check(res.spilled_bytes > 0, f"spill_exchange {label}: no spill")
+        check(summary["dropped_rows"] == 0,
+              f"spill_exchange {label}: dropped {summary['dropped_rows']}")
+        check(drained == 0 and left == 0, f"spill_exchange {label}: "
+              f"{drained} bytes and {left} handles left")
+        for k, v in counts.items():
+            total[k] += v
+        out[label] = {"ms": s * 1e3, "mrows_per_s": n / s / 1e6,
+                      "arena_bytes": arena, "rounds": res.rounds,
+                      "capacity": res.capacity,
+                      "spilled_bytes": res.spilled_bytes,
+                      "bytes_moved": res.bytes_moved,
+                      "transitions": spill_transitions(snap),
+                      "eviction_ms": snap["eviction_ns"] / 1e6,
+                      "pieces": timers.report(), "launches": counts}
+        del res, a
+        torch.cuda.empty_cache()
+
+    pid = torch.zeros(n, dtype=torch.int32, device=fact["k"].device)
+    run("skewed_exchange", charge + SPILL_SKEW_CHUNKS * chunk,
+        lambda ctx: ShuffleService(mesh).exchange(fact, pid=pid, ctx=ctx))
+    src = MorselSource.from_batch(fact, mesh)
+    run("stream", int(SPILL_STREAM_CHUNKS * chunk),
+        lambda ctx: ShuffleService(mesh).exchange_stream(
+            src, key_names=["k"], ctx=ctx))
+    check(out.get("stream", {}).get("launches", {}).get(
+        "partition_scatter", 0) == len(src),
+        "spill_exchange stream: not one K4 launch a morsel")
+    emit({"phase": "spill_exchange", "rows": n, "shards": P,
+          "fact_charge_bytes": charge, "round_chunk_bytes": chunk,
+          **out, "card": nvidia_smi_line()})
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an "
@@ -3699,6 +4233,13 @@ def main() -> int:
     for k in total:
         total[k] += (counts or {}).get(k, 0)
     breadth("multichip_nccl", phase_multichip_nccl)
+
+    # the tiered spill store: q6 through device -> host -> disk, injected
+    # faults, q9's dropped broadcast tables, out-of-core exchanges
+    breadth("spill_q6", phase_spill_q6, q6_arrays)
+    breadth("spill_faults", phase_spill_faults, q6_arrays)
+    breadth("spill_q9", phase_spill_q9, q95_in, q95_arrays)
+    breadth("spill_exchange", phase_spill_exchange, fact)
 
     kernels = []
     for name, lst in cases.items():

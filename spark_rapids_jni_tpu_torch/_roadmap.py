@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 _ITEMS = {
-    13: "memory and spill",
+    13: "the persistent shuffle store (13c)",
     14: "I/O",
     16: "serving fleet",
     17: "tooling edges",

@@ -317,6 +317,17 @@ class ColumnBatch:
         d[name] = col
         return ColumnBatch(d)
 
+    def spillable(self, ctx=None, name: Optional[str] = None):
+        """Register this batch with the spill store: a
+        :class:`~..mem.spill.SpillableHandle` that can be demoted device
+        -> host -> disk under pressure, charged to ``ctx`` when given.
+        Drop the batch after this: the handle's ``get()`` is the live
+        reference, and a spill frees the device memory only when nothing
+        else holds the tensors."""
+        from ..mem.spill import SpillableHandle
+
+        return SpillableHandle(self, ctx=ctx, name=name)
+
     def __repr__(self):
         return f"ColumnBatch({list(self._names)}, n={self.num_rows})"
 

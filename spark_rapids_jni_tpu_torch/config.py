@@ -171,6 +171,24 @@ _register("watchdog_poll_ms", 100.0, float,
           "Deadlock watchdog period of the memory arena's resource adaptor "
           "(mem/rmm_spark.py; reference: "
           "ai.rapids.cudf.spark.rmmWatchdogPollingPeriod).")
+_register("spill_dir", "", str,
+          "Directory of the spill store's disk tier (mem/spill.py).  Empty "
+          "(default): a fresh mkdtemp owned, and removed, by the "
+          "SpillFramework; set it to put spill files on a chosen volume "
+          "(reference: spark.local.dir for RapidsDiskStore).")
+_register("spill_checksum", True, _parse_bool,
+          "Record a CRC32 and byte length for every leaf the spill store "
+          "demotes and verify both on read-back (mem/spill.py).  A "
+          "mismatch means the spilled copy is damaged: the handle "
+          "rebuilds through its recompute= lineage when it has one, else "
+          "raises SpillCorruptionError.  Off = trust the filesystem.")
+_register("spill_codec", "off", str,
+          "Codec of the spill store's disk tier (mem/spill.py, "
+          "mem/codec.py): 'pack' frame-of-reference bit-packs eligible "
+          "integer leaves, 'block' runs a byte-wise RLE block codec over "
+          "any leaf, 'off' writes raw npy.  CRCs are recorded over the "
+          "stored (compressed) bytes and the decoded leaf; any other "
+          "value raises at the first disk write.")
 _register("mem_pool_bytes", 0, int,
           "Default logical device-memory arena size for "
           "RmmSpark.set_event_handler (0 = the caller must pass one).")

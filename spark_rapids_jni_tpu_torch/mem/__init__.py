@@ -15,12 +15,15 @@ exception family):
   query engine catches to roll back, spill, and retry.
 * :mod:`.executor` — :class:`TaskContext`, :func:`run_with_retry` and the
   translation of a real ``torch.OutOfMemoryError`` into the ladder.
-
-The tiered spill store (``Spillable``, ``SpillableStore``,
-``SpillFramework`` and their metrics) is ROADMAP item 13b.
+* :mod:`.spill` — the tiered spill store (the plugin-side
+  SpillableDeviceStore/SpillableHostStore equivalent): a central
+  registry with task-aware LRU eviction device -> host -> disk, a
+  bounded host tier and per-transition spill metrics; :mod:`.codec`
+  frames its disk leaves.
 """
 
 from .executor import (  # noqa: F401
+    Spillable,
     TaskContext,
     batch_nbytes,
     borrowed_task,
@@ -28,6 +31,15 @@ from .executor import (  # noqa: F401
     is_device_oom,
     run_with_retry,
     translate_device_oom,
+)
+from .spill import (  # noqa: F401
+    SpillableHandle,
+    SpillableStore,
+    SpillFramework,
+    SpillMetrics,
+    get_framework as get_spill_framework,
+    install as install_spill_framework,
+    shutdown as shutdown_spill_framework,
 )
 from .rmm_spark import (  # noqa: F401
     CpuRetryOOM,

@@ -15,11 +15,9 @@ same contract a first-class, testable piece of the framework:
   the CUDA caching allocator driven through the same ladder.
 * :func:`batch_nbytes` — device footprint of a ColumnBatch or of nested
   columns and tensors.
-
-The spill side of the reference's module (``Spillable``, the spill
-store's default ``make_spillable`` and the handles a context adopts and
-closes on exit) is ROADMAP item 13b; without it, a ``RetryOOM`` with no
-``make_spillable`` parks.
+* :class:`Spillable` — a batch registered with the spill store
+  (:mod:`.spill`); a ``TaskContext`` closes the handles it adopted when
+  it exits.
 """
 
 from __future__ import annotations
@@ -34,6 +32,7 @@ from typing import Callable, Optional
 import torch
 
 from ..columnar.column import ColumnBatch, StructColumn
+from . import spill as spill_mod
 from .rmm_spark import (
     CpuRetryOOM,
     CpuSplitAndRetryOOM,
@@ -99,16 +98,18 @@ class TaskContext:
     """``with TaskContext(task_id): ...`` — register + charge + release.
 
     ``charge(tree)`` draws the tree's byte footprint from the device
-    arena (raising the OOM ladder under pressure) and remembers it;
-    everything charged and not released is released when the context
-    exits, and the task's thread association is dropped (``task_done``
-    is the caller's call — a task spans many contexts across operators).
+    arena (raising the OOM ladder under pressure) and remembers it; on
+    exit the spill handles created under the context are closed, then
+    everything charged and not released is released, and the task's
+    thread association is dropped (``task_done`` is the caller's call — a
+    task spans many contexts across operators).
     """
 
     def __init__(self, task_id: int):
         self.task_id = task_id
         self._charged = 0
         self._lock = threading.Lock()
+        self._handles: set = set()
         self._prev_task_id = None
 
     def __enter__(self):
@@ -116,6 +117,15 @@ class TaskContext:
         self._prev_task_id = getattr(_task_tls, "task_id", None)
         _task_tls.task_id = self.task_id
         return self
+
+    # spill handles register here, so exit closes whatever the task left
+    def _adopt(self, handle):
+        with self._lock:
+            self._handles.add(handle)
+
+    def _forget(self, handle):
+        with self._lock:
+            self._handles.discard(handle)
 
     def charge(self, tree_or_bytes) -> int:
         n = (tree_or_bytes if isinstance(tree_or_bytes, int)
@@ -131,6 +141,13 @@ class TaskContext:
             self._charged -= nbytes
 
     def __exit__(self, *exc):
+        # adopted handles first: each releases its own charges, deletes
+        # its spill files and unregisters; what is left after is what the
+        # step charged directly and never released
+        with self._lock:
+            handles = list(self._handles)
+        for h in handles:
+            h.close()
         with self._lock:
             leftover, self._charged = self._charged, 0
         if leftover > 0:
@@ -210,8 +227,11 @@ def run_with_retry(
       a truthy freed byte count the retry happens at once WITHOUT
       parking: this thread's own deallocations already fired the
       wake-ups, so parking after them risks waiting for a signal that was
-      consumed before the wait began.  With no ``make_spillable`` the
-      thread parks.
+      consumed before the wait began.  With a spill framework installed,
+      ``make_spillable`` defaults to the store's eviction: a device
+      ``RetryOOM`` evicts other tasks' idle batches device -> host (LRU,
+      this task's pinned inputs skipped), a Cpu flavor demotes host
+      batches to disk.  With neither, the thread parks.
     * :class:`SplitAndRetryOOM`: call ``split()`` (the caller halves its
       input) and retry immediately — the scheduler guarantees this thread
       is the only one running.
@@ -228,6 +248,17 @@ def run_with_retry(
     Raises the last error when the ladder is exhausted.
     """
     step = translate_device_oom(step)
+    default_spill = make_spillable is None
+    if default_spill:
+        fw = spill_mod.get_framework()
+        if fw is not None:
+            tid = current_task_id()
+
+            def make_spillable(oom=None):
+                if isinstance(oom, (CpuRetryOOM, CpuSplitAndRetryOOM)):
+                    return fw.host_spill_to_fit()
+                return fw.spill_to_fit(requesting_task_id=tid)
+
     last = None
     for _ in range(max_retries):
         if cancel_check is not None:
@@ -253,8 +284,10 @@ def run_with_retry(
             # it would retry into the exact pressure that raised it)
             for _park_attempt in range(max_retries):
                 oom = last
-                freed = make_spillable() if make_spillable is not None \
-                    else None
+                freed = None
+                if make_spillable is not None:
+                    freed = (make_spillable(oom) if default_spill
+                             else make_spillable())
                 if freed:
                     break
                 # park on the arena that raised: Cpu* flavors block on
@@ -299,3 +332,14 @@ def borrowed_task(task_id: int, shuffle: bool = False):
     finally:
         _task_tls.task_id = prev
         RmmSpark.pool_thread_finished_for_tasks([task_id])
+
+
+class Spillable(spill_mod.SpillableHandle):
+    """A device batch that round-trips to host memory under pressure (the
+    reference plugin's "make inputs spillable" half of the retry
+    contract, ``RmmSpark.java:402-416``).  It is a
+    :class:`~.spill.SpillableHandle`: with a framework installed it
+    registers with the central store, gains the disk tier and
+    cross-task eviction, and is closed when its ``TaskContext`` exits;
+    without one ``spill()`` copies to host and ``get()`` uploads again.
+    ``run_with_retry(step, make_spillable=s.spill)`` still works."""

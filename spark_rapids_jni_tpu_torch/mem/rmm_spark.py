@@ -645,14 +645,24 @@ class RmmSpark:
     # spill metrics (tier transitions recorded by the spill store) -------
     @classmethod
     def spill_metrics(cls) -> dict:
-        """Global spill counters: the spill store is not ported yet."""
-        raise not_ported("RmmSpark.spill_metrics (the spill store)", 13)
+        """Global spill counters (zeros when no framework is installed)."""
+        from . import spill
+
+        fw = spill.get_framework()
+        if fw is None:
+            return dict.fromkeys(spill.SpillMetrics.FIELDS, 0)
+        return fw.metrics.snapshot()
 
     @classmethod
     def get_and_reset_task_spill_metrics(cls, task_id: int) -> dict:
-        """Per-task spill counters: the spill store is not ported yet."""
-        raise not_ported(
-            "RmmSpark.get_and_reset_task_spill_metrics (the spill store)", 13)
+        """Per-task spill counters, reset on read (the consume-once shape
+        of ``get_and_reset_num_retry``)."""
+        from . import spill
+
+        fw = spill.get_framework()
+        if fw is None:
+            return dict.fromkeys(spill.SpillMetrics.FIELDS, 0)
+        return fw.metrics.get_and_reset_task(task_id)
 
     # shuffle metrics (recorded by the shuffle package's registry) ------
     @classmethod

@@ -830,9 +830,13 @@ class PartitionScatter:
     each, shard-major): the leaves' dtypes, row shapes, row and element
     sizes, the device and its current stream are fixed here.
     :meth:`open_round` registers a round's chunk (``S * P * C`` rows per
-    leaf plus ``occ``) and, on the card, writes its pointers once into a
-    device table the kernel reads; a call then passes only the morsel's
-    pointers, its ``pid`` and ``base``.
+    leaf plus ``occ``) and, on the card, writes its pointers into a
+    device table the kernel reads (only when they changed since the
+    round's last opening); a call then passes only the morsel's
+    pointers, its ``pid`` and ``base``.  :meth:`release_round` drops the
+    references to a round's chunk between calls, so a chunk the spill
+    store demotes frees its device memory; open it again before the next
+    call that reaches it.
 
     Row ``i`` of shard ``s`` with ``d = pid[s*M + i]`` in ``[0, P)`` goes
     to ``k = base[s, d] + rank``, ``rank`` its stable position among the
@@ -859,6 +863,7 @@ class PartitionScatter:
         self._kinds = [(t.dtype, tuple(t.shape[1:])) for t in like_leaves]
         self.device = like_leaves[0].device
         self.rounds: Dict[int, tuple] = {}
+        self._ptrs: Dict[int, tuple] = {}  # pointers in the device table
         self._cuda = _on_cuda(list(like_leaves), what)
         if self._cuda:
             self._row_b = (_LL * n)(*[t.element_size() * t.shape[1:].numel()
@@ -892,6 +897,9 @@ class PartitionScatter:
         if self._cuda:
             _require(all(t.is_contiguous() for t in tensors),
                      f"{what}: chunks must be contiguous")
+            ptrs = tuple(t.data_ptr() for t in tensors)
+            if self._ptrs.get(int(rr)) == ptrs:
+                return
             cap = self._dir.shape[0]
             if rr >= cap:
                 grown = torch.zeros((max(2 * cap, rr + 1),
@@ -899,12 +907,18 @@ class PartitionScatter:
                                     device=self.device)
                 grown[:cap] = self._dir
                 self._dir = grown
-            self._dir[rr] = torch.tensor([t.data_ptr() for t in tensors],
-                                         dtype=torch.int64)
+            self._dir[rr] = torch.tensor(ptrs, dtype=torch.int64)
+            self._ptrs[int(rr)] = ptrs
+
+    def release_round(self, rr: int) -> None:
+        """Drop the references to a round's chunk until its next
+        :meth:`open_round`."""
+        self.rounds.pop(int(rr), None)
 
     def close_round(self, rr: int) -> None:
         """Forget a drained round (no later morsel can reach it)."""
         self.rounds.pop(int(rr), None)
+        self._ptrs.pop(int(rr), None)
 
     def __call__(self, morsel_leaves, pid: torch.Tensor, base: torch.Tensor,
                  r_lo: int, r_hi: int) -> None:

@@ -20,8 +20,9 @@ own rows and ``[1]``.  Replicated results (the domain group-by) are whole
 on every rank.  Counts are int64 (the reference's per-device int32 join
 count wraps past 2^31).  The reference's ``axis_name`` arguments have no
 counterpart: a mesh here has one axis, a :class:`~.mesh.HierMesh` two
-named levels.  Task-context charging (``ctx=``) and spill-registered
-broadcast builds are ROADMAP.md queue 1, item 13.
+named levels.  ``ctx=`` (a ``TaskContext``) charges the lossless
+exchange's buffers to the task's arena, and a broadcast build can be
+registered with the spill store (:func:`broadcast_build_handle`).
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .._roadmap import not_ported
 from ..columnar import types as T
 from ..columnar.column import Column, ColumnBatch
 from ..relational.aggregate import AggSpec, group_by
@@ -39,11 +39,6 @@ from .mesh import HierMesh
 from .partition import spark_partition_id
 from .shuffle import (bucket_counts, exchange, exchange_hierarchical,
                       plan_capacity, route_out_of_range)
-
-
-def _no_ctx(ctx, what: str) -> None:
-    if ctx is not None:
-        raise not_ported(f"charging {what} to a task context (ctx=)", 13)
 
 
 def _ones(batch: ColumnBatch) -> torch.Tensor:
@@ -97,11 +92,10 @@ def distributed_group_by(batch: ColumnBatch, key_names: Sequence[str],
     ``groupby_engine`` knob's engine (the slot-table build kernel by
     default).
     """
-    _no_ctx(ctx, "a distributed group-by")
     dev = batch.columns[0].device
     if capacity is None:
         shuffled, occ = _service_exchange(mesh, batch, key_names=key_names,
-                                          row_valid=row_valid)
+                                          row_valid=row_valid, ctx=ctx)
         dropped = _zeros(mesh, dev)
     else:
         pid = _key_pid(batch, key_names, mesh.size, row_valid)
@@ -176,11 +170,11 @@ def distributed_hash_join(left: ColumnBatch, right: ColumnBatch,
     """
     from ..relational.join import hash_join
 
-    _no_ctx(ctx, "a distributed hash join")
     dev = left.columns[0].device
     if capacity is None:
-        ls, locc = _service_exchange(mesh, left, key_names=left_on)
-        rs, rocc = _service_exchange(mesh, right, key_names=right_on)
+        ls, locc = _service_exchange(mesh, left, key_names=left_on, ctx=ctx)
+        rs, rocc = _service_exchange(mesh, right, key_names=right_on,
+                                     ctx=ctx)
         dropped = _zeros(mesh, dev, 2)
     else:
         P = mesh.size
@@ -201,9 +195,12 @@ def distributed_hash_join(left: ColumnBatch, right: ColumnBatch,
 
 def broadcast_build_handle(right: ColumnBatch, ctx=None,
                            name: Optional[str] = None):
-    """A spill-registered broadcast build: ROADMAP.md queue 1, item 13."""
-    raise not_ported("a spill-registered broadcast build "
-                     "(broadcast_build_handle)", 13)
+    """Register a broadcast join's build batch with the spill store under
+    the query's ``ctx``: a parked query's replicated build side can then
+    be demoted device -> host -> disk.  Pass the handle to
+    :func:`distributed_broadcast_join` as ``build=``; each call fetches it
+    through the retry ladder."""
+    return right.spillable(ctx=ctx, name=name or "broadcast-build")
 
 
 def distributed_broadcast_join(left: ColumnBatch,
@@ -224,7 +221,13 @@ def distributed_broadcast_join(left: ColumnBatch,
     :func:`distributed_hash_join`).  Returns ``(result, counts int64 per
     shard)``.  On a :class:`~.mesh.ProcessMesh` every rank passes the
     whole ``right``.
+
+    The build side can live in the spill store: pass ``build=`` (a handle
+    from :func:`broadcast_build_handle`, reusable across calls) or
+    ``ctx=`` (a handle is made for this call and closed after it).  The
+    handle is fetched through the retry ladder and pinned for the join.
     """
+    from ..mem.executor import run_with_retry
     from ..relational.join import hash_join, join_dense_or_hash
 
     if how in ("right", "full"):
@@ -234,22 +237,37 @@ def distributed_broadcast_join(left: ColumnBatch,
             "would emit its own copy) — use distributed_hash_join")
     if len(left_on) != len(right_on):
         raise ValueError("left_on/right_on length mismatch")
-    if build is not None:
-        raise not_ported("a spill-registered broadcast build (build=)", 13)
-    _no_ctx(ctx, "a broadcast build")
-    if right is None:
-        raise ValueError("need the right batch")
-    right = _to_device(right, mesh.device)
+    owned = None
+    if build is None and ctx is not None:
+        if right is None:
+            raise ValueError("ctx= registration needs the right batch")
+        owned = build = broadcast_build_handle(right, ctx=ctx)
 
-    def body(lb):
-        if dense_domain is not None and len(left_on) == 1:
-            return join_dense_or_hash(lb, right, left_on[0], right_on[0],
-                                      int(dense_domain), how,
-                                      capacity=out_capacity)
-        return hash_join(lb, right, list(left_on), list(right_on), how,
-                         capacity=out_capacity)
+    def join(rb):
+        rb = _to_device(rb, mesh.device)
 
-    return _per_shard(mesh, body, left)
+        def body(lb):
+            if dense_domain is not None and len(left_on) == 1:
+                return join_dense_or_hash(lb, rb, left_on[0], right_on[0],
+                                          int(dense_domain), how,
+                                          capacity=out_capacity)
+            return hash_join(lb, rb, list(left_on), list(right_on), how,
+                             capacity=out_capacity)
+
+        return _per_shard(mesh, body, left)
+
+    try:
+        if build is not None:
+            # pinned across the fetch and the join: the store may not
+            # demote the build side while it is in use
+            with build.pinned():
+                return join(run_with_retry(build.get))
+        if right is None:
+            raise ValueError("need either right= or build=")
+        return join(right)
+    finally:
+        if owned is not None:
+            owned.close()
 
 
 def _to_device(batch: ColumnBatch, device) -> ColumnBatch:
@@ -332,12 +350,11 @@ def distributed_sort(batch: ColumnBatch, key_names: Sequence[str], mesh,
     d-th global key range in sorted order, its live rows first.  With
     ``capacity`` unset the range exchange is the lossless service;
     an explicit ``capacity`` runs the fixed-grid exchange."""
-    _no_ctx(ctx, "a distributed sort")
     P = mesh.size
     splitters = _sample_splitters(batch, key_names, mesh)
     pid = _range_pid(batch, key_names, splitters, P)
     if capacity is None:
-        shuffled, occ = _service_exchange(mesh, batch, pid=pid)
+        shuffled, occ = _service_exchange(mesh, batch, pid=pid, ctx=ctx)
         dropped = _zeros(mesh, pid.device)
     else:
         shuffled, occ, dropped = exchange(batch, pid, mesh, capacity)

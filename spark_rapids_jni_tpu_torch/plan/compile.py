@@ -20,8 +20,9 @@ lowering rules, which are the hand-fused pipelines factored:
   general ``hash_join`` (always the general one when any input column
   is encoded: the rowid path keys on a plain column's raw data, as in
   the reference); a broadcast join (adaptive decision) probes a
-  resident prebuilt :class:`~..relational.join.BuildTable` pinned to the
-  engine the plan decided.
+  prebuilt :class:`~..relational.join.SpillableBuildTable` pinned to the
+  engine the plan decided and registered with the spill store under the
+  query's ``ctx``.
 * Aggregate -> ``group_by_onehot`` / ``group_by_domain_or_sort`` /
   ``group_by`` by the hand paths' dispatch (a string or other non-int
   key takes the general ``group_by``).
@@ -38,6 +39,7 @@ cache misses), so a repeated shape compiles nothing.
 
 from __future__ import annotations
 
+import contextlib
 import operator
 from typing import Optional
 
@@ -341,9 +343,9 @@ def _lower_aggregate(node: ir.Aggregate, env, prebuilts, st):
 # ---------------------------------------------------------------------------
 
 class CompiledPlan:
-    """One compiled plan: the lowering closure, its resident broadcast
-    build tables (with the scan each was built from) and the recorded
-    adaptive decisions.  ``last_lookup`` says whether the latest
+    """One compiled plan: the lowering closure, its spill-registered
+    broadcast build tables (with the scan each was built from) and the
+    recorded adaptive decisions.  ``last_lookup`` says whether the latest
     :func:`compile_plan` returning this object was a cache hit."""
 
     def __init__(self, plan, key, fn, input_names, build_handles,
@@ -352,20 +354,34 @@ class CompiledPlan:
         self.key = key
         self.fn = fn
         self.input_names = input_names
-        self.build_handles = build_handles  # [(scan name, BuildTable)]
+        # [(scan name, SpillableBuildTable)]
+        self.build_handles = build_handles
         self.decisions = decisions
         self.last_lookup = "miss"
 
     def __call__(self, inputs: dict):
+        from ..mem.executor import run_with_retry
+
         missing = [n for n in self.input_names if n not in inputs]
         if missing:
             raise KeyError(f"plan inputs missing: {missing}")
         env = {n: inputs[n] for n in self.input_names}
-        # a cached plan reused over new build-side data rebuilds its
-        # table for that data instead of probing the stale one
-        prebuilts = tuple(h.for_batch(env[name])
-                          for name, h in self.build_handles)
-        return self.fn(env, prebuilts)
+        with contextlib.ExitStack() as pins:
+            prebuilts = []
+            for name, h in self.build_handles:
+                # pinned while the plan runs: an evictor may not drop a
+                # table in use; a dropped one is rebuilt by get(), and a
+                # cached plan over new build-side data rebuilds for it
+                pins.enter_context(h.pinned())
+                run_with_retry(lambda h=h, b=env[name]: h.for_batch(b))
+                prebuilts.append(run_with_retry(h.get))
+            return self.fn(env, tuple(prebuilts))
+
+    @property
+    def closed(self) -> bool:
+        """A broadcast table was closed (its task context ended): the
+        plan must compile again."""
+        return any(h.tier == "closed" for _name, h in self.build_handles)
 
     def close(self):
         for _name, h in self.build_handles:
@@ -374,8 +390,11 @@ class CompiledPlan:
 
 def _resolve_join_plans(plan, inputs, decisions, ctx):
     """Walk-order physical join plans, aggregate hints and the broadcast
-    build tables, each pinned to the engine the plan decided."""
-    from ..relational.join import build_table
+    build tables, each pinned to the engine the plan decided and
+    registered with the spill store under ``ctx``: a parked query's
+    broadcast can be evicted and comes back in the decided engine's
+    shape."""
+    from ..relational.join import spillable_build_table
 
     join_plans = []
     agg_hints = []
@@ -403,9 +422,9 @@ def _resolve_join_plans(plan, inputs, decisions, ctx):
                         "broadcast join needs a Scan build side bound "
                         "to an input batch")
                 engine = d.get("engine") or adaptive.choose_join_engine()
-                h = build_table(rb, [node.right_on], ctx=ctx,
-                                name=f"plan-bcast-{ji}-{node.left_on}",
-                                engine=engine)
+                h = spillable_build_table(
+                    rb, [node.right_on], ctx=ctx,
+                    name=f"plan-bcast-{ji}-{node.left_on}", engine=engine)
                 info["prebuilt"] = len(handles)
                 info["engine"] = engine
                 handles.append((node.right.name, h))
@@ -433,17 +452,17 @@ def _default_stats() -> Optional[dict]:
 def compile_plan(plan: ir.PlanNode, inputs: dict, ctx=None,
                  stats: Optional[dict] = None) -> CompiledPlan:
     """Compile ``plan`` against the schemas and stats of ``inputs`` (scan
-    name -> ``ColumnBatch``), consulting the plan cache first.  ``stats``
-    feeds :func:`adaptive.plan_decisions` and defaults to the shuffle
-    registry's recorded metrics.  ``ctx`` (task-context charging of the
-    broadcast tables) is ROADMAP.md queue 1, item 13."""
+    name -> ``ColumnBatch``), consulting the plan cache first.  ``ctx``
+    (a ``TaskContext``) owns the broadcast build tables the plan creates;
+    ``stats`` feeds :func:`adaptive.plan_decisions` and defaults to the
+    shuffle registry's recorded metrics."""
     if stats is None:
         stats = _default_stats()
     decisions = adaptive.plan_decisions(plan, inputs, stats)
     key = plan_cache_key(plan, inputs, decisions)
     cache = get_plan_cache()
     cached = cache.get(key)
-    if cached is not None:
+    if cached is not None and not cached.closed:
         cached.last_lookup = "hit"
         return cached
 

@@ -21,8 +21,10 @@ Counterpart of ``spark_rapids_jni_tpu/relational/join.py``:
   Matches enumerate in original right-row order and expand through the
   offsets/searchsorted expansion, padded to a static ``capacity``: the
   live rows are bit-identical to the reference's engines.
-* :func:`build_table`: a resident prebuilt build table for
-  ``hash_join(prebuilt=)`` (the plan compiler's broadcast joins).
+* :func:`spillable_build_table`: a prebuilt build table for
+  ``hash_join(prebuilt=)`` (the plan compiler's broadcast joins),
+  registered with the spill store: eviction drops it and the next
+  ``get()`` rebuilds it.
 * :func:`join_dense_or_hash`: when the build side's keys are unique ints
   in ``[0, domain)`` (dense surrogate keys, every TPC-DS dimension; plain
   int columns only) an inner join is a rowid table plus gathers;
@@ -46,7 +48,6 @@ from typing import Optional, Sequence
 import torch
 
 from .. import config
-from .._roadmap import not_ported
 from ..columnar import types as T
 from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
                                StringColumn)
@@ -54,6 +55,8 @@ from ..columnar.encoded import (BitPackedColumn, DictionaryColumn,
                                 FrameOfReferenceColumn, RunLengthColumn,
                                 align_encoded_key_columns, is_encoded,
                                 materialize_column, pack_bits)
+from ..mem.executor import batch_nbytes, run_with_retry
+from ..mem.spill import SpillableHandle
 from . import keys as K
 from .filter import compact
 from .gather import gather_batch
@@ -181,8 +184,10 @@ def hash_join(left: ColumnBatch, right: ColumnBatch,
 
     ``engine``: ``'kernel' | 'sort' | 'auto'`` (default: the
     ``join_engine`` knob).  ``prebuilt`` skips the build: a
-    :class:`BuildTable` from :func:`build_table` (probed under the
-    engine it was built with), or a raw build product of the engine
+    :class:`SpillableBuildTable` from :func:`spillable_build_table`
+    (fetched pinned through the retry ladder, rebuilt if it was dropped,
+    and probed under the engine of its latest build), or a raw build
+    product of the engine
     this call resolves to (:func:`_hash_build`'s tuple, or
     ``(*sorted_rkeys, rperm)``).  It must have been built from the same
     ``right`` / ``right_on`` / ``right_valid``; nothing re-validates
@@ -202,11 +207,15 @@ def hash_join(left: ColumnBatch, right: ColumnBatch,
                          suffixes=(suffixes[1], suffixes[0]),
                          left_valid=right_valid, right_valid=left_valid,
                          engine=engine)
-    if isinstance(prebuilt, BuildTable):
-        return hash_join(left, right, left_on, right_on, how,
-                         capacity=capacity, suffixes=suffixes,
-                         left_valid=left_valid, right_valid=right_valid,
-                         prebuilt=prebuilt.get(), engine=prebuilt.engine)
+    if isinstance(prebuilt, SpillableBuildTable):
+        # pinned across the probe: an evictor may not drop the table
+        # (releasing its charge) while it is in use
+        with prebuilt.pinned():
+            built = run_with_retry(prebuilt.get)
+            return hash_join(left, right, left_on, right_on, how,
+                             capacity=capacity, suffixes=suffixes,
+                             left_valid=left_valid, right_valid=right_valid,
+                             prebuilt=built, engine=prebuilt.engine)
     engine = _resolve_join_engine(engine)
     nl, nr = left.num_rows, right.num_rows
     padded_right = nr == 0
@@ -467,39 +476,40 @@ def _concat_batches(a: ColumnBatch, b: ColumnBatch) -> ColumnBatch:
 
 
 # ---------------------------------------------------------------------------
-# resident build tables (the broadcast join's prebuilt side)
+# spillable build tables: eviction drops, read-back rebuilds
 # ---------------------------------------------------------------------------
 
-class BuildTable:
-    """A join build table over ``right[right_on]``, resident on the
-    device until closed, over any number of plain key columns (its
-    slot records carry all their words): the counterpart of the
-    reference's ``SpillableBuildTable`` without spill (a spill-registered table that
-    is dropped under pressure and rebuilt on read is ROADMAP.md queue 1,
-    item 13).  ``engine`` is pinned at construction.
+class SpillableBuildTable(SpillableHandle):
+    """A join build table over ``right[right_on]`` (over any number of
+    plain key columns: its slot records carry all their words),
+    registered with the spill store as a handle whose payload is
+    recomputed rather than copied: ``spill()`` drops the device table and
+    releases its charge (tier ``"dropped"``, no host or disk copy), and
+    ``get()`` rebuilds it through the ``recompute=`` lineage path,
+    counting ``rebuilds``.  The build side's key columns stay with the
+    table, as the source they are rebuilt from.
 
-    ``source`` is the batch the table was built from;
-    :meth:`for_batch` rebuilds it when handed a different batch, so a
-    plan reused over new build-side data never probes a stale table.
+    ``engine=None`` reads the ``join_engine`` knob at every (re)build;
+    ``engine`` records the engine of the latest build, which the probe
+    follows.  An explicit engine pins it across rebuilds (the plan
+    compiler pins what it decided).  :meth:`for_batch` rebuilds the table
+    over a different batch, so a plan reused over new build-side data
+    never probes a stale table.
     """
 
     def __init__(self, right: ColumnBatch, right_on: Sequence[str],
-                 right_valid=None, name: Optional[str] = None,
+                 right_valid=None, ctx=None, name: Optional[str] = None,
                  engine=None):
-        if right.num_rows == 0:
-            raise ValueError("cannot pre-build an empty build side")
-        self.name = name
         self.right_on = tuple(right_on)
-        self.engine = _resolve_join_engine(engine)
         self._right_valid = right_valid
-        self._tree = None
-        self.for_batch(right)
+        self._engine_pin = engine
+        self._rcols = self._key_columns(right)
+        self.source = right
+        super().__init__(self._build(), ctx=ctx,
+                         name=name or f"build-table-{id(self):x}",
+                         recompute=self._build)
 
-    def for_batch(self, right: ColumnBatch) -> "BuildTable":
-        """The table for ``right``: this one when it was built from
-        ``right``, else rebuilt from it."""
-        if self._tree is not None and right is self.source:
-            return self
+    def _key_columns(self, right: ColumnBatch) -> list:
         if right.num_rows == 0:
             raise ValueError("cannot pre-build an empty build side")
         rcols = [right[k] for k in self.right_on]
@@ -510,29 +520,74 @@ class BuildTable:
                 "depends on the probe side (align_string_key_columns)")
         if self._right_valid is not None:
             rcols = _with_validity(rcols, self._right_valid)
-        rkeys = K.batch_radix_keys(rcols, equality=True, nulls_first=False)
-        self._tree = _build(rkeys, right.num_rows, self.engine)
-        self.source = right
-        return self
+        return rcols
 
-    def get(self) -> tuple:
-        if self._tree is None:
-            raise RuntimeError(f"build table {self.name!r} is closed")
-        return self._tree
+    def _build(self) -> tuple:
+        self.engine = _resolve_join_engine(self._engine_pin)
+        rkeys = K.batch_radix_keys(self._rcols, equality=True,
+                                   nulls_first=False)
+        return _build(rkeys, self._rcols[0].num_rows, self.engine)
 
-    def close(self) -> None:
-        self._tree = None
+    @property
+    def rebuilds(self) -> int:
+        return self.lineage_rebuilds
+
+    def for_batch(self, right: ColumnBatch) -> "SpillableBuildTable":
+        """This table for ``right``: as it is when it was built from
+        ``right``, else rebuilt from it and charged anew."""
+        with self._lock:
+            if self._closed:
+                raise ValueError(f"{self.name} is closed")
+            if right is self.source:
+                return self
+            self._rcols = self._key_columns(right)
+            self._tree = None
+            if self._ctx is not None and self._device_charged:
+                self._ctx.release(self._device_charged)
+                self._device_charged = 0
+            tree = self._build()
+            self._lineage_nbytes = batch_nbytes(tree)
+            if self._ctx is not None:
+                self._device_charged = self._ctx.charge(self._lineage_nbytes)
+            self._tree = tree
+            self.source = right
+            return self
+
+    def spill(self) -> int:
+        if not self._lock.acquire(blocking=False):
+            return 0  # busy in another thread's get(): treat as pinned
+        try:
+            if self._closed or self._tree is None or self._pins > 0:
+                return 0
+            self._tree = None
+            freed = self._device_charged
+            if self._ctx is not None and self._device_charged:
+                self._ctx.release(self._device_charged)
+                self._device_charged = 0
+            if self._fw is not None:
+                # dropping is this handle's device -> host transition for
+                # the accounting: zero bytes moved, one eviction
+                self._fw.metrics.record("device_to_host", 0, self.task_id)
+            return freed
+        finally:
+            self._lock.release()
+
+    spill_host = spill  # no host tier to demote; keep the interface
+
+    def close(self):
+        super().close()
+        self._rcols = None
         self.source = None
 
 
-def build_table(right: ColumnBatch, right_on: Sequence[str],
-                right_valid=None, ctx=None, name: Optional[str] = None,
-                engine=None) -> BuildTable:
-    """Build a :class:`BuildTable` to pass as ``hash_join(prebuilt=)``
-    (the reference's ``spillable_build_table``); ``ctx`` charging is
-    ROADMAP.md queue 1, item 13."""
-    if ctx is not None:
-        raise not_ported("charging a build table to a task context (ctx=)",
-                         13)
-    return BuildTable(right, right_on, right_valid=right_valid, name=name,
-                      engine=engine)
+def spillable_build_table(right: ColumnBatch, right_on: Sequence[str],
+                          right_valid=None, ctx=None,
+                          name: Optional[str] = None,
+                          engine=None) -> SpillableBuildTable:
+    """Build a :class:`SpillableBuildTable` to pass as
+    ``hash_join(prebuilt=)``, charged to ``ctx`` when given.  Raises for
+    string join keys (their key width follows the probe side) and for an
+    empty build side.  Close it when done."""
+    return SpillableBuildTable(right, right_on, right_valid=right_valid,
+                               ctx=ctx, name=name, engine=engine)
+

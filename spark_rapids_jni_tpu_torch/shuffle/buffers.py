@@ -1,12 +1,16 @@
-"""Partition buffers of the exchange: map output and round chunks.
+"""Spillable partition buffers of the exchange: map output and round
+chunks that demote instead of running out of memory.
 
-Counterpart of ``spark_rapids_jni_tpu/shuffle/buffers.py`` as RESIDENT
-holders: a buffer keeps its tree of tensors on the device until it is
-closed.  The reference registers each buffer with its spill store so
-arena pressure demotes it device -> host -> disk, charges it to a task
-context, and rebuilds a lost copy from map lineage; spill registration,
-``ctx=`` charging, ``recompute=`` lineage and store adoption are
-ROADMAP.md queue 1, item 13.
+Counterpart of ``spark_rapids_jni_tpu/shuffle/buffers.py``: each buffer
+wraps one :class:`~..mem.spill.SpillableHandle` registered with the spill
+store, so an exchange whose buffers exceed the device arena degrades the
+reference's way (idle buffers walk device -> host -> disk under the
+store's cross-task LRU order), and both the creation charge (to the
+``ctx`` task) and the read-back run under
+:func:`~..mem.executor.run_with_retry`: a ``RetryOOM`` evicts OTHER
+buffers (earlier round chunks, the map output) instead of failing the
+exchange.  Map lineage (``recompute=``) and store adoption are ROADMAP.md
+queue 1, item 13c.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import torch
 from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
                                StringColumn)
 from ..columnar.encoded import DictionaryColumn
+from ..mem.executor import run_with_retry
+from ..mem.spill import SpillableHandle
 
 
 def column_leaves(col) -> list:
@@ -83,29 +89,41 @@ def tree_nbytes(tree) -> int:
 
 
 class PartitionBuffer:
-    """One resident tree (a map output, or a received round chunk)."""
+    """One spillable tree (a map output, or a received round chunk) with
+    its creation and read-back under the retry ladder.  With no spill
+    framework the handle still round-trips device <-> host on demand;
+    with no ``ctx`` the arena is not charged.  ``nbytes`` is the tree's
+    size for the exchange's byte accounting."""
 
-    def __init__(self, tree, name: Optional[str] = None):
+    def __init__(self, tree, ctx=None, name: Optional[str] = None):
         self.name = name
-        self._tree = tree
         self.nbytes = tree_nbytes(tree)
+        # the creation charge is the retryable unit: under pressure the
+        # default make_spillable evicts idle handles and charges again
+        self._handle = run_with_retry(
+            lambda: SpillableHandle(tree, ctx=ctx, name=name))
 
     def get(self):
-        if self._tree is None:
-            raise RuntimeError(f"buffer {self.name!r} is closed")
-        return self._tree
+        """The device tree, promoted (and charged again) under the retry
+        ladder if it was evicted."""
+        return run_with_retry(self._handle.get)
+
+    def pinned(self):
+        return self._handle.pinned()
 
     def close(self) -> None:
-        self._tree = None
+        self._handle.close()
 
 
 class MorselBuffer(PartitionBuffer):
-    """One mapped morsel in flight: its regrouped rows and ``[P, P]``
-    count matrix, alive only between the map step and the scatter into
-    its round chunks."""
+    """One mapped morsel in flight: its rows and partition ids, alive
+    only between the map step and the scatter into its round chunks
+    (pinned throughout: it only charges the arena)."""
 
 
 class RoundChunk(PartitionBuffer):
     """The send-side state of ONE streaming round: ``P * P * capacity``
     slot rows (sender-major, then destination-major) plus their
-    occupancy, written in place scatter by scatter as morsels arrive."""
+    occupancy, written in place scatter by scatter as morsels arrive.
+    Between scatters it is an idle buffer the store may demote; a
+    scatter pins it and writes into its promoted tensors."""

@@ -45,13 +45,17 @@ bit-identical, shard for shard, to the reference's on its P-device mesh.
 * **drain + reassemble + account**: rows received must equal rows sent,
   else :class:`ShuffleError` — ``dropped == 0`` is an invariant.
 
-Buffers are resident (:mod:`.buffers`); spill, task-context charging,
-lineage recovery and the durable store are ROADMAP.md queue 1, item 13;
-the ``shuffle_io_round`` fault probe is item 17.
+Buffers are spillable (:mod:`.buffers`): with ``ctx=`` each map output,
+morsel and round chunk is charged to the task's arena, and an idle one
+is demoted device -> host -> disk when a charge does not fit; the bytes
+the exchange saw demoted are ``spilled_bytes``.  Lineage recovery and the
+durable store (``store_key=``) are ROADMAP.md queue 1, item 13c; the
+``shuffle_io_round`` fault probe is item 17.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -95,6 +99,7 @@ class ShuffleResult:
     bytes_moved: int
     skew_ratio: float
     oob_rows: int
+    spilled_bytes: int = 0          # bytes demoted while it ran
     streamed: bool = False          # produced by exchange_stream
     morsels: int = 0                # morsels mapped (streamed only)
     rounds_overlapped: int = 0      # rounds drained before end-of-stream
@@ -197,12 +202,33 @@ def _resolve_compress() -> str:
     return compress
 
 
-def _no_ctx_store(ctx, store_key) -> None:
-    if ctx is not None:
-        raise not_ported("charging an exchange to a task context (ctx=)",
-                         13)
+def _no_store(store_key) -> None:
     if store_key is not None:
         raise not_ported("the persistent shuffle store (store_key=)", 13)
+
+
+def _spill_snapshot() -> Optional[int]:
+    """Bytes the installed spill framework has demoted so far (device ->
+    host plus host -> disk), or None without one."""
+    from ..mem import spill as spill_mod
+
+    fw = spill_mod.get_framework()
+    if fw is None:
+        return None
+    m = fw.metrics.snapshot()
+    return m["device_to_host_bytes"] + m["host_to_disk_bytes"]
+
+
+def _spilled_since(base: Optional[int]) -> int:
+    after = _spill_snapshot()
+    return 0 if base is None or after is None else after - base
+
+
+def _schema_like(batch: ColumnBatch) -> ColumnBatch:
+    """``batch``'s schema over zero-row leaves of the same dtypes: a
+    template that holds none of its device memory."""
+    return rebatch(batch, [x.new_empty((0,) + tuple(x.shape[1:]))
+                           for x in batch_leaves(batch)])
 
 
 # ---------------------------------------------------------------------------
@@ -370,11 +396,13 @@ class ShuffleService:
         caller-supplied ``pid`` (int32 per row; P = padding).
         Out-of-range ids raise :class:`ShuffleError` when ``strict``
         (default: the ``shuffle_strict_pids`` knob), else they go to the
-        null partition and are counted in ``oob_rows``.
+        null partition and are counted in ``oob_rows``.  ``ctx`` (a
+        ``TaskContext``) charges the map output and the round chunks to
+        the task's arena; under pressure idle ones spill.
         """
         if (key_names is None) == (pid is None):
             raise ValueError("pass exactly one of key_names / pid")
-        _no_ctx_store(ctx, store_key)
+        _no_store(store_key)
         compress = _resolve_compress()
         if strict is None:
             strict = bool(config.get("shuffle_strict_pids"))
@@ -395,6 +423,7 @@ class ShuffleService:
             batch, dicts = detach_dictionaries(batch)
         batch_leaves(batch)  # every column can cross, or this raises
         sid = self.registry.begin_shuffle()
+        spill_base = _spill_snapshot()
 
         # 1. map: regroup destination-major + the count matrix
         if key_names is not None:
@@ -412,16 +441,20 @@ class ShuffleService:
         # which leaves cross bit-packed
         plan = plan_rounds(counts_np, round_rows=round_rows)
         C = plan.capacity
-        like_leaves = batch_leaves(regrouped)
+        like = _schema_like(regrouped)
+        like_leaves = batch_leaves(like)
         wire = _pack_plan(regrouped, dicts, compress, mesh)
         saved_per_chunk = _plan_saved_bytes(wire, like_leaves, P, C)
 
-        # 3. drain round r: slots [r*C, (r+1)*C) of every bucket
-        map_buf = PartitionBuffer((regrouped, counts),
+        # 3. drain round r: slots [r*C, (r+1)*C) of every bucket; the map
+        # output is fetched (promoted if it was evicted) and pinned per
+        # round, and no reference to it outlives the round
+        map_buf = PartitionBuffer((regrouped, counts), ctx=ctx,
                                   name=f"shuffle{sid}-map")
+        del regrouped
         chunks = []
         try:
-            tree, cnts = map_buf.get()
+            cnts = counts
             dev = cnts.device
             offsets = torch.cumsum(cnts, 1) - cnts
             shard0 = (torch.arange(L, dtype=torch.int64, device=dev)
@@ -433,18 +466,27 @@ class ShuffleService:
                 occ = k < cnts[:, :, None]            # [L, P_d, C]
                 src = (offsets[:, :, None] + k).clamp(0, max(R - 1, 0))
                 idx = (src + shard0).reshape(-1)
-                if wire is None:
-                    out, occ_t = send_rows(mesh, tree, idx, occ.reshape(-1))
-                    out = batch_leaves(out)
-                else:
-                    out, occ_t = _send_packed(mesh, tree, idx,
-                                              occ.reshape(-1), wire, C)
+                with map_buf.pinned():
+                    tree = map_buf.get()[0]
+                    if wire is None:
+                        out, occ_t = send_rows(mesh, tree, idx,
+                                               occ.reshape(-1))
+                        out = batch_leaves(out)
+                    else:
+                        out, occ_t = _send_packed(mesh, tree, idx,
+                                                  occ.reshape(-1), wire, C)
+                    del tree
                 received += _occ_rows(occ_t, wire is not None)
                 chunks.append(PartitionBuffer(
-                    (out, occ_t), name=f"shuffle{sid}-round{r}"))
+                    (out, occ_t), ctx=ctx, name=f"shuffle{sid}-round{r}"))
+                del out, occ_t
             # every shard's grids are the same size: the mesh moved P / L
             # times what this process holds
             bytes_moved = sum(c.nbytes for c in chunks) * P // L
+
+            # nothing re-drives a round (lineage is 13c): the map output
+            # goes now, and each chunk as its rows join the output
+            map_buf.close()
 
             # 4. account + reassemble
             sent = int(counts_np.sum())
@@ -459,14 +501,16 @@ class ShuffleService:
             parts = []
             for c in chunks:
                 leaves, occ_v = _unpack_chunk(*c.get(), wire, like_leaves, C)
+                c.close()
                 parts.append(leaves + [occ_v])
             merged = _concat_rounds(parts, L)
-            final_batch = rebatch(regrouped, merged[:-1])
+            final_batch = rebatch(like, merged[:-1])
             final_occ = merged[-1]
         finally:
             map_buf.close()
             for c in chunks:
                 c.close()
+        spilled = _spilled_since(spill_base)
 
         if dicts:
             # the dictionaries cross once, beside the rounds
@@ -475,7 +519,7 @@ class ShuffleService:
         compressed_saved = saved_per_chunk * plan.rounds
         info = ShuffleInfo(
             shuffle_id=sid, rounds=plan.rounds, capacity=C,
-            rows_moved=got, bytes_moved=bytes_moved, spilled_bytes=0,
+            rows_moved=got, bytes_moved=bytes_moved, spilled_bytes=spilled,
             skew_ratio=plan.skew_ratio, oob_rows=oob_total,
             compressed_bytes_saved=compressed_saved)
         self.registry.record(info)
@@ -483,7 +527,8 @@ class ShuffleService:
             batch=final_batch, occupancy=final_occ, shuffle_id=sid,
             rounds=plan.rounds, capacity=C, rows_moved=got,
             bytes_moved=bytes_moved, skew_ratio=plan.skew_ratio,
-            oob_rows=oob_total, compressed_bytes_saved=compressed_saved)
+            oob_rows=oob_total, spilled_bytes=spilled,
+            compressed_bytes_saved=compressed_saved)
 
     def exchange_stream(self, morsels,
                         key_names: Optional[Sequence[str]] = None, ctx=None,
@@ -512,9 +557,11 @@ class ShuffleService:
         largest bucket needs.  Each morsel costs one host read of its
         count matrix and oob count (``sync_ms``; on ranks, after an
         all-gather of every rank's count row, so every rank plans the
-        same drains).
+        same drains).  ``ctx`` charges each morsel and round chunk to the
+        task's arena; idle round chunks spill under pressure, and a
+        scatter or drain pins the chunks it touches.
         """
-        _no_ctx_store(ctx, store_key)
+        _no_store(store_key)
         compress = _resolve_compress()
         if strict is None:
             strict = bool(config.get("shuffle_strict_pids"))
@@ -528,6 +575,7 @@ class ShuffleService:
         first = 0 if mesh.holds_all else mesh.first_shard
         gather = None if mesh.holds_all else mesh
         sid = self.registry.begin_shuffle()
+        spill_base = _spill_snapshot()
         C = plan_stream_capacity(round_rows=round_rows)
 
         cum = np.zeros((P, P), np.int64)
@@ -558,25 +606,39 @@ class ShuffleService:
                       for x in m_leaves]
             occ = torch.zeros((L * P * C,), dtype=torch.bool,
                               device=m_leaves[0].device)
-            send_chunks[rr] = RoundChunk((leaves, occ),
+            send_chunks[rr] = RoundChunk((leaves, occ), ctx=ctx,
                                          name=f"shuffle{sid}-send{rr}")
-            scatter.open_round(rr, leaves, occ)
+
+        def scatter_morsel(m_leaves, m_pid, lo, hi):
+            # the rounds' chunks pinned and promoted, their tensors
+            # (re)opened, one launch, then the references dropped so an
+            # idle chunk can spill
+            with contextlib.ExitStack() as pins:
+                for rr in range(lo, hi + 1):
+                    chunk = send_chunks[rr]
+                    pins.enter_context(chunk.pinned())
+                    scatter.open_round(rr, *chunk.get())
+                scatter(m_leaves, m_pid, cum_dev, lo, hi)
+                for rr in range(lo, hi + 1):
+                    scatter.release_round(rr)
 
         def drain_round(rr):
             chunk = send_chunks[rr]
-            leaves, occ = chunk.get()
-            if wire is None:
-                out = [mesh.all_to_all(x) for x in leaves]
-                occ_t = mesh.all_to_all(occ)
-            else:
-                rows = L * P
-                out = [mesh.all_to_all(
-                    x if sp is None else _pack_leaf(x, sp, rows))
-                    for x, sp in zip(leaves, wire)]
-                occ_t = mesh.all_to_all(_pack_leaf(occ, _BIT, rows))
-            recv.append(PartitionBuffer((out, occ_t),
+            with chunk.pinned():
+                leaves, occ = chunk.get()
+                if wire is None:
+                    out = [mesh.all_to_all(x) for x in leaves]
+                    occ_t = mesh.all_to_all(occ)
+                else:
+                    rows = L * P
+                    out = [mesh.all_to_all(
+                        x if sp is None else _pack_leaf(x, sp, rows))
+                        for x, sp in zip(leaves, wire)]
+                    occ_t = mesh.all_to_all(_pack_leaf(occ, _BIT, rows))
+                del leaves, occ
+            recv.append(PartitionBuffer((out, occ_t), ctx=ctx,
                                         name=f"shuffle{sid}-recv{rr}"))
-            chunk.close()  # resident: nothing re-drives a drained round
+            chunk.close()  # nothing re-drives a drained round (13c)
             scatter.close_round(rr)
 
         try:
@@ -596,7 +658,8 @@ class ShuffleService:
                         f"ids (strict mode; ids must lie in [0, {P}])")
                 m_leaves = [x.contiguous() for x in batch_leaves(b)]
                 if like is None:
-                    like, like_leaves = b, m_leaves
+                    like = _schema_like(b)
+                    like_leaves = batch_leaves(like)
                     scatter = PartitionScatter(m_leaves, L, P, C)
                     cum_dev = torch.zeros((L, P), dtype=torch.int64,
                                           device=pid.device)
@@ -608,32 +671,34 @@ class ShuffleService:
                 cum = cum + counts_np
                 m_idx = n_morsels
                 n_morsels += 1
-                mbuf = MorselBuffer((m_leaves, pid),
+                mbuf = MorselBuffer((m_leaves, pid), ctx=ctx,
                                     name=f"shuffle{sid}-morsel{m_idx}")
+                del b
                 try:
-                    m_leaves, m_pid = mbuf.get()
-                    if m_idx == 0:
-                        # round 0 always exists: an all-empty stream
-                        # still drains one schema-bearing empty round
-                        open_chunk(0, m_leaves)
-                    nz = counts_np > 0
-                    if nz.any():
-                        r_lo = int((base[nz] // C).min())
-                        r_hi = int(((cum[nz] - 1) // C).max())
-                        for rr in range(r_lo, r_hi + 1):
-                            if rr not in send_chunks:
-                                open_chunk(rr, m_leaves)
-                        mine = counts_np[first:first + L] > 0
-                        if mine.any():
-                            # this process's rows: one launch for every
-                            # round they touch; cum_dev is their base
-                            m_lo = int((base[first:first + L][mine]
-                                        // C).min())
-                            m_hi = int(((cum[first:first + L][mine] - 1)
-                                        // C).max())
-                            scatter(m_leaves, m_pid, cum_dev, m_lo, m_hi)
-                            scatters += m_hi - m_lo + 1
-                        cum_dev += counts
+                    with mbuf.pinned():
+                        m_leaves, m_pid = mbuf.get()
+                        if m_idx == 0:
+                            # round 0 always exists: an all-empty stream
+                            # still drains one schema-bearing empty round
+                            open_chunk(0, m_leaves)
+                        nz = counts_np > 0
+                        if nz.any():
+                            r_lo = int((base[nz] // C).min())
+                            r_hi = int(((cum[nz] - 1) // C).max())
+                            for rr in range(r_lo, r_hi + 1):
+                                if rr not in send_chunks:
+                                    open_chunk(rr, m_leaves)
+                            mine = counts_np[first:first + L] > 0
+                            if mine.any():
+                                # this process's rows: one launch for every
+                                # round they touch; cum_dev is their base
+                                m_lo = int((base[first:first + L][mine]
+                                            // C).min())
+                                m_hi = int(((cum[first:first + L][mine] - 1)
+                                            // C).max())
+                                scatter_morsel(m_leaves, m_pid, m_lo, m_hi)
+                                scatters += m_hi - m_lo + 1
+                            cum_dev += counts
                 finally:
                     mbuf.close()
                 # early drain: rounds no future morsel can touch
@@ -668,6 +733,7 @@ class ShuffleService:
             parts = []
             for b in recv:
                 leaves, occ_v = _unpack_chunk(*b.get(), wire, like_leaves, C)
+                b.close()  # its rows join the output
                 parts.append(leaves + [occ_v])
             merged = _concat_rounds(parts, L)
             final_batch = rebatch(like, merged[:-1])
@@ -677,6 +743,7 @@ class ShuffleService:
                 c.close()
             for b in recv:
                 b.close()
+        spilled = _spilled_since(spill_base)
 
         # the materialized planner over the FINAL counts supplies the skew
         # diagnostics; rounds/capacity record what actually ran
@@ -692,7 +759,7 @@ class ShuffleService:
             morsels._zone_counts_recorded = True
         info = ShuffleInfo(
             shuffle_id=sid, rounds=rounds, capacity=C, rows_moved=got,
-            bytes_moved=bytes_moved, spilled_bytes=0,
+            bytes_moved=bytes_moved, spilled_bytes=spilled,
             skew_ratio=plan.skew_ratio, oob_rows=oob_total, streamed=True,
             morsels=n_morsels, rounds_overlapped=rounds_overlapped,
             decode_ms=decode_ms, drain_ms=drain_ms,
@@ -704,7 +771,7 @@ class ShuffleService:
             batch=final_batch, occupancy=final_occ, shuffle_id=sid,
             rounds=rounds, capacity=C, rows_moved=got,
             bytes_moved=bytes_moved, skew_ratio=plan.skew_ratio,
-            oob_rows=oob_total, streamed=True,
+            oob_rows=oob_total, spilled_bytes=spilled, streamed=True,
             morsels=n_morsels, rounds_overlapped=rounds_overlapped,
             decode_ms=decode_ms, drain_ms=drain_ms, scatters=scatters,
             sync_ms=sync_ms, compressed_bytes_saved=compressed_saved,

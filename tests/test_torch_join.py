@@ -249,7 +249,7 @@ class TestJoinKinds:
                                        JT.INT64)))
         right = to_port(jright)
         for jeng, teng in ENGINES:
-            bt = TJ.build_table(right, ["key", "k2"], engine=teng)
+            bt = TJ.spillable_build_table(right, ["key", "k2"], engine=teng)
             assert bt.engine == teng
             jr, jc = jax.jit(lambda a, b: JJ.hash_join(
                 a, b, ["key", "k2"], ["key", "k2"], "full", capacity=300,
@@ -263,7 +263,7 @@ class TestJoinKinds:
                          prebuilt=bt)
         srt = to_port(_str_side(rng, 10, np.arange(10), 8))
         with pytest.raises(ValueError, match="string join keys"):
-            TJ.build_table(srt, ["s"])
+            TJ.spillable_build_table(srt, ["s"])
 
     def test_key_type_mismatch(self):
         rng = np.random.default_rng(25)

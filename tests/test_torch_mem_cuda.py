@@ -1,8 +1,9 @@
-"""PyTorch port: the memory arena's retry ladder under a real CUDA OOM.
+"""PyTorch port: the memory arena's retry ladder under a real CUDA OOM,
+and the spill store's device tier on the card.
 
 Needs an NVIDIA GPU (marker ``cuda``) and skips without one; the CPU
-tests in ``test_torch_mem_adaptor.py`` hold the arena against the JAX
-package with a constructed ``torch.OutOfMemoryError``.  This file imports
+tests in ``test_torch_mem_adaptor.py`` and ``test_torch_spill.py`` hold
+the arena and the spill store against the JAX package.  This file imports
 no JAX (``tests/conftest.py`` does, hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_mem_cuda.py
@@ -11,7 +12,9 @@ no JAX (``tests/conftest.py`` does, hence ``--noconftest``):
 import pytest
 import torch
 
-from spark_rapids_jni_tpu_torch.mem import RmmSpark, TaskContext, run_with_retry
+from spark_rapids_jni_tpu_torch.mem import (
+    RmmSpark, SpillableHandle, TaskContext, install_spill_framework,
+    run_with_retry, shutdown_spill_framework)
 
 pytestmark = pytest.mark.cuda
 GiB = 1 << 30
@@ -20,9 +23,10 @@ GiB = 1 << 30
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the real CUDA OOM comes from the "
-                    "CUDA caching allocator (test_torch_mem_adaptor.py "
-                    "drives the ladder with a constructed one on the CPU)")
+        pytest.skip("needs an NVIDIA GPU: the real CUDA OOM and the "
+                    "device memory a spill frees come from the CUDA caching "
+                    "allocator (test_torch_mem_adaptor.py and "
+                    "test_torch_spill.py cover the CPU side)")
     return torch.device("cuda")
 
 
@@ -84,4 +88,42 @@ def test_sync_pool_with_device_counts_cached_memory(dev):
         assert abs(new_pool - (free + cached)) <= 64 << 20
     finally:
         RmmSpark.clear_event_handler()
+        torch.cuda.empty_cache()
+
+
+def test_spill_frees_device_memory_and_get_restores_placement(dev,
+                                                              tmp_path):
+    """Spilling a handle that nothing else references lowers
+    ``memory_allocated`` by its device bytes (through host to disk), and
+    ``get()`` puts every leaf back on the device, dtype and shape it had;
+    a CPU leaf in the same tree stays on the CPU."""
+    fw = install_spill_framework(spill_dir=str(tmp_path))
+    try:
+        n = 1 << 22
+        tree = {"a": torch.arange(n, dtype=torch.int64, device=dev),
+                "b": (torch.arange(n, device=dev) % 3 == 0),
+                "c": torch.arange(6, dtype=torch.int32).reshape(2, 3)}
+        cuda_bytes = n * 8 + n
+        h = SpillableHandle(tree, name="card")
+        del tree
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        h.spill()
+        h.spill_host()
+        assert h.tier == "disk"
+        assert before - torch.cuda.memory_allocated(dev) >= cuda_bytes
+        got = h.get()
+        assert torch.cuda.memory_allocated(dev) - before >= 0
+        idx = torch.cuda.current_device()
+        for name, dt in (("a", torch.int64), ("b", torch.bool)):
+            assert got[name].device == torch.device("cuda", idx)
+            assert got[name].dtype == dt and got[name].shape == (n,)
+        assert torch.equal(got["a"].cpu(), torch.arange(n))
+        assert int(got["b"].sum()) == (n + 2) // 3
+        assert got["c"].device.type == "cpu" and got["c"].shape == (2, 3)
+        m = fw.metrics.snapshot()
+        assert m["device_to_host_bytes"] == cuda_bytes + 24
+        h.close()
+    finally:
+        shutdown_spill_framework()
         torch.cuda.empty_cache()

@@ -379,8 +379,11 @@ def test_broadcast_join_rejects_build_side_outer(meshes):
     with pytest.raises(ValueError, match="mismatch"):
         TP.distributed_broadcast_join(b, b, ["k"], ["k", "x"], "inner",
                                       tmesh)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TP.broadcast_build_handle(b)
+    with pytest.raises(ValueError, match="right"):
+        TP.distributed_broadcast_join(b, None, ["k"], ["k"], "inner", tmesh)
+    h = TP.broadcast_build_handle(b)  # ported: a spill-store handle
+    assert h.tier == "device" and h.name == "broadcast-build"
+    h.close()
 
 
 # ---------------------------------------------------------------------------

@@ -280,8 +280,9 @@ def test_unported_options_raise(eight_devices):
     _, tm = _meshes(eight_devices)
     _, tb = _kv(np.arange(P8 * 4), np.arange(P8 * 4))
     svc = ShuffleService(tm, registry=ShuffleRegistry())
+    # ctx= is ported (tests/test_torch_spill.py); the store is not
     with pytest.raises(NotImplementedError, match="item 13"):
-        svc.exchange(tb, key_names=["k"], ctx=object())
+        svc.exchange(tb, key_names=["k"], store_key="q")
     with pytest.raises(NotImplementedError, match="item 13"):
         svc.exchange_stream(MorselSource.from_batch(tb, tm, morsel_rows=4),
                             key_names=["k"], store_key="q")
