@@ -163,7 +163,23 @@ Phases, each printing one JSON line:
    ``TaskContext`` dropped by ``spill_to_fit``, each rebuilt once by the
    next run, which equals the first bit for bit); ``spill_exchange``
    (the skewed exchange of the q95 fact and its stream over 8 shards on
-   arenas smaller than their buffers: lossless, spilled, none dropped).
+   arenas smaller than their buffers: lossless, spilled, none dropped);
+15. the persistent shuffle store (``shuffle/store.py``) and the
+   exchange's lineage, last: ``shuffle_store`` (the q95 fact, 2^24 rows
+   over 8 shards keyed on ``k``, with a store in a temporary directory
+   removed at the end: a ``store_key`` exchange commits its map output
+   and rounds (bytes, ms and GB/s, the device -> host copy, CRC32,
+   ``np.save`` and fsync); a fresh service at epoch 1 adopts the map
+   with no map step and the same rows, and a late epoch-0 put is fenced;
+   a damaged first commit is quarantined and rebuilt through lineage; a
+   torn commit is never adopted and its tmp dir is reaped; two injected
+   round faults are re-driven and a fault on every round raises after
+   four attempts with the arena drained; the skewed exchange out of
+   core with two spill files corrupted recovers losslessly and with no
+   recovery budget raises; a stream commits every received round, a
+   second adopts them all with no all-to-all and K4 once a morsel, and
+   a stream on a 4.5-chunk arena rebuilds damaged send chunks through
+   K4, whose launches beyond the 512 it reports).
 
 It then prints one ``kernels`` line and, last, ``{"ok": true, "device":
 ...}``.  Any mismatch or exception exits nonzero without that line, as
@@ -3499,64 +3515,82 @@ SPILL_SKEW_CHUNKS = 4        # the skewed exchange's arena: map + chunks
 SPILL_STREAM_CHUNKS = 4.5    # spill_exchange's stream arena, in chunks
 
 
-class SpillTimers:
-    """Wall time and bytes of each tier transition's pieces, summed over
-    threads: the device -> host copy, the CRC32s, the ``np.save`` and
-    ``np.load`` of the disk tier and the host -> device copy (with a
-    synchronize, so the copy is inside its time).  Patches the spill
-    module's helpers for the block and restores them after."""
+class HostTimers:
+    """Wall time and bytes of the host pieces of a module's tier
+    transitions, summed over threads: ``labels`` maps each helper of
+    ``module`` to the name it is reported under.  A helper's bytes are
+    those of its result or of its first argument that has ``nbytes``; a
+    helper that returns a CUDA tensor is synchronized, so its copy is
+    inside its time.  Patches the helpers for the block and restores
+    them after."""
 
-    NAMES = ("_to_host", "_leaf_meta", "_write_leaf", "_read_leaf",
-             "_to_device")
-
-    def __init__(self):
+    def __init__(self, module, labels: dict):
         import threading
 
+        self.module, self.labels = module, labels
         self.lock = threading.Lock()
-        self.acc = {n: [0, 0, 0] for n in self.NAMES}  # ns, bytes, calls
+        self.acc = {n: [0, 0, 0] for n in labels}  # ns, bytes, calls
 
     def _wrap(self, name, fn):
         def timed(*args):
             t0 = time.perf_counter_ns()
             out = fn(*args)
-            if name == "_to_device" and out.is_cuda:
+            if isinstance(out, torch.Tensor) and out.is_cuda:
                 torch.cuda.synchronize()
             dt = time.perf_counter_ns() - t0
-            arr = out if name in ("_to_host", "_read_leaf") else \
-                args[-1] if name == "_write_leaf" else args[0]
+            arr = next((x for x in (out,) + args if hasattr(x, "nbytes")),
+                       None)
             with self.lock:
                 a = self.acc[name]
                 a[0] += dt
-                a[1] += int(arr.nbytes)
+                a[1] += int(arr.nbytes) if arr is not None else 0
                 a[2] += 1
             return out
         return timed
 
     def __enter__(self):
-        from spark_rapids_jni_tpu_torch.mem import spill as SP
-
-        self.saved = {n: getattr(SP, n) for n in self.NAMES}
+        self.saved = {n: getattr(self.module, n) for n in self.labels}
         for n, fn in self.saved.items():
-            setattr(SP, n, self._wrap(n, fn))
+            setattr(self.module, n, self._wrap(n, fn))
         return self
 
     def __exit__(self, *exc):
-        from spark_rapids_jni_tpu_torch.mem import spill as SP
-
         for n, fn in self.saved.items():
-            setattr(SP, n, fn)
+            setattr(self.module, n, fn)
         return False
 
     def report(self) -> dict:
-        labels = {"_to_host": "device_to_host_copy", "_leaf_meta": "crc32",
-                  "_write_leaf": "disk_write", "_read_leaf": "disk_read",
-                  "_to_device": "host_to_device_copy"}
         out = {}
         for n, (ns, nbytes, calls) in self.acc.items():
             ms = ns / 1e6
-            out[labels[n]] = {"ms": ms, "bytes": nbytes, "calls": calls,
-                              "gb_per_s": nbytes / (ms * 1e6) if ms else None}
+            out[self.labels[n]] = {"ms": ms, "bytes": nbytes, "calls": calls,
+                                   "gb_per_s": nbytes / (ms * 1e6)
+                                   if ms and nbytes else None}
         return out
+
+
+def SpillTimers() -> HostTimers:
+    """The spill store's pieces: the device -> host copy, the CRC32s, the
+    ``np.save`` and ``np.load`` of the disk tier and the host -> device
+    copy."""
+    from spark_rapids_jni_tpu_torch.mem import spill as SP
+
+    return HostTimers(SP, {"_to_host": "device_to_host_copy",
+                           "_leaf_meta": "crc32", "_write_leaf": "disk_write",
+                           "_read_leaf": "disk_read",
+                           "_to_device": "host_to_device_copy"})
+
+
+def StoreTimers() -> HostTimers:
+    """The shuffle store's pieces: a commit's device -> host copy, CRC32,
+    ``np.save`` and fsync, an adoption's ``np.load`` and host -> device
+    copy (adoption's CRC32s count under ``crc32`` too)."""
+    from spark_rapids_jni_tpu_torch.shuffle import store as ST
+
+    return HostTimers(ST, {"_to_host": "device_to_host_copy",
+                           "_leaf_meta": "crc32", "_save": "np_save",
+                           "_fsync": "fsync", "_load": "np_load",
+                           "_upload": "host_to_device_copy"})
 
 
 def spill_transitions(snap: dict) -> dict:
@@ -3912,6 +3946,28 @@ def phase_spill_q9(inputs, arrays):
     return total
 
 
+def fact_oracle(fact, cols=("k", "wh", "seg", "v")):
+    """The fact's rows as a sorted multiset of int64 columns."""
+    from spark_rapids_jni_tpu_torch.relational.keys import lexsort
+
+    b = [fact[c].data.to(torch.int64) for c in cols]
+    pb = lexsort(b)
+    return cols, [x[pb] for x in b]
+
+
+def same_multiset(res, oracle, label) -> None:
+    from spark_rapids_jni_tpu_torch.relational.keys import lexsort
+
+    cols, want = oracle
+    occ = res.occupancy
+    a = [res.batch[c].data[occ].to(torch.int64) for c in cols]
+    pa = lexsort(a)
+    check(res.rows_moved == want[0].shape[0],
+          f"{label}: rows_moved {res.rows_moved}")
+    check(all(torch.equal(x[pa], y) for x, y in zip(a, want)),
+          f"{label}: delivered multiset differs")
+
+
 def phase_spill_exchange(fact):
     """``TestOutOfCore`` at full width over 8 shards, under a
     ``TaskContext`` on arenas smaller than the exchanges' buffers: the
@@ -3926,7 +3982,6 @@ def phase_spill_exchange(fact):
         RmmSpark, TaskContext, batch_nbytes, install_spill_framework,
         shutdown_spill_framework)
     from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
-    from spark_rapids_jni_tpu_torch.relational.keys import lexsort
     from spark_rapids_jni_tpu_torch.shuffle import (MorselSource,
                                                     ShuffleService,
                                                     get_registry)
@@ -3936,14 +3991,11 @@ def phase_spill_exchange(fact):
     P = P_SHARDS
     n = fact.num_rows
     mesh = ShardMesh(P)
-    cols = ("k", "wh", "seg", "v")
     charge = batch_nbytes(fact)
     C = plan_stream_capacity()
     # one round chunk: P * P * C slot rows of every leaf plus occupancy
     chunk = P * P * C * (charge // n + 1)
-    b = [fact[c].data.to(torch.int64) for c in cols]
-    pb = lexsort(b)
-    want = [x[pb] for x in b]
+    oracle = fact_oracle(fact)
     total = no_kernels()
     out = {}
 
@@ -3963,13 +4015,7 @@ def phase_spill_exchange(fact):
             RmmSpark.clear_event_handler()
             shutdown_spill_framework()
         summary = get_registry().metrics.snapshot()
-        occ = res.occupancy
-        a = [res.batch[c].data[occ].to(torch.int64) for c in cols]
-        pa = lexsort(a)
-        check(res.rows_moved == n, f"spill_exchange {label}: rows_moved "
-              f"{res.rows_moved}")
-        check(all(torch.equal(x[pa], y) for x, y in zip(a, want)),
-              f"spill_exchange {label}: delivered multiset differs")
+        same_multiset(res, oracle, f"spill_exchange {label}")
         check(res.rounds >= 2, f"spill_exchange {label}: {res.rounds} round")
         check(res.spilled_bytes > 0, f"spill_exchange {label}: no spill")
         check(summary["dropped_rows"] == 0,
@@ -3986,7 +4032,7 @@ def phase_spill_exchange(fact):
                       "transitions": spill_transitions(snap),
                       "eviction_ms": snap["eviction_ns"] / 1e6,
                       "pieces": timers.report(), "launches": counts}
-        del res, a
+        del res
         torch.cuda.empty_cache()
 
     pid = torch.zeros(n, dtype=torch.int32, device=fact["k"].device)
@@ -4002,6 +4048,415 @@ def phase_spill_exchange(fact):
     emit({"phase": "spill_exchange", "rows": n, "shards": P,
           "fact_charge_bytes": charge, "round_chunk_bytes": chunk,
           **out, "card": nvidia_smi_line()})
+    return total
+
+
+STORE_SPILL_HOST_CHUNKS = 24  # shuffle_store: the skewed run's host tier
+
+
+class Counting:
+    """Count the calls of ``module.name`` for a ``with`` block (the map
+    step, the all-to-all): ``calls`` after it."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.real(*a, **k)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def same_result(a, b, label) -> None:
+    """Two exchanges delivered the same arrays, partition for partition."""
+    from spark_rapids_jni_tpu_torch.shuffle.buffers import column_leaves
+
+    check(torch.equal(a.occupancy, b.occupancy),
+          f"{label}: occupancy differs")
+    for name in a.batch.names:
+        pairs = zip(column_leaves(a.batch[name]),
+                    column_leaves(b.batch[name]))
+        check(all(torch.equal(x, y) for x, y in pairs),
+              f"{label}: column {name} differs")
+
+
+def store_report(timers) -> dict:
+    """A commit's or an adoption's pieces (``StoreTimers``), their sum,
+    the bytes copied off the card or loaded, and the GB/s of the sum."""
+    pieces = timers.report()
+    ms = sum(v["ms"] for v in pieces.values())
+    nbytes = (pieces["device_to_host_copy"]["bytes"]
+              or pieces["np_load"]["bytes"])
+    return {"ms": ms, "bytes": nbytes,
+            "gb_per_s": nbytes / (ms * 1e6) if ms else None,
+            "pieces": pieces}
+
+
+def phase_shuffle_store(fact):
+    """The persistent shuffle store and the exchange's lineage at full
+    width: the q95 fact (2^24 rows over 8 shards, keyed on ``k``) with a
+    store in a temporary directory that the phase removes.  (i) a
+    ``store_key`` exchange commits its map output and rounds; (ii) a
+    fresh service at epoch 1 (after ``stamp(1)``) adopts the map: the
+    map step does not run and the rows equal (i)'s partition for
+    partition, and a late epoch-0 put is fenced; (iii) a damaged first
+    commit is quarantined at the next adoption, which falls back to
+    lineage; (iv) a torn commit is never adopted and its tmp dir is
+    reaped; (v) two injected round faults are re-driven, one on every
+    round raises after four attempts with the arena drained; (vi) the
+    skewed exchange out of core with two spill files corrupted recovers
+    losslessly, and with no recovery budget raises; (vii) a stream
+    commits every received round, a second stream adopts them all with
+    no all-to-all (K4 still once a morsel), and a stream on a 4.5-chunk
+    arena rebuilds a damaged send chunk by re-scattering through K4.
+    Each delivered batch is held against the fact's multiset."""
+    import shutil
+    import tempfile
+
+    from spark_rapids_jni_tpu_torch import config, faultinj
+    from spark_rapids_jni_tpu_torch.mem import (
+        RmmSpark, TaskContext, batch_nbytes, install_spill_framework,
+        shutdown_spill_framework)
+    from spark_rapids_jni_tpu_torch.parallel import collectives as CL
+    from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
+    from spark_rapids_jni_tpu_torch.shuffle import (MorselSource,
+                                                    ShuffleError,
+                                                    ShuffleRegistry,
+                                                    ShuffleService)
+    from spark_rapids_jni_tpu_torch.shuffle import service as SVC
+    from spark_rapids_jni_tpu_torch.shuffle import store as ST
+    from spark_rapids_jni_tpu_torch.shuffle.planner import \
+        plan_stream_capacity
+
+    P = P_SHARDS
+    n = fact.num_rows
+    mesh = ShardMesh(P)
+    oracle = fact_oracle(fact)
+    total = no_kernels()
+    out = {"rows": n, "shards": P}
+    root = tempfile.mkdtemp(prefix="srj_shuffle_store_")
+
+    def fired(name, want, label):
+        got = faultinj.fire_counts().get(name, 0)
+        check(got == want, f"shuffle_store {label}: {name} fired {got} "
+              f"times, expected {want}")
+
+    def exchange(reg, key=None, **kw):
+        return driven(lambda: ShuffleService(mesh, registry=reg).exchange(
+            fact, key_names=["k"], store_key=key, **kw))
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    try:
+        # the exchange alone, for the store's share of the time
+        plain, counts, plain_s = exchange(ShuffleRegistry())
+        add(counts)
+        same_multiset(plain, oracle, "shuffle_store plain")
+
+        # (i) commit at epoch 0
+        st0 = ST.install(root, epoch=0)
+        reg = ShuffleRegistry()
+        with StoreTimers() as timers:
+            first, counts, commit_s = exchange(reg, "q95")
+        add(counts)
+        same_multiset(first, oracle, "shuffle_store commit")
+        same_result(first, plain, "shuffle_store commit vs plain")
+        snap = st0.snapshot()
+        check(snap["commits"] == 1 + first.rounds,
+              f"shuffle_store commit: {snap['commits']} commits for "
+              f"{first.rounds} rounds and the map")
+        out["commit"] = {"s": commit_s, "exchange_alone_s": plain_s,
+                         "rounds": first.rounds, "capacity": first.capacity,
+                         **store_report(timers)}
+
+        # (ii) adopt at epoch 1: a fresh service and registry
+        st1 = ST.install(root, epoch=1)
+        st1.stamp(1)
+        reg = ShuffleRegistry()
+        with Counting(SVC, "_map_keys") as maps:
+            second, counts, adopt_s = exchange(reg, "q95")
+        add(counts)
+        m = reg.metrics.snapshot()
+        check(m["adopted_shards"] == 1 and m["lineage_rebuilds"] == 0,
+              f"shuffle_store adopt: adopted {m['adopted_shards']}, "
+              f"rebuilt {m['lineage_rebuilds']}")
+        check(maps.calls == 0, f"shuffle_store adopt: the map step ran "
+              f"{maps.calls} times")
+        same_result(second, first, "shuffle_store adopt vs commit")
+        late = ST.ShuffleStore(root, epoch=0)
+        check(not late.put("q95", "late", (fact["k"].data[:16],)),
+              "shuffle_store adopt: a late epoch-0 put was not fenced")
+        check(late.snapshot()["fenced_commits"] == 1,
+              "shuffle_store adopt: the fenced put was not counted")
+        # the adoption's own pieces: the same map entry adopted again
+        with StoreTimers() as timers:
+            again = st1.adopt("q95", "map", fact["k"].device)
+        check(again is not None, "shuffle_store adopt: the map entry "
+              "did not adopt a second time")
+        del again
+        out["adopt"] = {"s": adopt_s, "map_steps": maps.calls,
+                        "adopted_shards": m["adopted_shards"],
+                        "fenced_late_put": late.snapshot()["fenced_commits"],
+                        "map_entry": store_report(timers)}
+        del second
+        shutil.rmtree(os.path.join(root, "q95"), ignore_errors=True)
+
+        # (iii) store_corrupt on the first commit of a fresh key
+        with faultinj.scope({"faults": [{"match": "store_corrupt_file",
+                                         "fault": "store_corrupt",
+                                         "count": 1}]}):
+            damaged, counts, _ = exchange(ShuffleRegistry(), "q95c")
+            fired("store_corrupt_file", 1, "store_corrupt")
+        add(counts)
+        q0 = st1.snapshot()["corrupt_quarantined"]
+        reg = ShuffleRegistry()
+        with Counting(SVC, "_map_keys") as maps:
+            rebuilt, counts, _ = exchange(reg, "q95c")
+        add(counts)
+        m = reg.metrics.snapshot()
+        check(st1.snapshot()["corrupt_quarantined"] == q0 + 1,
+              "shuffle_store store_corrupt: the entry was not quarantined")
+        check(m["lineage_rebuilds"] == 1 and m["adopted_shards"] == 0
+              and maps.calls == 1, f"shuffle_store store_corrupt: "
+              f"rebuilt {m['lineage_rebuilds']}, adopted "
+              f"{m['adopted_shards']}, {maps.calls} map steps")
+        same_result(rebuilt, first, "shuffle_store store_corrupt")
+        same_result(damaged, first, "shuffle_store store_corrupt commit")
+        out["store_corrupt"] = {"quarantined": 1,
+                                "lineage_rebuilds": m["lineage_rebuilds"]}
+        del damaged, rebuilt
+        shutil.rmtree(os.path.join(root, "q95c"), ignore_errors=True)
+
+        # (iv) store_commit: the torn map write is never adopted
+        f0 = st1.snapshot()["commit_failures"]
+        with faultinj.scope({"faults": [{"match": "store_commit",
+                                         "fault": "store_commit",
+                                         "count": 1}]}):
+            torn, counts, _ = exchange(ShuffleRegistry(), "q95t")
+            fired("store_commit", 1, "store_commit")
+        add(counts)
+        same_result(torn, first, "shuffle_store store_commit")
+        check(st1.snapshot()["commit_failures"] == f0 + 1,
+              "shuffle_store store_commit: no commit failure counted")
+        check(not st1.has_committed("q95t", "map")
+              and st1.adopt("q95t", "map", fact["k"].device) is None,
+              "shuffle_store store_commit: the torn map was adoptable")
+        shard_dir = os.path.join(root, "q95t", "shard-map")
+        tmps = [e for e in os.listdir(shard_dir) if e.startswith(".tmp-")]
+        reaped = st1.reap_uncommitted()
+        left = [e for e in os.listdir(shard_dir) if e.startswith(".tmp-")]
+        check(len(tmps) == 1 and reaped == 1 and not left,
+              f"shuffle_store store_commit: {tmps} tmp dirs, reaped "
+              f"{reaped}, left {left}")
+        out["store_commit"] = {"commit_failures": 1, "reaped": reaped}
+        del torn
+        shutil.rmtree(os.path.join(root, "q95t"), ignore_errors=True)
+        ST.shutdown_store()
+
+        # (v) shuffle_io_round: two faults re-driven, then one on every
+        # round under a task's arena
+        reg = ShuffleRegistry()
+        with faultinj.scope({"faults": [{"match": "shuffle_io_round",
+                                         "fault": "shuffle_io",
+                                         "count": 2}]}):
+            redriven, counts, io_s = exchange(reg)
+            fired("shuffle_io_round", 2, "shuffle_io")
+        add(counts)
+        check(reg.metrics.snapshot()["io_failures"] == 2,
+              f"shuffle_store shuffle_io: "
+              f"{reg.metrics.snapshot()['io_failures']} io failures")
+        same_result(redriven, first, "shuffle_store shuffle_io")
+        del redriven
+        reg = ShuffleRegistry()
+        fw = install_spill_framework()
+        adaptor = RmmSpark.set_event_handler(1 << 40, poll_ms=10.0)
+        raised = None
+        try:
+            with faultinj.scope({"faults": [{"match": "shuffle_io_round",
+                                             "fault": "shuffle_io"}]}):
+                with TaskContext(62) as ctx:
+                    try:
+                        exchange(reg, ctx=ctx)
+                    except faultinj.ShuffleIOError as e:
+                        raised = e
+                    left_handles = len(fw.store)
+                fired("shuffle_io_round", SVC._IO_RETRIES + 1,
+                      "shuffle_io persistent")
+            RmmSpark.task_done(62)
+            drained = adaptor.total_allocated()
+        finally:
+            RmmSpark.clear_event_handler()
+            shutdown_spill_framework()
+        io_fail = reg.metrics.snapshot()["io_failures"]
+        check(raised is not None and io_fail == SVC._IO_RETRIES + 1,
+              f"shuffle_store shuffle_io persistent: raised {raised!r} "
+              f"after {io_fail} failures")
+        check(drained == 0 and left_handles == 0, f"shuffle_store "
+              f"shuffle_io persistent: {drained} bytes and "
+              f"{left_handles} handles left")
+        out["shuffle_io"] = {"redriven_s": io_s, "io_failures": 2,
+                             "persistent_failures": io_fail}
+        torch.cuda.empty_cache()
+
+        # (vi) recovery out of core: spill_exchange's skewed exchange
+        # with its overflow on disk and two spill files corrupted
+        charge = batch_nbytes(fact)
+        C = plan_stream_capacity()
+        chunk = P * P * C * (charge // n + 1)
+        pid = torch.zeros(n, dtype=torch.int32, device=fact["k"].device)
+
+        def skewed(label, rule, budget=None):
+            reg = ShuffleRegistry()
+            fw = install_spill_framework()
+            adaptor = RmmSpark.set_event_handler(
+                charge + SPILL_SKEW_CHUNKS * chunk,
+                host_pool_bytes=STORE_SPILL_HOST_CHUNKS * chunk,
+                poll_ms=10.0)
+            if budget is not None:
+                config.set("shuffle_max_recoveries", budget)
+            res = err = None
+            try:
+                with faultinj.scope({"faults": [rule]}):
+                    with TaskContext(63) as ctx:
+                        try:
+                            res, counts, s = driven(
+                                lambda: ShuffleService(
+                                    mesh, registry=reg).exchange(
+                                        fact, pid=pid, ctx=ctx))
+                            add(counts)
+                        except ShuffleError as e:
+                            err, s = e, None
+                        left_handles = len(fw.store)
+                    fired("spill_corrupt_file", rule["count"], label)
+                RmmSpark.task_done(63)
+                drained = adaptor.total_allocated()
+                snap = fw.metrics.snapshot()
+            finally:
+                RmmSpark.clear_event_handler()
+                shutdown_spill_framework()
+                config.reset("shuffle_max_recoveries")
+            check(drained == 0 and left_handles == 0,
+                  f"shuffle_store {label}: {drained} bytes and "
+                  f"{left_handles} handles left")
+            return res, err, s, reg.metrics.snapshot(), snap
+
+        corrupt = {"match": "spill_corrupt_file", "fault": "spill_corrupt"}
+        res, err, s, m, snap = skewed("recovery", dict(corrupt, count=2))
+        check(err is None and res is not None,
+              f"shuffle_store recovery: raised {err!r}")
+        if res is not None:
+            check(res.recovered_partitions > 0,
+                  "shuffle_store recovery: nothing was recovered")
+            same_multiset(res, oracle, "shuffle_store recovery")
+            out["recovery"] = {
+                "s": s, "recovered_partitions": res.recovered_partitions,
+                "lineage_rebuilds": m["lineage_rebuilds"],
+                "rounds": res.rounds, "spilled_bytes": res.spilled_bytes,
+                "host_to_disk_bytes": snap["host_to_disk_bytes"],
+                "corrupt_reads": snap["corrupt_reads"]}
+        del res
+        torch.cuda.empty_cache()
+        res, err, _, _, _ = skewed("recovery budget", dict(corrupt, count=1),
+                                   budget=0)
+        check(res is None and err is not None
+              and "recovery budget" in str(err),
+              f"shuffle_store recovery budget: raised {err!r}")
+        out["recovery_budget"] = {"raised": type(err).__name__}
+        del res
+        torch.cuda.empty_cache()
+
+        # (vii) the stream with a store
+        st = ST.install(root, epoch=2)
+        src = MorselSource.from_batch(fact, mesh)
+
+        def stream(reg, key=None, ctx=None):
+            return driven(lambda: ShuffleService(
+                mesh, registry=reg).exchange_stream(
+                    src, key_names=["k"], store_key=key, ctx=ctx))
+
+        with StoreTimers() as timers:
+            s1, counts1, s1_s = stream(ShuffleRegistry(), "q95s")
+        add(counts1)
+        same_multiset(s1, oracle, "shuffle_store stream commit")
+        check(st.snapshot()["commits"] == s1.rounds,
+              f"shuffle_store stream: {st.snapshot()['commits']} commits "
+              f"for {s1.rounds} rounds")
+        commit = store_report(timers)
+        reg = ShuffleRegistry()
+        with Counting(CL, "shard_all_to_all") as a2a, \
+                StoreTimers() as timers:
+            s2, counts2, s2_s = stream(reg, "q95s")
+        add(counts2)
+        m = reg.metrics.snapshot()
+        check(m["adopted_shards"] == s2.rounds and a2a.calls == 0,
+              f"shuffle_store stream adopt: adopted {m['adopted_shards']} "
+              f"of {s2.rounds} rounds, {a2a.calls} all-to-alls")
+        for label, c in (("commit", counts1), ("adopt", counts2)):
+            check(c["partition_scatter"] == len(src),
+                  f"shuffle_store stream {label}: "
+                  f"{c['partition_scatter']} K4 launches for {len(src)} "
+                  "morsels")
+        same_result(s2, s1, "shuffle_store stream adopt vs commit")
+        out["stream"] = {"commit_s": s1_s, "adopt_s": s2_s,
+                         "rounds": s1.rounds, "capacity": s1.capacity,
+                         "morsels": len(src),
+                         "k4_launches": [counts1["partition_scatter"],
+                                         counts2["partition_scatter"]],
+                         "adopted_rounds": m["adopted_shards"],
+                         "all_to_alls_adopting": a2a.calls,
+                         "commit": commit, "adopt": store_report(timers)}
+        del s2
+        ST.shutdown_store()
+
+        # a damaged send chunk on the stream's 4.5-chunk arena (its host
+        # tier unbounded, as in spill_exchange): rebuilt by re-scatter
+        reg = ShuffleRegistry()
+        fw = install_spill_framework()
+        adaptor = RmmSpark.set_event_handler(int(SPILL_STREAM_CHUNKS * chunk),
+                                             poll_ms=10.0)
+        try:
+            with faultinj.scope({"faults": [{"match": "host_corrupt_probe",
+                                             "fault": "host_corrupt",
+                                             "count": 4}]}):
+                with TaskContext(64) as ctx:
+                    s3, counts3, s3_s = stream(reg, ctx=ctx)
+                    left_handles = len(fw.store)
+                fired("host_corrupt_probe", 4, "stream rebuild")
+            RmmSpark.task_done(64)
+            drained = adaptor.total_allocated()
+        finally:
+            RmmSpark.clear_event_handler()
+            shutdown_spill_framework()
+        add(counts3)
+        extra = counts3["partition_scatter"] - len(src)
+        check(s3.recovered_partitions > 0 and extra > 0,
+              f"shuffle_store stream rebuild: {s3.recovered_partitions} "
+              f"recovered, {extra} K4 launches beyond {len(src)}")
+        check(drained == 0 and left_handles == 0,
+              f"shuffle_store stream rebuild: {drained} bytes and "
+              f"{left_handles} handles left")
+        same_result(s3, s1, "shuffle_store stream rebuild")
+        out["stream_rebuild"] = {
+            "s": s3_s, "recovered_partitions": s3.recovered_partitions,
+            "k4_launches": counts3["partition_scatter"],
+            "k4_beyond_morsels": extra, "spilled_bytes": s3.spilled_bytes}
+        del s1, s3
+    finally:
+        ST.shutdown_store()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    emit({"phase": "shuffle_store", **out, "launches": total,
+          "card": nvidia_smi_line()})
     return total
 
 
@@ -4240,6 +4695,8 @@ def main() -> int:
     breadth("spill_faults", phase_spill_faults, q6_arrays)
     breadth("spill_q9", phase_spill_q9, q95_in, q95_arrays)
     breadth("spill_exchange", phase_spill_exchange, fact)
+    # the persistent shuffle store and the exchange's lineage
+    breadth("shuffle_store", phase_shuffle_store, fact)
 
     kernels = []
     for name, lst in cases.items():

@@ -3,7 +3,6 @@
 from __future__ import annotations
 
 _ITEMS = {
-    13: "the persistent shuffle store (13c)",
     14: "I/O",
     16: "serving fleet",
     17: "tooling edges",

@@ -86,6 +86,26 @@ _register("shuffle_round_rows", 1 << 16, int,
           "Per-(sender, destination) slot rows one ShuffleService round "
           "may carry (shuffle/planner.py); bigger buckets drain over "
           "several rounds instead of inflating the slot grid.")
+_register("shuffle_max_recoveries", 8, int,
+          "Per-exchange budget of lineage recoveries in the ShuffleService "
+          "(shuffle/service.py): each lost or corrupt partition buffer "
+          "rebuilt by re-running its map shards or re-driving its round "
+          "counts against it (ShuffleMetrics.recovered_partitions); past "
+          "it the exchange raises ShuffleError, so a flapping disk cannot "
+          "loop a shuffle forever.")
+_register("shuffle_store_dir", "", str,
+          "Root of the persistent shuffle store (shuffle/store.py): "
+          "committed map outputs and drained round chunks land here "
+          "(crash-safe tmp + fsync + rename commits, a CRC32 per chunk "
+          "in the manifest), so a replacement worker ADOPTS a dead "
+          "worker's finished shards instead of re-running their map.  "
+          "Empty disables the durable tier.")
+_register("shuffle_store_max_attempts", 2, int,
+          "Committed attempts the store keeps per (key, shard): after a "
+          "successful commit, older attempts beyond this are pruned "
+          "(adoption reads the highest committed attempt, so extras only "
+          "buy depth of fallback past a corrupt one).  0 or negative "
+          "keeps everything.")
 _register("shuffle_capacity_bucket", 256, int,
           "Rounding bucket for planned exchange capacities.")
 _register("shuffle_max_rounds", 64, int,

@@ -25,10 +25,16 @@ at them, with a probability, a count and a skip.
   (``spill_corrupt_file``; the store flips bytes in the file it just
   wrote), ``"host_corrupt"`` :class:`HostCorruptionError` at its
   post-demotion probe (``host_corrupt_probe``; the store flips bytes in
-  the host copy it just made).  The reference's other kinds (shuffle,
-  serving fleet, store, network, cache, journal) belong to paths the port
-  does not carry yet: a rule naming one raises ``not_ported`` (ROADMAP
-  item 17), an unknown kind ``ValueError``.
+  the host copy it just made); ``"shuffle_io"`` :class:`ShuffleIOError`
+  at the exchange's per-round probe (``shuffle_io_round``; the round is
+  re-driven from its buffers); ``"store_commit"`` :class:`StoreCommitError`
+  at the shuffle store's pre-rename probe (``store_commit``; the write
+  is torn) and ``"store_corrupt"`` :class:`StoreCorruptionError` at its
+  post-commit probe (``store_corrupt_file``; the store flips bytes in a
+  chunk it just committed).  The reference's other kinds (serving
+  fleet, network, cache, journal) belong to paths the port does not
+  carry yet: a rule naming one raises ``not_ported`` (ROADMAP item
+  17), an unknown kind ``ValueError``.
 * ``dynamic: true`` re-reads the file when its mtime changes.
 
 Observability (reset by :func:`configure` / :func:`reset_stats`):
@@ -86,6 +92,31 @@ class HostCorruptionError(SpillCorruptionError):
     CRC32."""
 
 
+class ShuffleIOError(OSError):
+    """Injected shuffle transport failure (kind ``"shuffle_io"``): raised
+    at the exchange's per-round probe; the exchange re-drives the round
+    from its buffers (nothing was consumed) and counts
+    ``io_failures``."""
+
+
+class StoreCommitError(OSError):
+    """The shuffle store's commit failed (kind ``"store_commit"``):
+    raised at the store's pre-rename probe, after the tmp entry is fully
+    written and fsync'd.  The store tears the write (removes the
+    manifest), counts a ``commit_failures`` and reports the put as
+    failed; the caller keeps its in-memory copy."""
+
+
+class StoreCorruptionError(OSError):
+    """A committed shuffle-store entry was damaged (kind
+    ``"store_corrupt"``): raised by the injector at the store's
+    post-commit probe (the store then flips bytes in a chunk it just
+    committed), and by the store when adoption finds a manifest missing
+    or unreadable or a leaf failing its CRC32/length check; adoption
+    quarantines the entry and falls back to the next attempt or to the
+    caller's lineage."""
+
+
 def _raise_exception(name: str):
     raise InjectedFault(f"injected exception at {name}")
 
@@ -112,20 +143,34 @@ def _raise_host_corrupt(name: str):
     raise HostCorruptionError(f"injected host-tier corruption at {name}")
 
 
+def _raise_shuffle_io(name: str):
+    raise ShuffleIOError(f"injected shuffle I/O fault at {name}")
+
+
+def _raise_store_commit(name: str):
+    raise StoreCommitError(f"injected store commit fault at {name}")
+
+
+def _raise_store_corrupt(name: str):
+    raise StoreCorruptionError(f"injected store corruption at {name}")
+
+
 FAULT_KINDS = {
     "exception": _raise_exception,
     "oom": _raise_oom,
     "fatal": _raise_fatal,
     "spill_io": _raise_spill_io,
+    "shuffle_io": _raise_shuffle_io,
     "spill_corrupt": _raise_spill_corrupt,
     "host_corrupt": _raise_host_corrupt,
+    "store_commit": _raise_store_commit,
+    "store_corrupt": _raise_store_corrupt,
 }
 
 # the reference's kinds whose paths the port does not carry yet
 UNPORTED_KINDS = (
-    "shuffle_io", "task_cancel", "worker_crash", "worker_stall",
-    "store_commit", "store_corrupt", "net_drop", "net_stall", "net_torn",
-    "shm_torn", "shm_stale", "cache_stale", "cache_corrupt",
+    "task_cancel", "worker_crash", "worker_stall", "net_drop", "net_stall",
+    "net_torn", "shm_torn", "shm_stale", "cache_stale", "cache_corrupt",
     "scale_up_fail", "drain_stuck", "zone_map_corrupt", "supervisor_crash",
     "journal_torn",
 )

@@ -91,6 +91,35 @@ def _service_stream(batch, mesh, morsel_rows, axis=None, key_names=None,
                       res.blocks_scanned]}
 
 
+def _service_store(batch, mesh, root, morsel_rows, **kw):
+    """Two runs each of a ``store_key`` exchange and stream of ``batch``
+    over a shuffle store under ``root`` (a subdirectory per mesh kind):
+    the first run commits, the second, with a fresh registry, adopts the
+    exchange's map output and every drained round of the stream.
+    Returns the second runs' rows and each run's ``adopted_shards``."""
+    import os
+
+    from ..shuffle import MorselSource, ShuffleRegistry, ShuffleService
+    from ..shuffle import store as store_mod
+
+    store_mod.install(os.path.join(root, "shards" if mesh.holds_all
+                                   else "ranks"))
+    try:
+        adopted = []
+        for _ in range(2):
+            reg = ShuffleRegistry()
+            svc = ShuffleService(mesh, registry=reg)
+            res = svc.exchange(batch, store_key="x", **kw)
+            src = MorselSource.from_batch(batch, mesh, morsel_rows)
+            st = svc.exchange_stream(src, store_key="xs", **kw)
+            adopted.append(reg.metrics.snapshot()["adopted_shards"])
+    finally:
+        store_mod.shutdown_store()
+    return {"batch": res.batch, "occupancy": res.occupancy,
+            "stream_batch": st.batch, "stream_occupancy": st.occupancy,
+            "adopted": Same(adopted), "rounds": Same(st.rounds)}
+
+
 @dataclasses.dataclass
 class Same:
     """A replicated part of an op's per-shard result: every shard gets
@@ -121,6 +150,7 @@ def _q95_stream(n_rows, mesh, morsel_rows):
 EXTRA = {"set_knob": config.set,
          "service_exchange": _service_exchange,
          "service_stream": _service_stream,
+         "service_store": _service_store,
          "sample_splitters": _sample_splitters,
          "q95_distributed": _q95,
          "q95_stream": _q95_stream,

@@ -9,13 +9,15 @@ store's cross-task LRU order), and both the creation charge (to the
 ``ctx`` task) and the read-back run under
 :func:`~..mem.executor.run_with_retry`: a ``RetryOOM`` evicts OTHER
 buffers (earlier round chunks, the map output) instead of failing the
-exchange.  Map lineage (``recompute=``) and store adoption are ROADMAP.md
-queue 1, item 13c.
+exchange.  ``recompute=`` is a buffer's lineage: when its spilled copy
+is lost or fails its checksum the handle rebuilds it, through
+:func:`store_recompute` first from the persistent store (:mod:`.store`)
+and else by re-running the map or the round that made it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import dataclasses
 
@@ -88,20 +90,57 @@ def tree_nbytes(tree) -> int:
     return sum(tree_nbytes(x) for x in tree)
 
 
+def store_recompute(adopt: Optional[Callable], rebuild: Callable,
+                    on_adopt: Optional[Callable] = None,
+                    on_rebuild: Optional[Callable] = None) -> Callable:
+    """A ``recompute=`` closure that tries store ADOPTION before the
+    lineage re-run.
+
+    ``adopt`` asks the persistent shuffle store for a committed,
+    CRC-verified copy of the buffer's tree; only when it answers None (no
+    store, no committed attempt, or every attempt quarantined) does
+    ``rebuild`` re-run.  A store FAILURE is treated as a miss: the
+    durable tier speeds recovery up and is never a new way to lose a
+    query.  ``on_adopt`` / ``on_rebuild`` are the accounting hooks
+    (``ShuffleMetrics.record_adopted`` / ``record_lineage_rebuild``)."""
+    def _recompute():
+        tree = None
+        if adopt is not None:
+            try:
+                tree = adopt()
+            except Exception:  # noqa: BLE001 - a failed store is a miss
+                tree = None
+        if tree is not None:
+            if on_adopt is not None:
+                on_adopt()
+            return tree
+        if on_rebuild is not None:
+            on_rebuild()
+        return rebuild()
+
+    return _recompute
+
+
 class PartitionBuffer:
     """One spillable tree (a map output, or a received round chunk) with
     its creation and read-back under the retry ladder.  With no spill
     framework the handle still round-trips device <-> host on demand;
     with no ``ctx`` the arena is not charged.  ``nbytes`` is the tree's
-    size for the exchange's byte accounting."""
+    size for the exchange's byte accounting.  ``recompute=`` is the
+    buffer's lineage, run by the handle when its spilled copy is lost or
+    corrupt, so one damaged partition costs a partial re-map instead of
+    the shuffle."""
 
-    def __init__(self, tree, ctx=None, name: Optional[str] = None):
+    def __init__(self, tree, ctx=None, name: Optional[str] = None,
+                 recompute=None):
         self.name = name
+        self._ctx = ctx
         self.nbytes = tree_nbytes(tree)
         # the creation charge is the retryable unit: under pressure the
         # default make_spillable evicts idle handles and charges again
         self._handle = run_with_retry(
-            lambda: SpillableHandle(tree, ctx=ctx, name=name))
+            lambda: SpillableHandle(tree, ctx=ctx, name=name,
+                                    recompute=recompute))
 
     def get(self):
         """The device tree, promoted (and charged again) under the retry
@@ -118,7 +157,8 @@ class PartitionBuffer:
 class MorselBuffer(PartitionBuffer):
     """One mapped morsel in flight: its rows and partition ids, alive
     only between the map step and the scatter into its round chunks
-    (pinned throughout: it only charges the arena)."""
+    (pinned throughout: it only charges the arena).  ``recompute=`` is
+    its replay lineage: decode the source morsel and map it again."""
 
 
 class RoundChunk(PartitionBuffer):
@@ -126,4 +166,17 @@ class RoundChunk(PartitionBuffer):
     slot rows (sender-major, then destination-major) plus their
     occupancy, written in place scatter by scatter as morsels arrive.
     Between scatters it is an idle buffer the store may demote; a
-    scatter pins it and writes into its promoted tensors."""
+    scatter pins it and writes into its promoted tensors.  Its lineage
+    re-scatters every morsel contribution recorded so far into a fresh
+    chunk, so a half-received round whose spilled copy is lost rebuilds
+    exactly.  It stays open after its drain, to back the received
+    chunk's re-drive, until the exchange closes it."""
+
+    def update(self, tree, recompute=None) -> None:
+        """Swap in a new tree under a fresh creation charge (the stale
+        handle is closed first, so the arena never holds both)."""
+        self._handle.close()
+        self.nbytes = tree_nbytes(tree)
+        self._handle = run_with_retry(
+            lambda: SpillableHandle(tree, ctx=self._ctx, name=self.name,
+                                    recompute=recompute))

@@ -48,9 +48,40 @@ bit-identical, shard for shard, to the reference's on its P-device mesh.
 Buffers are spillable (:mod:`.buffers`): with ``ctx=`` each map output,
 morsel and round chunk is charged to the task's arena, and an idle one
 is demoted device -> host -> disk when a charge does not fit; the bytes
-the exchange saw demoted are ``spilled_bytes``.  Lineage recovery and the
-durable store (``store_key=``) are ROADMAP.md queue 1, item 13c; the
-``shuffle_io_round`` fault probe is item 17.
+the exchange saw demoted are ``spilled_bytes``.
+
+Fault injection: each round passes the ``shuffle_io_round`` probe; an
+injected :class:`~..faultinj.ShuffleIOError` re-drives the round from its
+buffers (nothing was consumed) up to ``_IO_RETRIES`` times, each counted
+in ``io_failures``, then raises.
+
+Lineage: every buffer carries its map lineage as its handle's
+``recompute=``.  The map output re-runs the map; a round chunk re-drives
+that one round against the (recovered) map output; a stream's send chunk
+re-scatters every recorded morsel contribution through the
+partition-scatter kernel, and its received chunk re-drains the send
+chunk.  A buffer whose spilled copy is lost or fails its checksum is so
+rebuilt from ONLY the shards that made it; each rebuild counts in
+``recovered_partitions`` and draws on the exchange's
+``shuffle_max_recoveries`` budget, past which :class:`ShuffleError`
+raises.
+
+The persistent store (``store_key=``, :mod:`.store`): the map output and
+every drained round are committed best-effort under the caller's stable
+key, and a later run of the same exchange, in this process or a
+replacement worker, adopts them instead of running the map (or the
+round's all-to-all).  A lineage rebuild asks the store before it
+re-runs anything.  On a :class:`~..parallel.mesh.ProcessMesh` each rank
+holds only its own shards, so it commits and adopts them under a shard
+name that carries its global rank (``map-rank3``, ``round-0-rank3``):
+two ranks never write one entry.  The reference has no such case (one
+process holds its global arrays).  On ranks the stream adopts a round
+only when every rank can (an all-reduce of the verdicts), and a received
+chunk's re-drive, a collective the other ranks are not in, is not
+available: a rank recovers a lost received chunk only from the store,
+else the loss raises :class:`ShuffleError`.  The reference's shared
+drain lane belongs to the serving fleet (ROADMAP item 16); rounds run
+one after another.
 """
 
 from __future__ import annotations
@@ -63,27 +94,36 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .. import config
-from .._roadmap import not_ported
+from .. import config, faultinj
 from ..columnar.column import ColumnBatch
 from ..columnar.encoded import (PACKED_COLUMNS, DictionaryColumn,
                                 RunLengthColumn, choose_pack_width,
                                 detach_dictionaries, is_encoded,
                                 materialize_batch, pack_bits_rows,
                                 reattach_dictionaries, unpack_bits_rows)
+from ..mem.executor import run_with_retry
 from ..ops.kernels import PartitionScatter
 from ..parallel.collectives import send_rows
 from ..parallel.partition import spark_partition_id
 from ..parallel.shuffle import bucket_counts, route_out_of_range
 from ..relational.gather import gather_batch
+from . import store as store_mod
 from .buffers import (MorselBuffer, PartitionBuffer, RoundChunk,
-                      batch_leaves, column_leaves, rebatch, tree_nbytes)
+                      batch_leaves, column_leaves, rebatch, store_recompute,
+                      tree_nbytes)
 from .planner import plan_rounds, plan_stream_capacity
 from .registry import ShuffleInfo, ShuffleRegistry, get_registry
 
 
 class ShuffleError(RuntimeError):
     """Lossless-invariant violation or strict-mode partition id abuse."""
+
+
+# every drain round passes this probe; kind "shuffle_io" rules make it
+# raise ShuffleIOError (the transport fault)
+_io_probe = faultinj.instrument(lambda: None, "shuffle_io_round")
+
+_IO_RETRIES = 3  # bounded re-drives of one round on transport faults
 
 
 @dataclass
@@ -100,6 +140,7 @@ class ShuffleResult:
     skew_ratio: float
     oob_rows: int
     spilled_bytes: int = 0          # bytes demoted while it ran
+    recovered_partitions: int = 0   # buffers rebuilt through lineage
     streamed: bool = False          # produced by exchange_stream
     morsels: int = 0                # morsels mapped (streamed only)
     rounds_overlapped: int = 0      # rounds drained before end-of-stream
@@ -202,9 +243,15 @@ def _resolve_compress() -> str:
     return compress
 
 
-def _no_store(store_key) -> None:
-    if store_key is not None:
-        raise not_ported("the persistent shuffle store (store_key=)", 13)
+def _shard_name(mesh, name: str) -> str:
+    """A store shard name: the reference's on a mesh that holds every
+    shard, else suffixed with the process's global rank (each rank holds
+    only its own shards)."""
+    if mesh.holds_all:
+        return name
+    import torch.distributed as dist
+
+    return f"{name}-rank{dist.get_rank()}"
 
 
 def _spill_snapshot() -> Optional[int]:
@@ -399,16 +446,23 @@ class ShuffleService:
         null partition and are counted in ``oob_rows``.  ``ctx`` (a
         ``TaskContext``) charges the map output and the round chunks to
         the task's arena; under pressure idle ones spill.
+
+        ``store_key`` is the exchange's durable identity in the
+        persistent store (:mod:`.store`): a caller-stable string under
+        which the map output and every drained round are committed
+        best-effort, and from which a later run of the same exchange
+        adopts the map output instead of running the map.  None (or no
+        installed store) disables the durable tier.
         """
         if (key_names is None) == (pid is None):
             raise ValueError("pass exactly one of key_names / pid")
-        _no_store(store_key)
         compress = _resolve_compress()
         if strict is None:
             strict = bool(config.get("shuffle_strict_pids"))
         mesh = self.mesh
         P, L = mesh.size, mesh.local_shards
         R = mesh.shard_rows(batch.num_rows)
+        store = store_mod.get_store() if store_key is not None else None
 
         # 0. encoded columns: runs and packed lanes decode; dictionary
         # columns cross as codes (a key on one routes by its values)
@@ -426,11 +480,32 @@ class ShuffleService:
         spill_base = _spill_snapshot()
 
         # 1. map: regroup destination-major + the count matrix
-        if key_names is not None:
-            regrouped, counts, oob = _map_keys(batch, key_names, row_valid,
-                                               P, L)
+        def run_map():
+            if key_names is not None:
+                return _map_keys(batch, key_names, row_valid, P, L)
+            return _map_local(batch, pid, P, L)
+
+        # the durable tier first: a prior attempt's committed map output
+        # is adopted instead of running the map; a store whose every
+        # attempt fails verification has quarantined them, and the map
+        # runs below, counted as a lineage rebuild
+        map_name = _shard_name(mesh, "map")
+        adopted = None
+        if store is not None and store.has_committed(store_key, map_name):
+            adopted = store.adopt(store_key, map_name, mesh.device)
+            if adopted is not None:
+                self.registry.metrics.record_adopted()
+            else:
+                self.registry.metrics.record_lineage_rebuild()
+        if adopted is not None:
+            regrouped, counts, oob = adopted
         else:
-            regrouped, counts, oob = _map_local(batch, pid, P, L)
+            regrouped, counts, oob = run_map()
+            if store is not None:
+                # best effort: a torn, fenced or failed put returns False
+                # and the exchange goes on from memory
+                store.put(store_key, map_name, (regrouped, counts, oob))
+        del adopted
         counts_np, oob_total = _host_counts(counts, oob, P, mesh)
         if oob_total and strict:
             raise ShuffleError(
@@ -445,50 +520,89 @@ class ShuffleService:
         like_leaves = batch_leaves(like)
         wire = _pack_plan(regrouped, dicts, compress, mesh)
         saved_per_chunk = _plan_saved_bytes(wire, like_leaves, P, C)
+        # packed chunks commit under their own shard name: a raw run never
+        # adopts lane words, nor a packed one raw leaves
+        round_tag = "roundp" if wire is not None else "round"
+
+        # lineage: each buffer's recompute= re-runs only what made it,
+        # metered against the exchange's recovery budget
+        recovered = [0]
+        lineage = self._lineage_factory(sid, recovered)
+
+        def adopt_map():
+            # the stored shard carries the oob count too; the buffer
+            # holds (regrouped, counts)
+            t = store.adopt(store_key, map_name, mesh.device)
+            return None if t is None else (t[0], t[1])
 
         # 3. drain round r: slots [r*C, (r+1)*C) of every bucket; the map
         # output is fetched (promoted if it was evicted) and pinned per
         # round, and no reference to it outlives the round
-        map_buf = PartitionBuffer((regrouped, counts), ctx=ctx,
-                                  name=f"shuffle{sid}-map")
+        map_buf = PartitionBuffer(
+            (regrouped, counts), ctx=ctx, name=f"shuffle{sid}-map",
+            recompute=lineage(lambda: run_map()[:2], "map output",
+                              adopt=adopt_map if store is not None
+                              else None))
         del regrouped
+        dev = counts.device
+        offsets = torch.cumsum(counts, 1) - counts
+        shard0 = (torch.arange(L, dtype=torch.int64, device=dev)
+                  * R)[:, None, None]
+        slot = torch.arange(C, dtype=torch.int64, device=dev)
+
+        def drive(r):
+            k = r * C + slot
+            occ = k < counts[:, :, None]               # [L, P_d, C]
+            src = (offsets[:, :, None] + k).clamp(0, max(R - 1, 0))
+            idx = (src + shard0).reshape(-1)
+            with map_buf.pinned():
+                tree = map_buf.get()[0]
+                if wire is None:
+                    out, occ_t = send_rows(mesh, tree, idx, occ.reshape(-1))
+                    return batch_leaves(out), occ_t
+                return _send_packed(mesh, tree, idx, occ.reshape(-1),
+                                    wire, C)
+
+        def redrive(r):
+            # round r depends only on the map output and the static plan:
+            # rebuilding it re-runs ONE round (which may recover the map
+            # output first)
+            def rebuild():
+                if not mesh.holds_all:
+                    raise ShuffleError(
+                        f"shuffle {sid}: round {r} chunk lost and no "
+                        "committed copy; a rank cannot re-drive a round "
+                        "(a collective) alone")
+                return drive(r)
+            return rebuild
+
+        def adopt_round(name):
+            return lambda: store.adopt(store_key, name, mesh.device)
+
         chunks = []
         try:
-            cnts = counts
-            dev = cnts.device
-            offsets = torch.cumsum(cnts, 1) - cnts
-            shard0 = (torch.arange(L, dtype=torch.int64, device=dev)
-                      * R)[:, None, None]
-            slot = torch.arange(C, dtype=torch.int64, device=dev)
             received = torch.zeros((1,), dtype=torch.int64, device=dev)
             for r in range(plan.rounds):
-                k = r * C + slot
-                occ = k < cnts[:, :, None]            # [L, P_d, C]
-                src = (offsets[:, :, None] + k).clamp(0, max(R - 1, 0))
-                idx = (src + shard0).reshape(-1)
-                with map_buf.pinned():
-                    tree = map_buf.get()[0]
-                    if wire is None:
-                        out, occ_t = send_rows(mesh, tree, idx,
-                                               occ.reshape(-1))
-                        out = batch_leaves(out)
-                    else:
-                        out, occ_t = _send_packed(mesh, tree, idx,
-                                                  occ.reshape(-1), wire, C)
-                    del tree
+                out, occ_t = self._run_round(drive, r)
+                name = _shard_name(mesh, f"{round_tag}-{r}")
+                if store is not None:
+                    store.put(store_key, name, (out, occ_t))
                 received += _occ_rows(occ_t, wire is not None)
                 chunks.append(PartitionBuffer(
-                    (out, occ_t), ctx=ctx, name=f"shuffle{sid}-round{r}"))
+                    (out, occ_t), ctx=ctx, name=f"shuffle{sid}-round{r}",
+                    recompute=lineage(
+                        redrive(r), f"round {r} chunk",
+                        adopt=adopt_round(name) if store is not None
+                        else None)))
                 del out, occ_t
             # every shard's grids are the same size: the mesh moved P / L
             # times what this process holds
             bytes_moved = sum(c.nbytes for c in chunks) * P // L
 
-            # nothing re-drives a round (lineage is 13c): the map output
-            # goes now, and each chunk as its rows join the output
-            map_buf.close()
-
-            # 4. account + reassemble
+            # 4. account + reassemble; the map output stays open until
+            # the output is assembled (a chunk read back during assembly
+            # may re-drive its round against it), and a chunk closes once
+            # its rows have joined the output
             sent = int(counts_np.sum())
             got = int(mesh.all_reduce(received, "sum").item())
             residual = int(np.maximum(counts_np - plan.rounds * C, 0).sum())
@@ -521,6 +635,7 @@ class ShuffleService:
             shuffle_id=sid, rounds=plan.rounds, capacity=C,
             rows_moved=got, bytes_moved=bytes_moved, spilled_bytes=spilled,
             skew_ratio=plan.skew_ratio, oob_rows=oob_total,
+            recovered_partitions=recovered[0],
             compressed_bytes_saved=compressed_saved)
         self.registry.record(info)
         return ShuffleResult(
@@ -528,6 +643,7 @@ class ShuffleService:
             rounds=plan.rounds, capacity=C, rows_moved=got,
             bytes_moved=bytes_moved, skew_ratio=plan.skew_ratio,
             oob_rows=oob_total, spilled_bytes=spilled,
+            recovered_partitions=recovered[0],
             compressed_bytes_saved=compressed_saved)
 
     def exchange_stream(self, morsels,
@@ -559,9 +675,16 @@ class ShuffleService:
         all-gather of every rank's count row, so every rank plans the
         same drains).  ``ctx`` charges each morsel and round chunk to the
         task's arena; idle round chunks spill under pressure, and a
-        scatter or drain pins the chunks it touches.
+        scatter or drain pins the chunks it touches.  Replay callables
+        are the stream's lineage: a lost or corrupt send chunk re-decodes
+        and re-scatters its source morsels instead of holding a second
+        copy.
+
+        ``store_key`` commits every drained round (the stream's map
+        output arrives morsel by morsel, so the committed grain is the
+        received round): a later run of the same stream adopts each
+        drained round instead of running its all-to-all.
         """
-        _no_store(store_key)
         compress = _resolve_compress()
         if strict is None:
             strict = bool(config.get("shuffle_strict_pids"))
@@ -577,10 +700,16 @@ class ShuffleService:
         sid = self.registry.begin_shuffle()
         spill_base = _spill_snapshot()
         C = plan_stream_capacity(round_rows=round_rows)
+        store = store_mod.get_store() if store_key is not None else None
+        recv_tag = "recv"
+        recovered = [0]
+        lineage = self._lineage_factory(sid, recovered)
 
         cum = np.zeros((P, P), np.int64)
         cum_dev = None        # the local shards' counts on the device
         send_chunks = {}
+        # per round, every local scatter into it: (replay, base before it)
+        contribs = {}
         recv = []
         like = scatter = wire = like_leaves = None
         saved_per_chunk = 0
@@ -599,15 +728,41 @@ class ShuffleService:
                                  "(batch, pid) pairs")
             return (b,) + _route_count(aux, P, L)[:3]
 
-        def open_chunk(rr, m_leaves):
+        def morsel_leaves(replay):
+            b, pid, _counts, _oob = run_map(replay())
+            return [x.contiguous() for x in batch_leaves(b)], pid
+
+        def empty_chunk(m_leaves):
             # L * P * C slots per leaf, sender-major then destination
             leaves = [torch.zeros((L * P * C,) + tuple(x.shape[1:]),
                                   dtype=x.dtype, device=x.device)
                       for x in m_leaves]
             occ = torch.zeros((L * P * C,), dtype=torch.bool,
                               device=m_leaves[0].device)
-            send_chunks[rr] = RoundChunk((leaves, occ), ctx=ctx,
-                                         name=f"shuffle{sid}-send{rr}")
+            return leaves, occ
+
+        def rebuild_chunk(rr):
+            # re-scatter every contribution recorded for round rr into a
+            # fresh chunk, one kernel launch each; the chunk's tensors are
+            # new, so the scatter opens the round again first
+            def rebuild():
+                leaves, occ = empty_chunk(like_leaves)
+                scatter.open_round(rr, leaves, occ)
+                try:
+                    for replay, base in contribs[rr]:
+                        m_leaves, m_pid = morsel_leaves(replay)
+                        scatter(m_leaves, m_pid, base, rr, rr)
+                finally:
+                    scatter.release_round(rr)
+                return leaves, occ
+            return rebuild
+
+        def open_chunk(rr, m_leaves):
+            send_chunks[rr] = RoundChunk(
+                empty_chunk(m_leaves), ctx=ctx, name=f"shuffle{sid}-send{rr}",
+                recompute=lineage(rebuild_chunk(rr),
+                                  f"round {rr} send chunk"))
+            contribs[rr] = []
 
         def scatter_morsel(m_leaves, m_pid, lo, hi):
             # the rounds' chunks pinned and promoted, their tensors
@@ -622,23 +777,56 @@ class ShuffleService:
                 for rr in range(lo, hi + 1):
                     scatter.release_round(rr)
 
-        def drain_round(rr):
+        def send(rr):
             chunk = send_chunks[rr]
             with chunk.pinned():
                 leaves, occ = chunk.get()
                 if wire is None:
-                    out = [mesh.all_to_all(x) for x in leaves]
-                    occ_t = mesh.all_to_all(occ)
-                else:
-                    rows = L * P
-                    out = [mesh.all_to_all(
-                        x if sp is None else _pack_leaf(x, sp, rows))
-                        for x, sp in zip(leaves, wire)]
-                    occ_t = mesh.all_to_all(_pack_leaf(occ, _BIT, rows))
-                del leaves, occ
-            recv.append(PartitionBuffer((out, occ_t), ctx=ctx,
-                                        name=f"shuffle{sid}-recv{rr}"))
-            chunk.close()  # nothing re-drives a drained round (13c)
+                    return ([mesh.all_to_all(x) for x in leaves],
+                            mesh.all_to_all(occ))
+                rows = L * P
+                return ([mesh.all_to_all(
+                    x if sp is None else _pack_leaf(x, sp, rows))
+                    for x, sp in zip(leaves, wire)],
+                    mesh.all_to_all(_pack_leaf(occ, _BIT, rows)))
+
+        def redrain(rr):
+            def rebuild():
+                if not mesh.holds_all:
+                    raise ShuffleError(
+                        f"shuffle {sid}: round {rr} received chunk lost "
+                        "and no committed copy; a rank cannot re-drain a "
+                        "round (a collective) alone")
+                return send(rr)
+            return rebuild
+
+        def drain_round(rr):
+            name = _shard_name(mesh, f"{recv_tag}-{rr}")
+            adopted = (store.adopt(store_key, name, mesh.device)
+                       if store is not None else None)
+            if store is not None and not mesh.holds_all:
+                # the all-to-all is collective: a round is adopted only
+                # where every rank holds a verified copy
+                miss = torch.tensor([int(adopted is None)],
+                                    dtype=torch.int64, device=mesh.device)
+                if int(mesh.all_reduce(miss, "max").item()):
+                    adopted = None
+            if adopted is not None:
+                out, occ_t = adopted
+                self.registry.metrics.record_adopted()
+            else:
+                out, occ_t = self._run_round(send, rr)
+                if store is not None:
+                    store.put(store_key, name, (out, occ_t))
+            recv.append(PartitionBuffer(
+                (out, occ_t), ctx=ctx, name=f"shuffle{sid}-recv{rr}",
+                recompute=lineage(
+                    redrain(rr), f"round {rr} chunk",
+                    adopt=(lambda: store.adopt(store_key, name,
+                                               mesh.device))
+                    if store is not None else None)))
+            # the send chunk stays open behind the received chunk's
+            # lineage; no later morsel reaches its round
             scatter.close_round(rr)
 
         try:
@@ -667,12 +855,17 @@ class ShuffleService:
                         wire = _bool_plan(m_leaves)
                         saved_per_chunk = _plan_saved_bytes(
                             wire, m_leaves, P, C)
+                        if wire is not None:
+                            recv_tag = "recvp"
                 base = cum.copy()
                 cum = cum + counts_np
                 m_idx = n_morsels
                 n_morsels += 1
-                mbuf = MorselBuffer((m_leaves, pid), ctx=ctx,
-                                    name=f"shuffle{sid}-morsel{m_idx}")
+                mbuf = MorselBuffer(
+                    (m_leaves, pid), ctx=ctx,
+                    name=f"shuffle{sid}-morsel{m_idx}",
+                    recompute=lineage(lambda rp=replay: morsel_leaves(rp),
+                                      f"morsel {m_idx} map output"))
                 del b
                 try:
                     with mbuf.pinned():
@@ -698,6 +891,9 @@ class ShuffleService:
                                             // C).max())
                                 scatter_morsel(m_leaves, m_pid, m_lo, m_hi)
                                 scatters += m_hi - m_lo + 1
+                                base_dev = cum_dev.clone()
+                                for rr in range(m_lo, m_hi + 1):
+                                    contribs[rr].append((replay, base_dev))
                             cum_dev += counts
                 finally:
                     mbuf.close()
@@ -732,8 +928,10 @@ class ShuffleService:
             bytes_moved = sum(b.nbytes for b in recv) * P // L
             parts = []
             for b in recv:
+                # the send chunks stay open behind the received chunks'
+                # lineage until every received chunk has joined
                 leaves, occ_v = _unpack_chunk(*b.get(), wire, like_leaves, C)
-                b.close()  # its rows join the output
+                b.close()
                 parts.append(leaves + [occ_v])
             merged = _concat_rounds(parts, L)
             final_batch = rebatch(like, merged[:-1])
@@ -760,7 +958,8 @@ class ShuffleService:
         info = ShuffleInfo(
             shuffle_id=sid, rounds=rounds, capacity=C, rows_moved=got,
             bytes_moved=bytes_moved, spilled_bytes=spilled,
-            skew_ratio=plan.skew_ratio, oob_rows=oob_total, streamed=True,
+            skew_ratio=plan.skew_ratio, oob_rows=oob_total,
+            recovered_partitions=recovered[0], streamed=True,
             morsels=n_morsels, rounds_overlapped=rounds_overlapped,
             decode_ms=decode_ms, drain_ms=drain_ms,
             compressed_bytes_saved=compressed_saved,
@@ -771,8 +970,54 @@ class ShuffleService:
             batch=final_batch, occupancy=final_occ, shuffle_id=sid,
             rounds=rounds, capacity=C, rows_moved=got,
             bytes_moved=bytes_moved, skew_ratio=plan.skew_ratio,
-            oob_rows=oob_total, spilled_bytes=spilled, streamed=True,
+            oob_rows=oob_total, spilled_bytes=spilled,
+            recovered_partitions=recovered[0], streamed=True,
             morsels=n_morsels, rounds_overlapped=rounds_overlapped,
             decode_ms=decode_ms, drain_ms=drain_ms, scatters=scatters,
             sync_ms=sync_ms, compressed_bytes_saved=compressed_saved,
             blocks_skipped=blocks_skipped, blocks_scanned=blocks_scanned)
+
+    # -- internals ------------------------------------------------------
+    def _lineage_factory(self, sid: int, recovered):
+        """The exchange's lineage wrapper: every restore draws on the
+        shared ``shuffle_max_recoveries`` budget and is counted live
+        (``recovered_partitions``).  ``adopt`` puts the durable tier under
+        the rebuild through :func:`~.buffers.store_recompute`: a
+        committed, verified store entry restores the buffer without
+        re-running it (``adopted_shards``), a miss re-runs it
+        (``lineage_rebuilds``)."""
+        max_recoveries = int(config.get("shuffle_max_recoveries"))
+        metrics = self.registry.metrics
+
+        def lineage(rebuild, what, adopt=None):
+            inner = store_recompute(adopt, rebuild,
+                                    on_adopt=metrics.record_adopted,
+                                    on_rebuild=metrics.record_lineage_rebuild)
+
+            def run():
+                if recovered[0] >= max_recoveries:
+                    raise ShuffleError(
+                        f"shuffle {sid}: {what} lost or corrupt and the "
+                        f"recovery budget is exhausted (max_recoveries="
+                        f"{max_recoveries}; see shuffle_max_recoveries)")
+                recovered[0] += 1
+                metrics.record_recovered()
+                return inner()
+            return run
+        return lineage
+
+    def _run_round(self, step, r: int):
+        """One retryable round ``step(r)``: arena pressure runs the spill
+        ladder, and a transport fault re-drives the round from the intact
+        buffers up to ``_IO_RETRIES`` times, then raises."""
+        def round_step():
+            _io_probe()
+            return step(r)
+
+        for attempt in range(_IO_RETRIES + 1):
+            try:
+                return run_with_retry(round_step)
+            except faultinj.ShuffleIOError:
+                self.registry.metrics.record_io_failure()
+                if attempt == _IO_RETRIES:
+                    raise

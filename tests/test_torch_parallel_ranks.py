@@ -175,11 +175,22 @@ AXIS_OPS = [Op("service_stream", (Sharded(AXIS_BATCH), Hier(2, 2), 8),
                AXIS_KW)]
 
 
+def _store_op(root):
+    """A ``store_key`` exchange run twice over a store under ``root``."""
+    return Op("service_store", (Sharded(AXIS_BATCH), MESH, root, 8),
+              {"key_names": ["k"], "round_rows": 2})
+
+
 @pytest.fixture(scope="module")
-def results():
+def store_root(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("shuffle_store"))
+
+
+@pytest.fixture(scope="module")
+def results(store_root):
     ops = [op for _, op in CASES]
-    ranks = launch.spawn(WORLD, BODY, ops + AXIS_OPS, backend="gloo",
-                         wall_s=240.0)
+    ranks = launch.spawn(WORLD, BODY, ops + AXIS_OPS + [_store_op(store_root)],
+                         backend="gloo", wall_s=240.0)
     try:
         shards = drive.run_ops(ShardMesh(WORLD, device="cpu"), ops)
     finally:
@@ -245,6 +256,35 @@ def test_stream_over_one_axis(results):
         for j in range(2):
             same(ranks[2 * h + j][len(CASES)], [want[j]],
                  f"axis stream rank {2 * h + j}")
+
+
+def test_ranks_commit_and_adopt_under_their_own_shard_names(results,
+                                                          store_root):
+    """Each rank commits its own map output and rounds (and its
+    stream's received rounds) under shard names carrying its rank, and
+    the second runs adopt them: the map output once, every stream round
+    on every rank at once.  The ranks deliver the ``ShardMesh(4)`` store
+    runs' rows, which keep the reference's shard names."""
+    ranks, _ = results
+    i = len(CASES) + len(AXIS_OPS)
+    try:
+        want = drive.run_ops(ShardMesh(WORLD, device="cpu"),
+                             [CASES[0][1], _store_op(store_root)])[1]
+    finally:
+        tconfig.reset()
+    for r in range(WORLD):
+        same(ranks[r][i], [want[r]], f"store rank {r}")
+        rounds = ranks[r][i][0]["rounds"]
+        assert rounds >= 2
+        assert ranks[r][i][0]["adopted"] == [0, 1 + rounds]
+    for key in ("x", "xs"):
+        on_ranks = sorted(os.listdir(os.path.join(store_root, "ranks", key)))
+        on_shards = sorted(os.listdir(os.path.join(store_root, "shards",
+                                                   key)))
+        assert len(on_shards) > 2
+        assert on_ranks == sorted(f"{name}-rank{r}" for name in on_shards
+                                  for r in range(WORLD))
+    assert "shard-map" in os.listdir(os.path.join(store_root, "shards", "x"))
 
 
 def test_streams_move_rows_and_skip_blocks(results):

@@ -12,6 +12,7 @@ and their order — must be bit-identical to the reference's.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -280,15 +281,10 @@ def test_unported_options_raise(eight_devices):
     _, tm = _meshes(eight_devices)
     _, tb = _kv(np.arange(P8 * 4), np.arange(P8 * 4))
     svc = ShuffleService(tm, registry=ShuffleRegistry())
-    # ctx= is ported (tests/test_torch_spill.py); the store is not
-    with pytest.raises(NotImplementedError, match="item 13"):
-        svc.exchange(tb, key_names=["k"], store_key="q")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        svc.exchange_stream(MorselSource.from_batch(tb, tm, morsel_rows=4),
-                            key_names=["k"], store_key="q")
-    # shuffle_compress='pack' and a zone-map predicate are ported: the
-    # packed exchange delivers the raw one's rows, and a predicate over a
-    # column with no sidecar skips nothing
+    # ctx= and store_key= are ported (tests/test_torch_spill.py and the
+    # store cases below), and so are shuffle_compress='pack' and a
+    # zone-map predicate: the packed exchange delivers the raw one's
+    # rows, and a predicate over a column with no sidecar skips nothing
     raw = svc.exchange(tb, key_names=["k"])
     tconfig.set("shuffle_compress", "pack")
     packed = svc.exchange(tb, key_names=["k"])
@@ -442,3 +438,121 @@ def test_nested_columns_do_not_cross(eight_devices):
         MorselSource.from_batch(tb, tm, morsel_rows=2)
     with pytest.raises(NotImplementedError, match="do not shard by row"):
         tree_nbytes(tb)
+
+
+# ---------------------------------------------------------------------------
+# transport faults (TestShuffleIOFaults) and the persistent store
+# ---------------------------------------------------------------------------
+
+IO_RULE = {"match": "shuffle_io_round", "fault": "shuffle_io"}
+
+
+def _io_inputs():
+    vals = np.arange(P8 * 8, dtype=np.int64)
+    return vals, (vals % P8).astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def io_reference(eight_devices):
+    """The reference's ``TestShuffleIOFaults`` exchange (64 rows over 8
+    devices, pid = row % 8), once with one injected round fault and once
+    with a fault on every round: its result (or error) and its
+    ``io_failures``."""
+    from spark_rapids_jni_tpu import faultinj as jfault
+
+    jm = data_mesh(P8)
+    vals, pid = _io_inputs()
+    jb, _ = _kv(vals, vals)
+    jpid = jax.device_put(jnp.asarray(pid),
+                          NamedSharding(jm, PartitionSpec("data")))
+    out = {}
+    for name, extra in (("once", {"count": 1}), ("always", {})):
+        reg = JRegistry()
+        jfault.configure({"faults": [dict(IO_RULE, **extra)]})
+        try:
+            out[name] = JService(jm, registry=reg).exchange(
+                shard_batch(jb, jm), pid=jpid)
+        except jfault.ShuffleIOError as e:
+            out[name] = e
+        finally:
+            jfault.configure({})
+        out[name, "io"] = reg.metrics.snapshot()["io_failures"]
+    return out
+
+
+@pytest.mark.parametrize("fault", ["once", "always"])
+def test_round_io_faults_match_reference(eight_devices, io_reference,
+                                         fault):
+    from spark_rapids_jni_tpu_torch import faultinj
+    from spark_rapids_jni_tpu_torch.shuffle.service import _IO_RETRIES
+
+    _, tm = _meshes(eight_devices)
+    vals, pid = _io_inputs()
+    _, tb = _kv(vals, vals)
+    reg = ShuffleRegistry()
+    rule = dict(IO_RULE, **({"count": 1} if fault == "once" else {}))
+    with faultinj.scope({"faults": [rule]}):
+        if fault == "always":
+            with pytest.raises(faultinj.ShuffleIOError):
+                ShuffleService(tm, registry=reg).exchange(
+                    tb, pid=torch.from_numpy(pid))
+            assert isinstance(io_reference[fault], OSError)
+        else:
+            tres = ShuffleService(tm, registry=reg).exchange(
+                tb, pid=torch.from_numpy(pid))
+            # the re-driven round delivers the reference's arrays
+            assert_same_result(io_reference[fault], tres)
+            occ = tres.occupancy
+            assert sorted(tres.batch["v"].data[occ].tolist()) == \
+                vals.tolist()
+    want = 1 if fault == "once" else _IO_RETRIES + 1
+    assert reg.metrics.snapshot()["io_failures"] == \
+        io_reference[fault, "io"] == want
+
+
+def test_store_exchange_adopts_the_map_like_reference(eight_devices,
+                                                      tmp_path,
+                                                      small_buckets):
+    """A ``store_key`` exchange commits its map output and every round
+    under the reference's shard names; a second run with a fresh
+    registry adopts the map (the map step does not run) and delivers
+    the same arrays as the reference's adopting run."""
+    from spark_rapids_jni_tpu.shuffle import store as jstore
+
+    from spark_rapids_jni_tpu_torch.shuffle import service as S
+    from spark_rapids_jni_tpu_torch.shuffle import store as tstore
+
+    jm, tm = _meshes(eight_devices)
+    n = P8 * 256
+    keys = np.random.default_rng(8).integers(0, 1 << 20, n)
+    jb, tb = _kv(keys, np.arange(n))
+    jb = shard_batch(jb, jm)
+    jstore.install(str(tmp_path / "ref"), epoch=0)
+    tstore.install(str(tmp_path / "port"), epoch=0)
+    maps = []
+    real_map = S._map_keys
+    S._map_keys = lambda *a: maps.append(1) or real_map(*a)
+    try:
+        got = {}
+        for run in range(2):
+            jreg, treg = JRegistry(), ShuffleRegistry()
+            jres = JService(jm, registry=jreg).exchange(
+                jb, key_names=["k"], round_rows=16, store_key="q")
+            tres = ShuffleService(tm, registry=treg).exchange(
+                tb, key_names=["k"], round_rows=16, store_key="q")
+            assert_same_result(jres, tres)
+            got[run] = (treg.metrics.snapshot(), jreg.metrics.snapshot())
+    finally:
+        S._map_keys = real_map
+        jstore.shutdown_store()
+        tstore.shutdown_store()
+    assert len(maps) == 1  # the second run adopted the map output
+    for run, adopted in ((0, 0), (1, 1)):
+        tsnap, jsnap = got[run]
+        for k in ("adopted_shards", "lineage_rebuilds",
+                  "recovered_partitions"):
+            assert tsnap[k] == jsnap[k], (run, k)
+        assert tsnap["adopted_shards"] == adopted
+    assert sorted(os.listdir(tmp_path / "port" / "q")) == \
+        sorted(os.listdir(tmp_path / "ref" / "q"))
+    assert tres.rounds >= 2

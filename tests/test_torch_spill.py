@@ -76,7 +76,7 @@ MB = 1 << 20
 KB = 1 << 10
 P8 = 8
 SPILL_KNOBS = ("spill_codec", "spill_checksum", "join_engine",
-               "shuffle_capacity_bucket")
+               "shuffle_capacity_bucket", "shuffle_max_recoveries")
 
 
 @pytest.fixture(autouse=True)
@@ -574,6 +574,18 @@ class TestSpillIOFault:
             assert kind in jfault.FAULT_KINDS
             with pytest.raises(NotImplementedError, match="item 17"):
                 faultinj._Rule({"fault": kind})
+        # the exchange's and the shuffle store's kinds fire their own
+        # errors, each an OSError as in the reference
+        for kind, err in (("shuffle_io", faultinj.ShuffleIOError),
+                          ("store_commit", faultinj.StoreCommitError),
+                          ("store_corrupt", faultinj.StoreCorruptionError)):
+            assert kind not in faultinj.UNPORTED_KINDS
+            faultinj._Rule({"match": "p", "fault": kind})
+            with faultinj.scope({"faults": [{"match": "p", "fault": kind}]}):
+                with pytest.raises(err):
+                    faultinj.instrument(lambda: None, "p")()
+            assert issubclass(err, OSError)
+            assert issubclass(getattr(jfault, err.__name__), OSError)
         assert set(faultinj.FAULT_KINDS) | set(faultinj.UNPORTED_KINDS) \
             == set(jfault.FAULT_KINDS)
 
@@ -1196,3 +1208,218 @@ class TestOutOfCore:
         assert plain.spilled_bytes == 0
         _same_tree((res.batch, res.occupancy),
                    (plain.batch, plain.occupancy))
+
+
+# ---------------------------------------------------------------------------
+# partition recovery through lineage (tests/test_chaos.py
+# TestShufflePartitionRecovery) and the stream's send-chunk rebuild
+# ---------------------------------------------------------------------------
+
+RECOVERY_ROWS = P8 * 1024
+CORRUPT = {"match": "spill_corrupt_file", "fault": "spill_corrupt"}
+
+
+def _recovery_run(ns, spill_dir, task_id, make_exchange, fault=None):
+    """The reference's recovery scenario in either package: every row to
+    partition 0, capacity bucket 256, 128-row rounds, a 512 KiB device
+    and 128 KiB host arena, so round chunks demote to disk.  Returns the
+    delivered values, occupancy, result or error, the registry snapshot
+    and the bytes left in the arena."""
+    rmm, reg = ns["rmm"], ns["registry"]()
+    adaptor = rmm.set_event_handler(512 * KB, host_pool_bytes=128 * KB,
+                                    poll_ms=10.0)
+    ns["spill"].install(spill_dir=spill_dir)
+    out = {}
+    try:
+        with ns["scope"]({"faults": [fault] if fault else []}):
+            with ns["ctx"](task_id) as ctx:
+                try:
+                    res = make_exchange(reg, ctx)
+                    out["vals"], out["occ"] = ns["delivered"](res)
+                    out["res"] = res
+                except ns["shuffle_error"] as e:
+                    out["error"] = str(e)
+        rmm.task_done(task_id)
+        out["snap"] = reg.metrics.snapshot()
+        out["left"] = adaptor.total_allocated()
+    finally:
+        ns["spill"].shutdown()
+        rmm.clear_event_handler()
+    return out
+
+
+@pytest.fixture(scope="module")
+def recovery_reference(eight_devices, tmp_path_factory):
+    """The reference's clean, corrupted (two disk writes) and zero-budget
+    runs of the recovery scenario."""
+    from spark_rapids_jni_tpu import config as jconfig
+    from spark_rapids_jni_tpu.parallel import data_mesh, shard_batch
+    from spark_rapids_jni_tpu.shuffle import ShuffleError as JShuffleError
+    from spark_rapids_jni_tpu.shuffle import ShuffleRegistry as JRegistry
+    from spark_rapids_jni_tpu.shuffle import ShuffleService as JService
+
+    vals = (np.arange(RECOVERY_ROWS, dtype=np.int64) * 977) % (1 << 30)
+    mesh = data_mesh(P8)
+    batch = shard_batch(JBatch({"v": JColumn(
+        jnp.asarray(vals), jnp.ones((RECOVERY_ROWS,), jnp.bool_),
+        JT.INT64)}), mesh)
+    pid = jax.device_put(jnp.zeros((RECOVERY_ROWS,), jnp.int32),
+                         jax.sharding.NamedSharding(
+                             mesh, jax.sharding.PartitionSpec("data")))
+    ns = {"rmm": JRmmSpark, "registry": JRegistry, "spill": jspill,
+          "scope": jfault.scope, "ctx": JTaskContext,
+          "shuffle_error": JShuffleError,
+          "delivered": lambda r: (np.asarray(r.batch["v"].data),
+                                  np.asarray(r.occupancy))}
+
+    def ex(reg, ctx):
+        return JService(mesh, registry=reg).exchange(
+            batch, pid=pid, ctx=ctx, round_rows=128)
+
+    root = tmp_path_factory.mktemp("recovery_ref")
+    jconfig.set("shuffle_capacity_bucket", 256)
+    try:
+        out = {"clean": _recovery_run(ns, str(root / "a"), 31, ex),
+               "corrupt": _recovery_run(ns, str(root / "b"), 32, ex,
+                                        dict(CORRUPT, count=2))}
+        jconfig.set("shuffle_max_recoveries", 0)
+        out["budget"] = _recovery_run(ns, str(root / "c"), 33, ex,
+                                      dict(CORRUPT, count=1))
+    finally:
+        jconfig.reset("shuffle_capacity_bucket")
+        jconfig.reset("shuffle_max_recoveries")
+    return vals, out
+
+
+@pytest.mark.parametrize("case", ["corrupt", "budget"])
+def test_partition_recovery_matches_reference(tmp_path, recovery_reference,
+                                              case):
+    from spark_rapids_jni_tpu_torch.shuffle import (ShuffleError,
+                                                    ShuffleRegistry)
+
+    vals, ref = recovery_reference
+    mesh = ShardMesh(P8, device="cpu")
+    batch = batch_from_numpy({"v": (vals, np.ones(RECOVERY_ROWS, bool),
+                                    "int64")}, device="cpu")
+    pid = torch.zeros(RECOVERY_ROWS, dtype=torch.int32)
+    ns = {"rmm": RmmSpark, "registry": ShuffleRegistry, "spill": spill_mod,
+          "scope": faultinj.scope, "ctx": TaskContext,
+          "shuffle_error": ShuffleError,
+          "delivered": lambda r: (r.batch["v"].data.numpy(),
+                                  r.occupancy.numpy())}
+
+    def ex(reg, ctx):
+        return ShuffleService(mesh, registry=reg).exchange(
+            batch, pid=pid, ctx=ctx, round_rows=128)
+
+    config.set("shuffle_capacity_bucket", 256)
+    if case == "budget":
+        config.set("shuffle_max_recoveries", 0)
+    got = _recovery_run(ns, str(tmp_path / "spill"), 34, ex,
+                        dict(CORRUPT, count=2 if case == "corrupt" else 1))
+    want = ref[case]
+    assert got["left"] == want["left"] == 0
+    if case == "budget":
+        assert "recovery budget" in got["error"]
+        assert "recovery budget" in want["error"]
+        return
+    res = got["res"]
+    assert res.recovered_partitions > 0
+    assert res.recovered_partitions == want["res"].recovered_partitions
+    info = get_registry().shuffles().get(res.shuffle_id)
+    assert info is None or info.recovered_partitions >= 0
+    for k in ("recovered_partitions", "adopted_shards", "lineage_rebuilds",
+              "rows_moved", "rounds", "dropped_rows"):
+        assert got["snap"][k] == want["snap"][k], k
+    # recovery is invisible in the delivered rows: the reference's arrays
+    np.testing.assert_array_equal(got["occ"], want["occ"])
+    np.testing.assert_array_equal(got["vals"], want["vals"])
+    np.testing.assert_array_equal(ref["clean"]["vals"], want["vals"])
+
+
+def test_stream_send_chunk_rebuilds_through_the_scatter(tmp_path):
+    """A stream whose spilled chunks are corrupted on disk rebuilds each
+    damaged send chunk by re-scattering its recorded morsels through the
+    partition-scatter kernel (its plain version here) and delivers the
+    undamaged stream's arrays, with the arena drained."""
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+
+    config.set("shuffle_capacity_bucket", 16)  # capacity = round_rows
+    config.set("shuffle_max_recoveries", 1 << 10)
+    mesh = ShardMesh(P8, device="cpu")
+    n = P8 * 2048
+    vals, batch = _kv_batch(n, 9)
+    calls = []
+    real = KER.PartitionScatter.__call__
+
+    def counted(self, *a):
+        calls.append(tuple(a[3:5]))
+        return real(self, *a)
+
+    def stream(ctx):
+        src = MorselSource.from_batch(batch, mesh, morsel_rows=256)
+        return ShuffleService(mesh).exchange_stream(
+            src, key_names=["k"], ctx=ctx, round_rows=64)
+
+    KER.PartitionScatter.__call__ = counted
+    try:
+        plain = stream(None)
+        plain_calls = list(calls)
+        del calls[:]
+        get_registry().reset()
+        # spilled chunks go on to disk (a 128 KiB host arena), where the
+        # first disk writes are damaged
+        spill_mod.install(spill_dir=str(tmp_path / "spill"))
+        adaptor = RmmSpark.set_event_handler(384 << 10,
+                                             host_pool_bytes=128 << 10,
+                                             poll_ms=10.0)
+        try:
+            with faultinj.scope({"faults": [dict(CORRUPT, count=8)]}):
+                with TaskContext(79) as ctx:
+                    res = stream(ctx)
+            RmmSpark.task_done(79)
+            assert adaptor.total_allocated() == 0
+        finally:
+            RmmSpark.clear_event_handler()
+            spill_mod.shutdown()
+    finally:
+        KER.PartitionScatter.__call__ = real
+    snap = get_registry().metrics.snapshot()
+    assert res.recovered_partitions > 0
+    assert snap["lineage_rebuilds"] == res.recovered_partitions
+    # the stream launches once a morsel; each rebuilt send chunk adds one
+    # single-round launch per morsel recorded against it
+    assert len(calls) > len(plain_calls)
+    assert sum(lo == hi for lo, hi in calls) - \
+        sum(lo == hi for lo, hi in plain_calls) == \
+        len(calls) - len(plain_calls)
+    assert res.rows_moved == n
+    _same_tree((res.batch, res.occupancy), (plain.batch, plain.occupancy))
+
+
+def test_round_chunk_update_swaps_tree_charge_and_lineage(framework,
+                                                         adaptor):
+    """``RoundChunk.update`` closes the stale handle before charging the
+    new tree, and the new handle carries the new lineage: a damaged host
+    copy rebuilds from it."""
+    from spark_rapids_jni_tpu_torch.shuffle import RoundChunk
+
+    def chunk_tree(n, seed):
+        return ([torch.from_numpy(_words(n, seed))],
+                torch.ones(n, dtype=torch.bool))
+
+    with TaskContext(80) as ctx:
+        chunk = RoundChunk(chunk_tree(64, 1), ctx=ctx, name="round-1")
+        assert adaptor.total_allocated() == chunk.nbytes == 64 * 5
+        chunk.update(chunk_tree(128, 2),
+                     recompute=lambda: chunk_tree(128, 2))
+        assert adaptor.total_allocated() == chunk.nbytes == 128 * 5
+        with faultinj.scope({"faults": [
+                {"match": "host_corrupt_probe", "fault": "host_corrupt",
+                 "count": 1}]}):
+            chunk._handle.spill()
+        leaves, occ = chunk.get()
+        assert np.array_equal(leaves[0].numpy(), _words(128, 2))
+        assert bool(occ.all()) and chunk._handle.lineage_rebuilds == 1
+        chunk.close()
+    assert adaptor.total_allocated() == 0
