@@ -179,7 +179,30 @@ Phases, each printing one JSON line:
    recovery budget raises; a stream commits every received round, a
    second adopts them all with no all-to-all and K4 once a morsel, and
    a stream on a 4.5-chunk arena rebuilds damaged send chunks through
-   K4, whose launches beyond the 512 it reports).
+   K4, whose launches beyond the 512 it reports);
+16. the rest of the Spark-exact expression library, last:
+   ``expr_strings`` (2^20 rows: ``from_json_to_raw_map`` over JSON
+   documents of 2-12 top-level fields, ``parse_uri`` HOST, PATH, QUERY
+   and QUERY with a key over web-log URLs, ``format_float`` on float64
+   and float32 at 0, 2 and 5 digits, ``decimal_to_string`` on
+   Decimal128(38, 10) and (18, 2): a 2^14-row sample of every output
+   equal byte for byte to the port's CPU run, 4096 rows against
+   ``json.loads``, ``tests/uri_oracle.py`` and ``decimal``; ms, CUDA
+   launches and idle share of each op); ``expr_rows`` (the JCUDF row
+   transpose of q6's 2^24-row batch and of a 2^20-row batch with a
+   string and a Decimal128 column, each bit-identical after the round
+   trip, ``q6_step`` over the round-tripped batch equal to it over the
+   original; GB/s of each direction against the bandwidth bound);
+   ``expr_filter`` (a Spark runtime bloom filter at Spark's default
+   size, built from ``xxhash64`` of the dim1 keys passing ``d1 == 0``
+   and probed with the 2^24-row q95 fact: no false negative, the
+   false-positive rate, the serialized bytes equal to the CPU port's,
+   two half-builds merged equal to the whole; percentiles over 4096
+   histograms, z-order and Hilbert indexes of the fact's int32 columns,
+   both calendar rebases and both time-zone conversions over 2^24
+   values, each against the CPU port on a sample, the zones also against
+   ``zoneinfo``; named zones run when the system's TZif files exist, and
+   the line says whether they did).
 
 It then prints one ``kernels`` line and, last, ``{"ok": true, "device":
 ...}``.  Any mismatch or exception exits nonzero without that line, as
@@ -2684,39 +2707,70 @@ CAST_ROWS = 1 << 20
 CAST_SAMPLE_ROWS = 4096
 
 
-def json_oracle():
-    """``tests/json_oracle.py``: the pure-Python model of Spark's
-    ``get_json_object`` and Java's ``Double.toString``."""
+def tests_module(name):
+    """A pure-Python oracle of ``tests/`` (standard library and numpy
+    only: the card's machine runs them beside the port)."""
     import importlib
-    import os
 
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
-    return importlib.import_module("json_oracle")
+    return importlib.import_module(name)
 
 
-def cuda_profile(fn):
-    """One call of ``fn`` under ``torch.profiler``: the CUDA kernels it
-    launched and their summed device ms."""
+def json_oracle():
+    """``tests/json_oracle.py``: the pure-Python model of Spark's
+    ``get_json_object`` and Java's ``Double.toString``."""
+    return tests_module("json_oracle")
+
+
+TRACE_LEAD = 256    # marker launches that open every trace
+
+
+def cuda_profile(fn, calls=1, traces=2):
+    """``traces`` traces of ``calls`` calls of ``fn`` each, recording
+    device activity only: the CUDA kernels launched per call, their device
+    ms per call, and each trace's launch count.  A trace can lose the
+    device records of its start (on the H100, late in this script about
+    every other trace lost its first 26-34, a few lost more), so each
+    trace opens with ``TRACE_LEAD`` marker kernels (``torch.cuda._sleep``)
+    and counts only the rest; one that kept no marker is lost and taken
+    again, at most ``traces`` times more.  An op's launch count is fixed,
+    so traces that disagree, or that saw no launch, give None for both
+    numbers: not measured."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    cuda = torch.autograd.DeviceType.CUDA
+    counts, dev_ms = [], []
+    for _ in range(2 * traces):
         torch.cuda.synchronize()
-    launches, dev_us = 0, 0.0
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            launches += e.count
-            dev_us += us
-    return launches, dev_us / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_LEAD):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        # the raw events: key_averages() builds a Python event tree, about
+        # 0.1 ms an event, too slow for a scan of 10^5 launches
+        lead, n, ns = 0, 0, 0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != cuda or e.duration_ns() <= 0:
+                continue
+            if "spin_kernel" in e.name():
+                lead += 1
+            else:
+                n += 1
+                ns += e.duration_ns()
+        counts.append(n if lead else None)
+        if lead:
+            dev_ms.append(ns / 1e6 / calls)
+        if len(dev_ms) == traces:
+            break
+    kept = [c for c in counts if c is not None]
+    if len(kept) < traces or kept[0] == 0 or len(set(kept)) > 1:
+        return None, None, counts
+    return kept[0] / calls, sum(dev_ms) / traces, counts
 
 
 def host_syncs():
@@ -2804,7 +2858,7 @@ def phase_qstr():
     check(flagged == 0, f"qstr: the fast engine flagged {flagged} rows")
     check(syncs["scan_runs"] == 0, "qstr: the scan machine ran")
     ms = time_ms(lambda: PL.qstr_step(batch), reps=3, warmup=0)
-    launches, dev_ms = cuda_profile(lambda: PL.qstr_step(batch))
+    launches, dev_ms, _ = cuda_profile(lambda: PL.qstr_step(batch))
     owners = get_json_object(batch["doc"], "$.owner")
     sub = {e: lambda e=e: STR.substring(owners, PL.QSTR_SUB_POS,
                                         PL.QSTR_SUB_LEN, engine=e)
@@ -2913,8 +2967,8 @@ def phase_qstr_dirty():
     args = (doc.chars[sub], doc.lengths[sub], doc.validity[sub],
             (("named", b"owner"),), owners.max_len)
     scan_ms = time_ms(lambda: GJ._run(*args), reps=2)
-    scan_launches, scan_dev_ms = cuda_profile(lambda: GJ._run(*args))
-    launches, dev_ms = cuda_profile(lambda: PL.qstr_step(batch))
+    scan_launches, scan_dev_ms, _ = cuda_profile(lambda: GJ._run(*args))
+    launches, dev_ms, _ = cuda_profile(lambda: PL.qstr_step(batch))
     emit({"phase": "qstr_dirty", "rows": n, "dirty_every":
           QSTR_DIRTY_EVERY, "launches": counts, "first_run_s": first_s,
           "ms": ms, "mrows_per_s": n / (ms * 1e-3) / 1e6,
@@ -4460,6 +4514,756 @@ def phase_shuffle_store(fact):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the rest of the Spark-exact expression library: from_json, parse_uri,
+# format_float, decimal_to_string; the JCUDF row transpose; a runtime
+# bloom filter, percentiles, z-order, calendar rebase and time zones
+# ---------------------------------------------------------------------------
+
+EXPR_ROWS = 1 << 20           # a Spark batch of strings (qstr's rows)
+EXPR_SAMPLE_ROWS = 1 << 14    # rows held against the port on the CPU
+EXPR_ORACLE_ROWS = 4096       # rows held against a Python oracle
+EXPR_POOL = 4096              # distinct documents, URLs and decimals
+EXPR_JSON_WIDTH = 192         # bytes a JSON document may take
+EXPR_URL_WIDTH = 128
+EXPR_MAX_PAIRS = 12           # top-level fields a document may have
+EXPR_DIGITS = (0, 2, 5)
+EXPR_DECIMALS = ((38, 10), (18, 2))
+ROWS_STR_ROWS = 1 << 20       # the string/decimal batch of expr_rows
+FILTER_NUM_HASHES = 6         # Spark's runtime filter defaults: 1e6
+FILTER_NUM_LONGS = 8388608 // 64  # expected items, 8 Mbit
+HIST_COUNT = 4096
+HIST_PCTS = (0.01, 0.25, 0.5, 0.75, 0.99)
+TZ_FIXED = ("+08:00", "-09:30")
+TZ_NAMED = ("Asia/Shanghai", "America/Phoenix")
+TZ_RECURRING = "America/Los_Angeles"  # recurring DST: both refuse it
+TZ_DIR = "/usr/share/zoneinfo"
+
+
+def expr_json_pool(seed=101):
+    """``EXPR_POOL`` JSON objects of 2-12 top-level fields (ints, floats,
+    strings with escapes and UTF-8, literals, nested arrays and objects),
+    each at most ``EXPR_JSON_WIDTH`` bytes."""
+    import json
+
+    rng = np.random.default_rng(seed)
+    words = ["id", "user", "ts", "event", "page", "città", "ref", "tags",
+             "geo", "ok", "n", "score", "ua", "lang", "meta", "x"]
+
+    def value(depth):
+        k = int(rng.integers(0, 8 if depth == 0 else 5))
+        if k == 0:
+            return int(rng.integers(-10**6, 10**6))
+        if k == 1:
+            return round(float(rng.normal() * 100), 3)
+        if k == 2:
+            return words[int(rng.integers(0, len(words)))] + (
+                "\n\"q\"" if rng.random() < 0.1 else "")
+        if k == 3:
+            return [True, False, None][int(rng.integers(0, 3))]
+        if k == 4:
+            return "é" * int(rng.integers(1, 4))
+        if k in (5, 6):
+            return [value(depth + 1) for _ in range(int(rng.integers(0, 4)))]
+        return {words[int(rng.integers(0, len(words)))]: value(depth + 1)
+                for _ in range(int(rng.integers(1, 3)))}
+
+    out = []
+    while len(out) < EXPR_POOL:
+        fields = int(rng.integers(2, EXPR_MAX_PAIRS + 1))
+        obj = {f"{words[i % len(words)]}{i}": value(0) for i in range(fields)}
+        sep = (", ", ": ") if rng.random() < 0.5 else (",", ":")
+        doc = json.dumps(obj, separators=sep, ensure_ascii=False)
+        if len(doc.encode()) <= EXPR_JSON_WIDTH:
+            out.append(doc)
+    return out
+
+
+def expr_url_pool(seed=102):
+    """``EXPR_POOL`` web-log URLs: schemes, host names, IPv4 and IPv6
+    hosts, ports, paths, escapes, query strings of 1-4 parameters and
+    fragments (no userinfo, as in request logs)."""
+    rng = np.random.default_rng(seed)
+
+    def pick(xs):
+        return xs[int(rng.integers(0, len(xs)))]
+
+    out = []
+    while len(out) < EXPR_POOL:
+        url = pick(["https://", "http://", "https://", "ftp://"])
+        url += pick(["www.nvidia.com", "shop.example.co.uk",
+                     "api.%d.example.org" % int(rng.integers(0, 99)),
+                     "10.%d.0.1" % int(rng.integers(0, 256)), "[::1]",
+                     "[2001:db8::%x]" % int(rng.integers(0, 4096)),
+                     "cdn-%d.net" % int(rng.integers(0, 999))])
+        if rng.random() < 0.2:
+            url += ":%d" % int(rng.integers(1, 65536))
+        url += "".join("/" + pick(["a", "img", "p%d" % int(rng.integers(
+            0, 999)), "%7Euser", "x.html", "api", "v2"])
+            for _ in range(int(rng.integers(0, 4))))
+        if rng.random() < 0.8:
+            url += "?" + "&".join(
+                pick(["q", "id", "utm_source", "page", "lang", "ref"])
+                + "=" + pick(["1", "abc", "a%20b", "", "x.y", "%d" % int(
+                    rng.integers(0, 10**6))])
+                for _ in range(int(rng.integers(1, 5))))
+        if rng.random() < 0.1:
+            url += "#" + pick(["top", "s2", ""])
+        if len(url) <= EXPR_URL_WIDTH:
+            out.append(url)
+    return out
+
+
+def decimal_pool(precision, seed):
+    """``EXPR_POOL`` unscaled values of up to ``precision`` digits (digit
+    counts spread evenly, both signs) and their uint64 limbs."""
+    rng = np.random.default_rng(seed)
+    vals = []
+    for _ in range(EXPR_POOL):
+        v, left = 0, int(rng.integers(1, precision + 1))
+        while left > 0:
+            k = min(left, 9)
+            v = v * 10**k + int(rng.integers(0, 10**k))
+            left -= k
+        vals.append(-v if rng.random() < 0.5 else v)
+    limbs = np.array([[(v & ((1 << 128) - 1)) & ((1 << 64) - 1),
+                       (v & ((1 << 128) - 1)) >> 64] for v in vals],
+                     dtype=np.uint64)
+    return vals, limbs
+
+
+def expr_string_inputs(n, seed=103):
+    """Host inputs of ``expr_strings`` (codes into the pools, so n rows
+    cost a numpy gather): JSON documents, URLs, float64 and float32
+    values (random bit patterns, magnitudes from 1e-6 to 1e12, specials)
+    and Decimal128(38, 10) / (18, 2) unscaled values; 5 % of each null."""
+    from spark_rapids_jni_tpu_torch.columnar.column import string_arrays
+
+    rng = np.random.default_rng(seed)
+    docs, urls = expr_json_pool(), expr_url_pool()
+    jc = rng.integers(0, EXPR_POOL, n)
+    uc = rng.integers(0, EXPR_POOL, n)
+    q = n // 4
+    bits = rng.integers(-2**63, 2**63 - 1, q, dtype=np.int64)
+    mags = rng.random(n - q) * 10.0 ** rng.integers(-6, 13, n - q)
+    f64 = np.concatenate([bits.view(np.float64),
+                          np.where(rng.random(n - q) < 0.5, mags, -mags)])
+    f64[:6] = [0.0, -0.0, np.nan, np.inf, -np.inf, 5e-324]
+    bits32 = rng.integers(0, 2**32, q, dtype=np.uint64).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        f32 = np.concatenate([bits32.view(np.float32),
+                              f64[q:].astype(np.float32)])
+    decs = {}
+    for i, (p, s) in enumerate(EXPR_DECIMALS):
+        vals, limbs = decimal_pool(p, seed + 1 + i)
+        codes = rng.integers(0, EXPR_POOL, n)
+        decs[(p, s)] = (vals, codes, limbs[codes])
+    return {"docs": docs, "doc_codes": jc,
+            "doc_arrays": string_arrays(docs, jc, EXPR_JSON_WIDTH),
+            "urls": urls, "url_codes": uc,
+            "url_arrays": string_arrays(urls, uc, EXPR_URL_WIDTH),
+            "f64": f64, "f32": f32, "decimals": decs,
+            "valid": rng.random(n) > 0.05}
+
+
+def expr_string_columns(inp, rows, device):
+    """The inputs' columns (the rows ``rows`` of each, all when None) on
+    ``device``."""
+    from spark_rapids_jni_tpu_torch.columnar import types as TT
+    from spark_rapids_jni_tpu_torch.columnar.column import (Column,
+                                                            Decimal128Column,
+                                                            StringColumn)
+
+    sel = slice(None) if rows is None else rows
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a[sel])).to(device)
+
+    valid = t(inp["valid"])
+    cols = {"doc": StringColumn(t(inp["doc_arrays"][0]),
+                                t(inp["doc_arrays"][1]), valid),
+            "url": StringColumn(t(inp["url_arrays"][0]),
+                                t(inp["url_arrays"][1]), valid),
+            "f64": Column(t(inp["f64"]), valid, TT.FLOAT64),
+            "f32": Column(t(inp["f32"]), valid, TT.FLOAT32)}
+    for (p, s), (_, _, limbs) in inp["decimals"].items():
+        cols[f"dec{p}"] = Decimal128Column(t(limbs.view(np.int64)), valid,
+                                           TT.SparkType.decimal(p, s))
+    return cols
+
+
+def run_expr_strings(cols):
+    """Every op of ``expr_strings`` over one set of columns: a dict of
+    named outputs (a ListColumn for from_json, StringColumns else)."""
+    from spark_rapids_jni_tpu_torch.ops.decimal_to_string import \
+        decimal_to_string
+    from spark_rapids_jni_tpu_torch.ops.format_float import format_float
+    from spark_rapids_jni_tpu_torch.ops.from_json import from_json_to_raw_map
+    from spark_rapids_jni_tpu_torch.ops.parse_uri import parse_uri
+
+    out = {"from_json": from_json_to_raw_map(cols["doc"], EXPR_MAX_PAIRS)}
+    for part, key in (("HOST", None), ("PATH", None), ("QUERY", None),
+                      ("QUERY", "q")):
+        out[f"parse_uri_{part}{'_' + key if key else ''}"] = parse_uri(
+            cols["url"], part, key)
+    for kind in ("f64", "f32"):
+        for d in EXPR_DIGITS:
+            out[f"format_float_{kind}_{d}"] = format_float(cols[kind], d)
+    for p, _ in EXPR_DECIMALS:
+        out[f"decimal_to_string_{p}"] = decimal_to_string(cols[f"dec{p}"])
+    return out
+
+
+def map_rows(m, rows):
+    """Rows ``rows`` of a ``from_json`` map column as lists of (key bytes,
+    value bytes), None for a null row (copies only those rows' pairs)."""
+    offs = m.offsets.cpu().numpy()
+    valid = m.validity.cpu().numpy()
+    starts, ends = offs[rows], offs[np.asarray(rows) + 1]
+    idx = np.concatenate([np.arange(a, b) for a, b in zip(starts, ends)]
+                         + [np.zeros(0, np.int64)]).astype(np.int64)
+    sel = torch.from_numpy(idx).to(m.offsets.device)
+
+    def host(col):
+        return (col.chars[sel].cpu().numpy(), col.lengths[sel].cpu().numpy())
+
+    (kc, kl), (vc, vl) = host(m.child.field("key")), host(
+        m.child.field("value"))
+    out, at = [], 0
+    for r, a, b in zip(rows, starts, ends):
+        pairs = [(bytes(kc[i, :kl[i]]), bytes(vc[i, :vl[i]]))
+                 for i in range(at, at + b - a)]
+        at += b - a
+        out.append(pairs if valid[r] else None)
+    return out
+
+
+def same_on_sample(gpu, cpu, sample, label):
+    """A card tensor's rows ``sample`` equal to the CPU run's tensor."""
+    idx = torch.from_numpy(sample).to(gpu.device)
+    check(torch.equal(gpu[idx].cpu(), cpu),
+          f"{label}: the card's sample rows differ from the CPU run")
+
+
+def same_string_rows(gpu, cpu, rows, label):
+    """Rows ``rows`` of a card StringColumn equal, byte for byte, to the
+    CPU run over those rows."""
+    for f in ("chars", "lengths", "validity"):
+        same_on_sample(getattr(gpu, f), getattr(cpu, f), rows,
+                       f"{label} {f}")
+
+
+def expr_oracles(out, inp, rows):
+    """A sample of the card's outputs against Python: ``json.loads``
+    keys and raw values, ``tests/uri_oracle.py``, ``decimal`` for
+    format_float and decimal_to_string; returns rows checked per op."""
+    import json
+    from decimal import Decimal, localcontext
+
+    uri = tests_module("uri_oracle")
+    oracle = tests_module("expr_oracle")
+    valid = inp["valid"]
+    done = {}
+    pairs = map_rows(out["from_json"], rows)
+    bad = 0
+    for r, got in zip(rows, pairs):
+        if not valid[r]:
+            bad += got is not None
+            continue
+        want = json.loads(inp["docs"][inp["doc_codes"][r]])
+        ok = got is not None and [k.decode() for k, _ in got] == list(want)
+        for (_, v), wv in zip(got or [], want.values()):
+            # a string value stays raw: its content, escapes undecoded
+            raw = v.decode()
+            ok = ok and json.loads('"' + raw + '"' if isinstance(wv, str)
+                                   else raw) == wv
+        bad += not ok
+    check(bad == 0, f"expr_strings: from_json differs from json.loads at "
+          f"{bad} sample rows")
+    done["from_json"] = len(rows)
+    for name, (part, key) in (("parse_uri_HOST", ("HOST", None)),
+                              ("parse_uri_PATH", ("PATH", None)),
+                              ("parse_uri_QUERY", ("QUERY", None)),
+                              ("parse_uri_QUERY_q", ("QUERY", "q"))):
+        got = str_rows(out[name], rows)
+        want = [uri.parse_uri(inp["urls"][inp["url_codes"][r]],
+                              getattr(uri, part), key) if valid[r] else None
+                for r in rows]
+        bad = sum(g != w for g, w in zip(got, want))
+        check(bad == 0, f"expr_strings: {name} differs from uri_oracle at "
+              f"{bad} sample rows")
+        done[name] = len(rows)
+    for kind in ("f64", "f32"):
+        for d in EXPR_DIGITS:
+            name = f"format_float_{kind}_{d}"
+            got = str_rows(out[name], rows)
+            bad = sum(g != (oracle.format_number(inp[kind][r], d,
+                                                 kind == "f32")
+                            if valid[r] else None)
+                      for g, r in zip(got, rows))
+            check(bad == 0, f"expr_strings: {name} differs from Python at "
+                  f"{bad} sample rows")
+            done[name] = len(rows)
+    for p, s in EXPR_DECIMALS:
+        vals, codes, _ = inp["decimals"][(p, s)]
+        name = f"decimal_to_string_{p}"
+        got = str_rows(out[name], rows)
+        with localcontext() as ctx:
+            ctx.prec = 80
+            want = [str(Decimal(vals[codes[r]]).scaleb(-s)) if valid[r]
+                    else None for r in rows]
+        bad = sum(g != w for g, w in zip(got, want))
+        check(bad == 0, f"expr_strings: {name} differs from Python's "
+              f"Decimal at {bad} sample rows")
+        done[name] = len(rows)
+    return done
+
+
+def str_rows(col, rows):
+    """Rows ``rows`` of a StringColumn as Python strings (None if null)."""
+    from spark_rapids_jni_tpu_torch.columnar.column import StringColumn
+
+    idx = torch.from_numpy(np.asarray(rows)).to(col.chars.device)
+    return StringColumn(col.chars[idx], col.lengths[idx],
+                        col.validity[idx]).to_pylist()
+
+
+def profiled(fn, reps=1, warmup=1):
+    """``fn``'s ms (CUDA events over ``reps`` calls after ``warmup``),
+    its CUDA launches and device ms per call from ``cuda_profile``, and
+    the idle share they imply (None where the traces disagreed).  A trace
+    covers at least 100 ms (at most 10 calls); one under a second is
+    taken three times, a longer one twice."""
+    ms = time_ms(fn, reps=reps, warmup=warmup)
+    calls = max(1, min(10, int(np.ceil(100.0 / max(ms, 1e-3)))))
+    traces = 3 if ms * calls < 1000.0 else 2
+    launches, dev_ms, counts = cuda_profile(fn, calls, traces)
+    return {"ms": ms, "cuda_launches": launches, "device_ms": dev_ms,
+            "traced_calls": calls, "trace_launches": counts,
+            "idle_share": (1.0 - dev_ms / ms
+                           if dev_ms is not None and ms > 0 else None)}
+
+
+def traced_totals(ps):
+    """Profiled results ``ps``: their summed CUDA launches and the idle
+    share of their summed ms, both None if one of them was not measured."""
+    if any(p["cuda_launches"] is None for p in ps):
+        return None, None
+    return (sum(p["cuda_launches"] for p in ps),
+            1.0 - sum(p["device_ms"] for p in ps) / sum(p["ms"] for p in ps))
+
+
+def phase_expr_strings():
+    """``from_json_to_raw_map``, ``parse_uri`` (HOST, PATH, QUERY, QUERY
+    with the key ``q``), ``format_float`` on float64 and float32 at 0, 2
+    and 5 digits and ``decimal_to_string`` on Decimal128(38, 10) and (18,
+    2), each over 2^20 rows: a 2^14-row sample of every output byte for
+    byte equal to the port's CPU run over those rows, and 4096 of them
+    against Python (``json.loads``, ``tests/uri_oracle.py``,
+    ``decimal``); each op's ms, CUDA launches and idle share."""
+    from spark_rapids_jni_tpu_torch.columnar.column import resolve_device
+
+    n = EXPR_ROWS
+    stage = {}
+    t0 = time.perf_counter()
+    inp = expr_string_inputs(n)
+    cols = expr_string_columns(inp, None, resolve_device(None))
+    stage["setup"] = time.perf_counter() - t0
+    out, counts, stage["driven"] = driven(run_expr_strings, cols)
+    check_counts("expr_strings", counts, (), no_kernels())
+    sample = np.arange(0, n, n // EXPR_SAMPLE_ROWS)[:EXPR_SAMPLE_ROWS]
+    t0 = time.perf_counter()
+    cpu = run_expr_strings(expr_string_columns(inp, sample, "cpu"))
+    for name, c in cpu.items():
+        if name == "from_json":
+            got = map_rows(out[name], sample)
+            want = map_rows(c, np.arange(len(sample)))
+            check(got == want, "expr_strings: from_json's sample rows "
+                  "differ from the CPU run")
+        else:
+            same_string_rows(out[name], c, sample, f"expr_strings {name}")
+    del cpu
+    stage["cpu_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle_rows = sample[:: EXPR_SAMPLE_ROWS // EXPR_ORACLE_ROWS]
+    oracles = expr_oracles(out, inp, oracle_rows)
+    stage["oracles"] = time.perf_counter() - t0
+    pairs = int(out["from_json"].offsets[-1])
+    del out
+    torch.cuda.empty_cache()
+
+    from spark_rapids_jni_tpu_torch.ops.decimal_to_string import \
+        decimal_to_string
+    from spark_rapids_jni_tpu_torch.ops.format_float import format_float
+    from spark_rapids_jni_tpu_torch.ops.from_json import from_json_to_raw_map
+    from spark_rapids_jni_tpu_torch.ops.parse_uri import parse_uri
+
+    # each op timed once (the driven run warmed them); one of each kind
+    # traced for its launches and device time
+    t0 = time.perf_counter()
+    ops = {"from_json": lambda: from_json_to_raw_map(cols["doc"],
+                                                     EXPR_MAX_PAIRS)}
+    for part, key in (("HOST", None), ("PATH", None), ("QUERY", None),
+                      ("QUERY", "q")):
+        ops[f"parse_uri_{part}{'_' + key if key else ''}"] = (
+            lambda p=part, k=key: parse_uri(cols["url"], p, k))
+    for kind in ("f64", "f32"):
+        for d in EXPR_DIGITS:
+            ops[f"format_float_{kind}_{d}"] = (
+                lambda k=kind, d=d: format_float(cols[k], d))
+    for p, _ in EXPR_DECIMALS:
+        ops[f"decimal_to_string_{p}"] = (
+            lambda p=p: decimal_to_string(cols[f"dec{p}"]))
+    traced = ("from_json", "parse_uri_HOST", "format_float_f64_2",
+              "format_float_f32_2", "decimal_to_string_38")
+    by_op = {}
+    for name, fn in ops.items():
+        if name in traced:
+            by_op[name] = profiled(fn, warmup=0)
+        else:
+            by_op[name] = {"ms": time_ms(fn, reps=1, warmup=0)}
+        by_op[name]["mrows_per_s"] = n / (by_op[name]["ms"] * 1e-3) / 1e6
+        torch.cuda.empty_cache()
+    stage["timing"] = time.perf_counter() - t0
+    ms = sum(v["ms"] for v in by_op.values())
+    tr_launches, tr_idle = traced_totals([by_op[k] for k in traced])
+    emit({"phase": "expr_strings", "rows": n, "launches": counts,
+          "first_run_s": stage["driven"], "ms": ms,
+          "mrows_per_s": n / (ms * 1e-3) / 1e6,
+          "widths": {"doc": cols["doc"].max_len, "url": cols["url"].max_len},
+          "map_pairs": pairs, "by_op": by_op,
+          "cuda_launches_traced_ops": tr_launches,
+          "idle_share_traced_ops": tr_idle,
+          "stage_s": stage, "sample_rows": len(sample),
+          "oracle_rows": oracles, "card": nvidia_smi_line()})
+    del cols
+    torch.cuda.empty_cache()
+    return counts
+
+
+def rows_case(label, batch, schema):
+    """One batch to rows and back: bit-identical, the row images of a
+    sample equal to the CPU run's, both directions timed and profiled
+    against the bandwidth bound."""
+    import dataclasses
+
+    from spark_rapids_jni_tpu_torch.columnar.column import (ColumnBatch,
+                                                            Decimal128Column,
+                                                            StringColumn)
+    from spark_rapids_jni_tpu_torch.mem.executor import batch_nbytes
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as RC
+    from spark_rapids_jni_tpu_torch.relational.gather import gather_batch
+
+    (rows, back), counts, first_s = driven(
+        lambda: (lambda r: (r, RC.convert_from_rows(r, schema)))(
+            RC.convert_to_rows(batch)))
+    check_counts(f"expr_rows {label}", counts, (), no_kernels())
+    for name, c in zip(batch.names, batch.columns):
+        b, v = back[name], c.validity
+        if isinstance(c, StringColumn):
+            same = (torch.equal(b.chars[v], c.chars[v])
+                    and torch.equal(b.lengths, c.lengths * v))
+        elif isinstance(c, Decimal128Column):
+            same = torch.equal(b.limbs[v], c.limbs[v])
+        else:
+            same = torch.equal(b.data.contiguous().view(torch.uint8),
+                               c.data.contiguous().view(torch.uint8))
+        check(same and torch.equal(b.validity, v), f"expr_rows {label}: "
+              f"column {name} differs after the round trip")
+    # the row images themselves: a sample against the CPU run
+    sample = np.arange(0, batch.num_rows,
+                       batch.num_rows // EXPR_SAMPLE_ROWS)[:EXPR_SAMPLE_ROWS]
+    part = gather_batch(batch, torch.from_numpy(sample).to(rows.chars.device))
+    part = ColumnBatch({name: dataclasses.replace(c, **{
+        f.name: getattr(c, f.name).cpu() for f in dataclasses.fields(c)
+        if isinstance(getattr(c, f.name), torch.Tensor)})
+        for name, c in zip(part.names, part.columns)})
+    same_string_rows(rows, RC.convert_to_rows(part), sample,
+                     f"expr_rows {label} row images")
+    # each input read once, each output written once, either way
+    nbytes = batch_nbytes(batch) + batch_nbytes(rows)
+    out = {"rows": batch.num_rows, "row_width": rows.chars.shape[1],
+           "first_run_s": first_s}
+    for way, fn in (("to_rows", lambda: RC.convert_to_rows(batch)),
+                    ("from_rows", lambda: RC.convert_from_rows(rows,
+                                                               schema))):
+        p = profiled(fn, reps=3)
+        bound, by = bound_ms(nbytes)
+        p.update(gb_per_s=nbytes / (p["ms"] * 1e-3) / 1e9, bytes=nbytes,
+                 bound_ms=bound, bound_by=by,
+                 share_of_bound=bound / p["ms"])
+        out[way] = p
+    del rows, back
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def rows_string_batch(n, device=None, seed=104):
+    """The 2^20-row transpose batch: an int64 id, a string of 1-24 bytes
+    (UTF-8 among them) and a Decimal128(38, 10), 5 % nulls each."""
+    from spark_rapids_jni_tpu_torch.columnar.column import (batch_from_numpy,
+                                                            string_arrays)
+
+    rng = np.random.default_rng(seed)
+    words = ["", "a", "spark", "rapids", "ünïcode", "row", "x" * 24,
+             "columnar", "jcudf"] + ["w%d" % i for i in range(100)]
+    chars, lengths = string_arrays(words, rng.integers(0, len(words), n), 24)
+    _, limbs = decimal_pool(38, seed)
+    return batch_from_numpy({
+        "id": (rng.integers(-2**62, 2**62, n), rng.random(n) > 0.05,
+               "int64"),
+        "s": ((chars, lengths), rng.random(n) > 0.05, "string"),
+        "d": (limbs[rng.integers(0, EXPR_POOL, n)], rng.random(n) > 0.05,
+              "decimal(38,10)")}, device)
+
+
+def phase_expr_rows(q6b, q6_arrays):
+    """The JCUDF row transpose at its two sizes: q6's 2^24-row batch
+    (int32, int64, float64: 32-byte rows) to rows and back bit-identical,
+    and ``q6_step`` over the round-tripped batch equal to it over the
+    original and to the oracle; a 2^20-row batch with a string and a
+    Decimal128 column, bit-identical back; each batch's row images equal
+    to the CPU run's on a 2^14-row sample.  Each direction's ms, GB/s
+    against 3.35 TB/s, CUDA launches and idle share."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.columnar import types as TT
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as RC
+
+    total = no_kernels()
+    schema = {"k": TT.INT32, "v": TT.INT64, "price": TT.FLOAT64}
+    q6_out, counts = rows_case("q6", q6b, schema)
+    back = RC.convert_from_rows(RC.convert_to_rows(q6b), schema)
+    (res, ng), c1, _ = driven(PL.q6_step, back)
+    want, wng = PL.q6_step(q6b)
+    same_groups(res, ng, want, wng, "k", ("avg_price",),
+                "expr_rows q6_step after the round trip")
+    check_q6(res, ng, q6_arrays, "expr_rows q6_step after the round trip")
+    for k in total:
+        total[k] += c1.get(k, 0)
+    del back, res, want
+    torch.cuda.empty_cache()
+    sb = rows_string_batch(ROWS_STR_ROWS)
+    str_out, _ = rows_case("strings", sb, {
+        "id": TT.INT64, "s": (TT.STRING, sb["s"].max_len),
+        "d": TT.SparkType.decimal(38, 10)})
+    del sb
+    torch.cuda.empty_cache()
+    emit({"phase": "expr_rows", "q6": q6_out, "strings": str_out,
+          "q6_step_launches": c1, "launches": total,
+          "ms": q6_out["to_rows"]["ms"] + q6_out["from_rows"]["ms"],
+          "mrows_per_s": q6b.num_rows / (q6_out["to_rows"]["ms"] * 1e-3)
+          / 1e6, "card": nvidia_smi_line()})
+    return total
+
+
+def filter_inputs(n, seed=105):
+    """Host DATE days (before and after the 1582 cutover), TIMESTAMP
+    micros (sub-day parts) and UTC micros (1906-2033, sub-second) of the
+    rebase and time-zone runs."""
+    rng = np.random.default_rng(seed)
+    days = rng.integers(-800_000, 30_000, n).astype(np.int32)
+    micros = (rng.integers(-800_000, 30_000, n) * 86_400_000_000
+              + rng.integers(0, 86_400_000_000, n))
+    utc = (rng.integers(-2_000_000_000, 2_000_000_000, n) * 1_000_000
+           + rng.integers(-999_999, 1_000_000, n))
+    return days, micros, utc
+
+
+def histogram_inputs(seed=106):
+    """``HIST_COUNT`` histograms of 0-63 float64 values (10 % null) with
+    int64 frequencies in [0, 10) (5 % null): ``(offsets, values, vvalid,
+    freqs, fvalid)``."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(0, 64, HIST_COUNT)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    m = int(offsets[-1])
+    return (offsets, np.round(rng.normal(size=m) * 1000, 2),
+            rng.random(m) > 0.1, rng.integers(0, 10, m), rng.random(m) > 0.05)
+
+
+def run_histograms(h, device):
+    from spark_rapids_jni_tpu_torch.columnar import types as TT
+    from spark_rapids_jni_tpu_torch.columnar.column import Column
+    from spark_rapids_jni_tpu_torch.ops import histogram as HG
+
+    offsets, vals, vvalid, freqs, fvalid = (torch.from_numpy(a).to(device)
+                                            for a in h)
+    v, f = HG.create_histogram_if_valid(Column(vals, vvalid, TT.FLOAT64),
+                                        Column(freqs, fvalid, TT.INT64))
+    return HG.percentile_from_histogram(v, f, offsets, HIST_PCTS)
+
+
+def phase_expr_filter(fact, dim1, q95_arrays):
+    """A Spark runtime bloom filter on q95's join (``InjectRuntimeFilter``
+    at Spark's defaults: 1 000 000 expected items, 8 388 608 bits, so
+    131 072 longs and 6 hashes), built from ``xxhash64`` of the keys of
+    the dim1 rows with ``d1 == 0`` (1/9 of them) and probed with the
+    2^24-row fact's: no false negative against numpy, the false-positive
+    rate, the serialized bytes equal to the CPU port's, two half-builds
+    merged equal to the whole.  Then ``percentile_from_histogram`` over
+    4096 histograms, ``interleave_bits`` and ``hilbert_index`` over the
+    fact's three int32 columns, both calendar rebases over 2^24 DATE and
+    TIMESTAMP values and both time-zone conversions over 2^24 timestamps
+    (fixed offsets always; Asia/Shanghai and America/Phoenix when the
+    system's TZif files exist; America/Los_Angeles, which has recurring
+    DST, refused as Spark's ``isSupportedTimeZone`` refuses it), each
+    against the port's CPU run on a 2^14-row sample, the time zones also
+    against ``zoneinfo``."""
+    from spark_rapids_jni_tpu_torch.columnar import types as TT
+    from spark_rapids_jni_tpu_torch.columnar.column import Column
+    from spark_rapids_jni_tpu_torch.ops import bloom_filter as BF
+    from spark_rapids_jni_tpu_torch.ops import datetime_rebase as RB
+    from spark_rapids_jni_tpu_torch.ops import timezones as TZ
+    from spark_rapids_jni_tpu_torch.ops import zorder as ZO
+    from spark_rapids_jni_tpu_torch.ops.hashing import xxhash64
+
+    n = fact.num_rows
+    dev = fact["k"].data.device
+    keep = dim1["d1"].data == 0
+    dk = dim1["k"]
+
+    def build(mask):
+        h = xxhash64([dk]).data
+        return BF.bloom_filter_build(FILTER_NUM_HASHES, FILTER_NUM_LONGS,
+                                     Column(h, mask & dk.validity, TT.INT64))
+
+    def probe(bf):
+        fk = fact["k"]
+        return BF.bloom_filter_probe(bf, Column(xxhash64([fk]).data,
+                                                fk.validity, TT.INT64))
+
+    (bf, hit), counts, first_s = driven(
+        lambda: (lambda b: (b, probe(b)))(build(keep)))
+    check_counts("expr_filter", counts, (), no_kernels())
+    arr = q95_arrays
+    passing = arr["dim1"]["d1"] == 0
+    member = passing[arr["fact"]["k"]]
+    got = hit.data.cpu().numpy()
+    false_neg = int((~got & member).sum())
+    check(false_neg == 0, f"expr_filter: {false_neg} false negatives")
+    fp_rate = float(got[~member].mean())
+    ser = BF.bloom_filter_serialize(bf)
+    cpu_k = Column(dk.data.cpu(), dk.validity.cpu(), dk.dtype)
+    cpu_bf = BF.bloom_filter_build(
+        FILTER_NUM_HASHES, FILTER_NUM_LONGS,
+        Column(xxhash64([cpu_k]).data, torch.from_numpy(passing), TT.INT64))
+    check(BF.bloom_filter_serialize(cpu_bf) == ser,
+          "expr_filter: the serialized filter differs from the CPU port's")
+    half = torch.arange(dk.num_rows, device=dev) < dk.num_rows // 2
+    merged = BF.bloom_filter_merge([build(keep & half), build(keep & ~half)])
+    check(torch.equal(merged.bits, bf.bits),
+          "expr_filter: two merged half-builds differ from the whole build")
+    by_op = {"build": profiled(lambda: build(keep), reps=3),
+             "probe": profiled(lambda: probe(bf), reps=3)}
+    by_op["probe"]["mrows_per_s"] = n / (by_op["probe"]["ms"] * 1e-3) / 1e6
+    out = {"bloom": {"num_longs": FILTER_NUM_LONGS,
+                     "num_hashes": FILTER_NUM_HASHES,
+                     "build_rows": int(passing.sum()), "probe_rows": n,
+                     "members": int(member.sum()), "hits": int(got.sum()),
+                     "false_negatives": false_neg,
+                     "false_positive_rate": fp_rate,
+                     "serialized_bytes": len(ser),
+                     "bits_set": int(bf.bits.sum())}}
+    del hit, merged
+    sample = np.arange(0, n, n // EXPR_SAMPLE_ROWS)[:EXPR_SAMPLE_ROWS]
+    ts = torch.from_numpy(sample)
+
+    # percentiles over 4096 histograms: the whole batch on the CPU too
+    h = histogram_inputs()
+    pct, pvalid = run_histograms(h, dev)
+    cpct, cvalid = run_histograms(h, "cpu")
+    check(torch.equal(pvalid.cpu(), cvalid)
+          and torch.equal(pct.cpu()[cvalid].view(torch.int64),
+                          cpct[cvalid].view(torch.int64)),
+          "expr_filter: percentiles differ from the CPU run")
+    by_op["percentile"] = profiled(lambda: run_histograms(h, dev), reps=3)
+    out["histograms"] = {"count": HIST_COUNT, "entries": int(h[0][-1]),
+                         "valid": int(cvalid.sum())}
+
+    # z-order over the fact's three int32 columns
+    zcols = [fact[c] for c in ("k", "wh", "seg")]
+    zcpu = [Column(c.data[ts.to(dev)].cpu(), c.validity[ts.to(dev)].cpu(),
+                   c.dtype) for c in zcols]
+    z = ZO.interleave_bits(zcols)
+    same_on_sample(z.chars, ZO.interleave_bits(zcpu).chars, sample,
+                   "expr_filter interleave_bits")
+    hb = ZO.hilbert_index(21, zcols)
+    same_on_sample(hb.data, ZO.hilbert_index(21, zcpu).data, sample,
+                   "expr_filter hilbert_index")
+    del z, hb
+    by_op["interleave_bits"] = profiled(lambda: ZO.interleave_bits(zcols),
+                                        reps=3)
+    by_op["hilbert_index"] = profiled(lambda: ZO.hilbert_index(21, zcols),
+                                      reps=3)
+
+    # calendar rebase and time zones over 2^24 values
+    days, micros, utc = filter_inputs(n)
+    ones = torch.ones((n,), dtype=torch.bool, device=dev)
+    dcol = Column(torch.from_numpy(days).to(dev), ones, TT.DATE)
+    mcol = Column(torch.from_numpy(micros).to(dev), ones, TT.TIMESTAMP)
+    for fn in ("rebase_gregorian_to_julian", "rebase_julian_to_gregorian"):
+        for label, col, host in (("date", dcol, days), ("timestamp", mcol,
+                                                        micros)):
+            got = getattr(RB, fn)(col).data
+            cpu = getattr(RB, fn)(Column(torch.from_numpy(host[sample]),
+                                         torch.ones(len(sample),
+                                                    dtype=torch.bool),
+                                         col.dtype)).data
+            same_on_sample(got, cpu, sample, f"expr_filter {fn} {label}")
+            by_op[f"{fn}_{label}"] = profiled(
+                lambda f=fn, c=col: getattr(RB, f)(c), reps=3)
+    del dcol, mcol
+    ucol = Column(torch.from_numpy(utc).to(dev), ones, TT.TIMESTAMP)
+    tzdata = all(os.path.isfile(os.path.join(TZ_DIR, *z.split("/")))
+                 for z in TZ_NAMED)
+    zones = list(TZ_FIXED) + (list(TZ_NAMED) if tzdata else [])
+    db, cdb = TZ.TimeZoneDB(), TZ.TimeZoneDB(device="cpu")
+    oracle = tests_module("expr_oracle")
+    oracle_rows = sample[:: EXPR_SAMPLE_ROWS // EXPR_ORACLE_ROWS]
+    ucpu = Column(torch.from_numpy(utc[sample]),
+                  torch.ones(len(sample), dtype=torch.bool), TT.TIMESTAMP)
+    for zone in zones:
+        local = TZ.convert_utc_to_timezone(ucol, zone, db)
+        same_on_sample(local.data, TZ.convert_utc_to_timezone(
+            ucpu, zone, cdb).data, sample, f"expr_filter to {zone}")
+        back = TZ.convert_timestamp_to_utc(local, zone, db)
+        lcpu = Column(local.data[torch.from_numpy(sample).to(dev)].cpu(),
+                      ucpu.validity, TT.TIMESTAMP)
+        same_on_sample(back.data, TZ.convert_timestamp_to_utc(
+            lcpu, zone, cdb).data, sample, f"expr_filter from {zone}")
+        lh = local.data.cpu().numpy()
+        bad = sum(int(lh[r]) != int(utc[r]) + oracle.zone_offset_micros(
+            zone, int(utc[r])) for r in oracle_rows)
+        check(bad == 0, f"expr_filter: {zone} differs from zoneinfo at "
+              f"{bad} sample rows")
+        by_op[f"to_{zone}"] = profiled(
+            lambda z=zone: TZ.convert_utc_to_timezone(ucol, z, db), reps=3)
+        by_op[f"from_{zone}"] = profiled(
+            lambda z=zone: TZ.convert_timestamp_to_utc(ucol, z, db), reps=3)
+        del local, back
+    refused = None
+    if os.path.isfile(os.path.join(TZ_DIR, *TZ_RECURRING.split("/"))):
+        try:
+            TZ.convert_utc_to_timezone(ucol, TZ_RECURRING, db)
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None, f"expr_filter: {TZ_RECURRING} (recurring "
+              "DST) was not refused")
+    del ucol
+    torch.cuda.empty_cache()
+    ms = sum(v["ms"] for v in by_op.values())
+    launches, idle = traced_totals(list(by_op.values()))
+    emit({"phase": "expr_filter", "rows": n, "launches": counts,
+          "first_run_s": first_s, "ms": ms,
+          "mrows_per_s": by_op["probe"]["mrows_per_s"], **out,
+          "by_op": by_op,
+          "cuda_launches": launches, "idle_share": idle, "tzdata": tzdata,
+          "zones": zones, "recurring_refused": refused,
+          "sample_rows": len(sample), "oracle_rows": len(oracle_rows),
+          "card": nvidia_smi_line()})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an "
@@ -4697,6 +5501,10 @@ def main() -> int:
     breadth("spill_exchange", phase_spill_exchange, fact)
     # the persistent shuffle store and the exchange's lineage
     breadth("shuffle_store", phase_shuffle_store, fact)
+    # the rest of the expression library and the JCUDF transpose
+    breadth("expr_strings", phase_expr_strings)
+    breadth("expr_rows", phase_expr_rows, q6b, q6_arrays)
+    breadth("expr_filter", phase_expr_filter, fact, dim1, q95_arrays)
 
     kernels = []
     for name, lst in cases.items():

@@ -49,6 +49,33 @@ def shift_cols(x: torch.Tensor, k: int) -> torch.Tensor:
     return out
 
 
+WINDOW_CHUNK = 1 << 20     # windows per gather: bounds the index tensor
+
+
+def char_window(chars: torch.Tensor, s: torch.Tensor, length: torch.Tensor,
+                W: int, row: torch.Tensor = None) -> torch.Tensor:
+    """``chars[row[i], s[i]:s[i] + length[i]]`` as a zero-padded ``[m, W]``
+    matrix (``row`` defaults to ``i``, ``length`` is already in ``[0,
+    W]``).  Each row of ``chars`` is padded by ``W`` zero bytes, so a
+    window never leaves its row."""
+    n, L = chars.shape
+    dev = chars.device
+    m = s.shape[0]
+    if row is None:
+        row = torch.arange(m, dtype=torch.int64, device=dev)
+    flat = torch.cat([chars, torch.zeros((n, W), dtype=chars.dtype,
+                                         device=dev)], dim=1).reshape(-1)
+    base = row.to(torch.int64) * (L + W) + s.clamp(0, L).to(torch.int64)
+    cols = torch.arange(W, dtype=torch.int64, device=dev)
+    win = torch.empty((m, W), dtype=chars.dtype, device=dev)
+    for lo in range(0, m, WINDOW_CHUNK):
+        hi = min(lo + WINDOW_CHUNK, m)
+        g = flat[base[lo:hi, None] + cols[None, :]]
+        win[lo:hi] = torch.where(cols[None, :] < length[lo:hi, None], g,
+                                 torch.zeros_like(g))
+    return win
+
+
 def is_ws(c: torch.Tensor) -> torch.Tensor:
     """Whitespace or C0 control code (reference cast_string.cu:46-56)."""
     return c <= 0x20

@@ -228,10 +228,13 @@ def _pack_path(instructions: tuple, device: torch.device):
 _w = torch.where  # shorthand: the step is hundreds of masked selects
 
 
-def _step(P, ptypes, pindexes, pnames, pnamelens, st, j, c):
+def _step(P, ptypes, pindexes, pnames, pnamelens, st, j, c, events=False):
     """One char column ``c`` (at column ``j``) for all rows.  Pure
     masked-vector logic; returns the new carry and the step's
-    emission directives."""
+    emission directives.  ``events=True`` adds the raw token events
+    (``ev_a``, ``ev_b``, ``span_s``, ``span_len``) to the directives, for
+    ``from_json``'s recorder; :func:`get_json_object` leaves them out, so
+    its scan stacks only the lanes it reads."""
     n = c.shape[0]
     dev = c.device
     i32 = torch.int32
@@ -803,6 +806,10 @@ def _step(P, ptypes, pindexes, pnames, pnamelens, st, j, c):
         "patch_k0": patch_k0,
         "patch_k1": patch_k1,
     }
+    if events:
+        ys.update(ev_a=ev_a.to(i32), ev_b=ev_b.to(i32),
+                  span_s=ev_span_start.to(i32),
+                  span_len=ev_span_len.to(i32))
 
     out = {
         "mode": new_mode, "depth": new_depth,

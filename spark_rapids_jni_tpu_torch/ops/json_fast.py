@@ -88,7 +88,7 @@ def _gather_cols(mat, idx):
 def _shift_right(x, k, fill=0):
     """``x[:, j - k]`` at column ``j``; ``fill`` in the first ``k``."""
     out = torch.full_like(x, fill)
-    out[:, k:] = x[:, :x.shape[1] - k]
+    out[:, k:] = x[:, :max(x.shape[1] - k, 0)]
     return out
 
 

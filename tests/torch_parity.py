@@ -2,9 +2,12 @@
 into the port through ``batch_from_numpy`` (plain, string, decimal, list
 and struct, at any depth, and the four encoded kinds: dictionary, RLE,
 bit-packed and frame-of-reference with their zone sidecars), seeded
-decimal values, and bit-for-bit column comparisons."""
+decimal values, bit-for-bit column comparisons, and a module fixture that
+runs the port's CPU ops on one thread."""
 
 import numpy as np
+import pytest
+import torch
 
 from spark_rapids_jni_tpu.columnar.column import ColumnBatch as JBatch
 from spark_rapids_jni_tpu.columnar.column import \
@@ -157,3 +160,18 @@ def assert_encoded_equal(jc, tc, msg=""):
             np.testing.assert_array_equal(tc.refs.numpy(),
                                           np.asarray(jc.refs), msg)
             assert tc.block == jc.block, msg
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's port ops on one intra-op thread, restored after.
+
+    The port's CPU runs are thousands of small ops; with the suite's six
+    xdist workers each spreading them over every core, the threads wait
+    on each other (``test_torch_parse_uri.py`` took 184 s of worker time
+    that way against 15 s on one thread).  Results are the same on any
+    thread count.  A test module imports this name to use it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
