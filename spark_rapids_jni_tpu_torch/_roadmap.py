@@ -2,14 +2,17 @@
 
 from __future__ import annotations
 
+from typing import Union
+
 _ITEMS = {
-    14: "I/O",
+    "14b": "nested Parquet columns, the DELTA_* and BYTE_STREAM_SPLIT "
+           "encodings, the ZSTD/LZ4/BROTLI codecs",
     16: "serving fleet",
     17: "tooling edges",
 }
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
+def not_ported(what: str, item: Union[int, str]) -> NotImplementedError:
     """The error a caller raises for a branch this port does not carry yet."""
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP.md queue 1, item {item} "

@@ -160,6 +160,14 @@ _register("zone_maps", True, _parse_bool,
           "morsels a predicate's zone check proves cold (counted as "
           "blocks_skipped / blocks_scanned); off = no sidecars, no "
           "skips.")
+_register("scan_pruning", True, _parse_bool,
+          "Push scan-level predicates into the Parquet footer "
+          "(io/parquet.py / io/parquet_footer.py): row groups whose "
+          "column min/max statistics cannot satisfy the predicate are "
+          "dropped before any data page is read, and "
+          "MorselSource.from_parquet never builds replays for them.  "
+          "Groups with missing stats or nulls are conservatively kept; "
+          "off = read every split-surviving row group.")
 _register("shuffle_scatter_engine", "auto", str,
           "Morsel -> round-chunk scatter of the streaming exchange: "
           "'kernel' (the partition-scatter kernel, csrc/"

@@ -15,20 +15,25 @@ shard.  With a ``predicate=`` the caller filters on anyway, a packed
 column's zone map (or an explicit ``zone_map=``) lets it skip every
 morsel whose blocks provably hold no match (``blocks_skipped`` /
 ``blocks_scanned``, folded into ``ShuffleMetrics`` by the stream).
-``from_parquet`` is ROADMAP.md queue 1, item 14.
+
+:meth:`MorselSource.from_parquet` cuts each Parquet row group into
+``P * morsel_rows``-row morsels; each replay re-decodes its row group from
+the file (:func:`~..io.parquet.row_group_readers`), and a ``predicate=``
+prunes the row groups whose footer statistics prove it false before any
+replay is built (``row_groups_pruned`` / ``row_groups_scanned``).
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
+import os
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from .. import config
-from .._roadmap import not_ported
 from ..columnar.column import (Column, ColumnBatch, Decimal128Column,
                                ListColumn, StringColumn, StructColumn)
 from ..columnar.encoded import (is_encoded, materialize_batch,
@@ -152,23 +157,45 @@ def snapshot_for_batch(batch: ColumnBatch) -> str:
     return "mem:" + batch_digest(batch)
 
 
+def snapshot_for_path(path: str) -> str:
+    """Snapshot id of a file input (the reference's
+    ``serve/result_cache.py`` ``snapshot_for_path``): path + mtime_ns +
+    size fingerprint.  Any rewrite of the file (even same-size) bumps
+    mtime and therefore the id; a missing file raises rather than
+    guessing."""
+    st = os.stat(path)
+    h = hashlib.sha256()
+    h.update(os.path.abspath(path).encode())
+    h.update(f":{st.st_mtime_ns}:{st.st_size}".encode())
+    return "file:" + h.hexdigest()[:24]
+
+
+def _pad_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
+    if pad == 0:
+        return x
+    z = torch.zeros((pad,) + tuple(x.shape[1:]), dtype=x.dtype,
+                    device=x.device)
+    return torch.cat([x, z])
+
+
 class MorselSource:
     """An ordered sequence of replayable morsels with one fixed shape.
 
     Iterating yields the replay callables (what ``exchange_stream``
     consumes); ``len`` is the morsel count.  ``snapshot_id`` is the
     source's content id, computed on first read (it hashes the whole
-    batch on the host).
+    batch on the host) or given (a file's).
     """
 
     def __init__(self, replays: List[Callable], morsel_rows: int,
                  rows: int, mesh=None,
-                 snapshot_of: Optional[ColumnBatch] = None):
+                 snapshot_of: Optional[ColumnBatch] = None,
+                 snapshot_id: Optional[str] = None):
         self._replays = list(replays)
         self.morsel_rows = int(morsel_rows)
         self.rows = int(rows)
         self.mesh = mesh
-        self._snapshot_id = None
+        self._snapshot_id = snapshot_id
         self._snapshot_of = snapshot_of
         # the zone-map skip of the constructor, folded into the metrics
         # by the first exchange that streams this source
@@ -257,5 +284,59 @@ class MorselSource:
         return src
 
     @classmethod
-    def from_parquet(cls, path, mesh, *args, **kwargs):
-        raise not_ported("MorselSource.from_parquet", 14)
+    def from_parquet(cls, path, mesh, columns=None,
+                     morsel_rows: Optional[int] = None,
+                     ignore_case: bool = False,
+                     predicate=None) -> "MorselSource":
+        """One morsel per ``P * morsel_rows``-row slice of each Parquet
+        row group: the replay re-reads its row group from the file (the
+        natural lineage — a damaged buffer costs one decode, not a
+        cached copy), pads to the fixed shape and row-shards it (shard
+        ``p`` holds the slice's rows ``[p * M, (p + 1) * M)``; a rank of a
+        process mesh builds only its own).
+
+        ``predicate`` (``(column, op, value)``) pushes the scan filter
+        into the footer (``scan_pruning`` knob): row groups whose
+        column min/max statistics cannot satisfy it are pruned before
+        any replay is built, so cold groups never decode a page.
+        """
+        from ..io.parquet import row_group_readers
+
+        if morsel_rows is None:
+            morsel_rows = int(config.get("scan_morsel_rows"))
+        M = int(morsel_rows)
+        if M <= 0:
+            raise ValueError("morsel_rows must be positive")
+        L, first = mesh.local_shards, mesh.first_shard
+        gm = mesh.size * M
+        prune_counts = {}
+        readers = row_group_readers(path, columns=columns,
+                                    ignore_case=ignore_case,
+                                    predicate=predicate,
+                                    counters=prune_counts,
+                                    device=mesh.device)
+
+        def make(read, lo, n):
+            # this process's shards of the slice [lo, lo + n)
+            a, b = min(n, first * M), min(n, (first + L) * M)
+
+            def replay():
+                rg = read()
+                leaves = [_pad_rows(x[lo + a:lo + b], L * M - (b - a))
+                          for x in batch_leaves(rg)]
+                rv = torch.arange(L * M, device=mesh.device) < (b - a)
+                return rebatch(rg, leaves), rv
+            return replay
+
+        replays = []
+        total = 0
+        for read, rg_rows in readers:
+            total += rg_rows
+            for lo in range(0, max(rg_rows, 1), gm):
+                n = min(gm, rg_rows - lo) if rg_rows else 0
+                replays.append(make(read, lo, max(n, 0)))
+        src = cls(replays, M, total, mesh=mesh,
+                  snapshot_id=snapshot_for_path(path))
+        src.row_groups_pruned = int(prune_counts.get("pruned", 0))
+        src.row_groups_scanned = int(prune_counts.get("scanned", 0))
+        return src

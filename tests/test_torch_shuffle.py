@@ -298,7 +298,7 @@ def test_unported_options_raise(eight_devices):
         tconfig.set("shuffle_compress", "zip")
         svc.exchange(tb, key_names=["k"])
     tconfig.reset("shuffle_compress")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(FileNotFoundError):
         MorselSource.from_parquet("x.parquet", tm)
     with pytest.raises(ValueError, match="at least one morsel"):
         svc.exchange_stream([], key_names=["k"])
