@@ -222,7 +222,14 @@ Phases, each printing one JSON line:
    plus ``exchange``, one K4 launch a morsel, each replay one decode of
    its row group; then a 2^22-row file with a sorted column whose 1 %
    predicate prunes row groups in the footer, the pruned stream equal to
-   the filtered full stream).
+   the filtered full stream); ``parquet_codecs`` (what
+   ``ctypes.util.find_library`` finds for the ZSTD and BROTLI libraries,
+   both loaded); ``parquet_q6_v2`` (``parquet_q6`` over the same rows
+   as v2 pages, ZSTD, ``k``/``v`` DELTA_BINARY_PACKED and ``price``
+   BYTE_STREAM_SPLIT); ``parquet_nested`` (``s: struct<k, v>`` about 1 %
+   null, ``price`` and ``tags: list<int32>`` of 0-4 elements: q6 over the
+   struct's fields with its validity ANDed in, one K1 launch, against
+   the oracle, and ``tags`` equal to the written offsets and values).
 
 It then prints one ``kernels`` line and, last, ``{"ok": true, "device":
 ...}``.  Any mismatch or exception exits nonzero without that line, as
@@ -5413,12 +5420,13 @@ def phase_parquet_fixture():
     return {}
 
 
-def phase_parquet_q6(path, arrays):
+def phase_parquet_q6(path, arrays, name="parquet_q6", info=None):
     """BASELINE config #1: ``read_parquet`` of the q6 file to the card,
     then q6's one-hot step (K1) on the decoded batch, against the
     oracle; the footer, decode (GB/s of file bytes), decompression,
     upload and step ms, end-to-end Mrows/s, and the device's busy and
-    idle share of one traced read-and-step call."""
+    idle share of one traced read-and-step call.  ``parquet_q6_v2``
+    runs it over the v2/ZSTD/DELTA file."""
     from spark_rapids_jni_tpu_torch import pipelines as PL
     from spark_rapids_jni_tpu_torch.io import pages as PG
     from spark_rapids_jni_tpu_torch.io import read_parquet
@@ -5432,14 +5440,13 @@ def phase_parquet_q6(path, arrays):
     read_ms = (time.perf_counter() - t0) * 1e3
     stats = dict(PG.STATS)
     check(batch.num_rows == n and batch["k"].data.is_cuda,
-          f"parquet_q6: read {batch.num_rows} rows")
-    for name, want in zip(("k", "v", "price"), arrays):
-        check(np.array_equal(batch[name].data.cpu().numpy(), want),
-              f"parquet_q6: column {name} differs from the written one")
+          f"{name}: read {batch.num_rows} rows")
+    for col, want in zip(("k", "v", "price"), arrays):
+        check(np.array_equal(batch[col].data.cpu().numpy(), want),
+              f"{name}: column {col} differs from the written one")
     (res, ng), counts, first_s = driven(PL.q6_step, batch)
-    err = check_q6(res, ng, arrays, "parquet_q6")
-    check_counts("parquet_q6", counts, ("onehot_groupby",),
-                 {"onehot_groupby": 1})
+    err = check_q6(res, ng, arrays, name)
+    check_counts(name, counts, ("onehot_groupby",), {"onehot_groupby": 1})
     step_ms = time_ms(lambda: PL.q6_step(batch), reps=3)
 
     def read_and_step():
@@ -5450,7 +5457,7 @@ def phase_parquet_q6(path, arrays):
     # records here: 48, 19, 48)
     traced = profiled(read_and_step, reps=1, warmup=0, agree=False)
     e2e_ms = traced["ms"]
-    emit({"phase": "parquet_q6", "rows": n, "groups": int(ng),
+    emit({"phase": name, **(info or {}), "rows": n, "groups": int(ng),
           "file_bytes": os.path.getsize(path), "launches": counts,
           "avg_price_max_rel_err": err, "read_ms": read_ms,
           "footer_ms": stats["footer_s"] * 1e3,
@@ -5469,6 +5476,176 @@ def phase_parquet_q6(path, arrays):
                          else 1.0 - traced["idle_share"]),
           "idle_share": traced["idle_share"], "card": nvidia_smi_line()})
     return counts
+
+
+def write_q6_v2_parquet(arrays, root):
+    """The q6 batch as a Spark-v2-style file: 16 row groups of 2^20 rows,
+    v2 pages of 2^17 rows, ZSTD, ``k`` and ``v`` DELTA_BINARY_PACKED,
+    ``price`` BYTE_STREAM_SPLIT."""
+    k, v, price = arrays
+    path = os.path.join(root, "q6_v2.parquet")
+    t0 = time.perf_counter()
+    parquet_writer().write_parquet(
+        path, {"k": (k, None), "v": (v, None), "price": (price, None)},
+        row_group_rows=PQ_ROW_GROUP_ROWS, page_rows=PQ_PAGE_ROWS,
+        codec="zstd", page_version=2,
+        encoding={"k": "delta", "v": "delta", "price": "bss"})
+    return path, time.perf_counter() - t0
+
+
+def phase_parquet_q6_v2(arrays, root):
+    """``parquet_q6`` over the v2/ZSTD/DELTA/BYTE_STREAM_SPLIT file."""
+    path, write_s = write_q6_v2_parquet(arrays, root)
+    return phase_parquet_q6(path, arrays, "parquet_q6_v2", {
+        "write_s": write_s, "codec": "ZSTD", "page_version": 2,
+        "encodings": {"k": "DELTA_BINARY_PACKED",
+                      "v": "DELTA_BINARY_PACKED",
+                      "price": "BYTE_STREAM_SPLIT"}})
+
+
+def nested_q6_arrays(arrays, seed=161):
+    """The nested q6 file's host data: the q6 arrays, the struct's
+    validity (about 1 % null), and ``tags``' offsets (0-4 elements, about
+    5 % null lists), values and list validity."""
+    n = len(arrays[0])
+    rng = np.random.default_rng(seed)
+    s_valid = rng.random(n) >= 0.01
+    lens = rng.integers(0, 5, n)
+    t_valid = rng.random(n) >= 0.05
+    lens[~t_valid] = 0
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    tags = rng.integers(-1000, 1000, int(offsets[-1])).astype(np.int32)
+    return s_valid, offsets, tags, t_valid
+
+
+def check_q6_nested(got, arrays, s_valid, label):
+    """q6 over ``s.k``/``s.v`` with the struct's nulls: the live keys'
+    groups as ``check_q6_groups`` holds them, and the null key's group
+    (count(*) and avg(price) of the null structs' rows, sum(v) null)."""
+    k, v, price = arrays
+    live = {kk: g for kk, g in got.items() if kk is not None}
+    err = check_q6_groups(live, (k[s_valid], v[s_valid], price[s_valid]),
+                          label)
+    rows = (~s_valid) & (price < 50.0)
+    null = got.get(None)
+    check(null is not None and null["cnt"] == int(rows.sum())
+          and null["sum_v"] is None,
+          f"{label}: the null struct group is {null}")
+    want = float(price[rows].mean())
+    if null is not None and null["avg_price"] is not None:
+        err = max(err, abs(null["avg_price"] - want) / abs(want))
+    check(err <= FLOAT_RTOL, f"{label}: avg(price) rel err {err}")
+    return err
+
+
+def phase_parquet_nested(arrays, root):
+    """A nested q6 file (``s: struct<k: int32, v: int64>`` about 1 % null,
+    ``price``, ``tags: list<int32>`` of 0-4 elements; v1 pages, SNAPPY,
+    16 row groups of 2^20 rows) read to the card: q6 over ``s.k`` and
+    ``s.v`` with the struct's validity ANDed into theirs (Spark's
+    ``GetStructField``) is one K1 launch against the oracle, and ``tags``
+    holds the written offsets and values."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.columnar.column import (ColumnBatch,
+                                                            Column)
+    from spark_rapids_jni_tpu_torch.io import pages as PG
+    from spark_rapids_jni_tpu_torch.io import read_parquet
+
+    W = parquet_writer()
+    k, v, price = arrays
+    n = len(k)
+    s_valid, offsets, tags, t_valid = nested_q6_arrays(arrays)
+    path = os.path.join(root, "q6_nested.parquet")
+    ones = np.ones(n, np.bool_)
+    t0 = time.perf_counter()
+    W.write_parquet(path, {
+        "s": W.Struct({"k": (k, ones), "v": (v, ones)}, s_valid),
+        "price": (price, None),
+        "tags": W.List(offsets, (tags, None), valid=t_valid)},
+        row_group_rows=PQ_ROW_GROUP_ROWS, page_rows=PQ_PAGE_ROWS,
+        codec="snappy")
+    write_s = time.perf_counter() - t0
+    PG.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = read_parquet(path)
+    torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    stats = dict(PG.STATS)
+    s, tag_col = batch["s"], batch["tags"]
+    check(batch.num_rows == n and s.validity.is_cuda,
+          f"parquet_nested: read {batch.num_rows} rows")
+    check(np.array_equal(s.validity.cpu().numpy(), s_valid),
+          "parquet_nested: the struct's validity differs")
+    sk, sv = s.children
+    for col, want in ((sk, k), (sv, v)):
+        check(np.array_equal(col.data.cpu().numpy()[s_valid],
+                             want[s_valid])
+              and np.array_equal(col.validity.cpu().numpy(), s_valid),
+              "parquet_nested: a struct field differs from the written one")
+    check(np.array_equal(tag_col.offsets.cpu().numpy(), offsets)
+          and np.array_equal(tag_col.child.data.cpu().numpy(), tags)
+          and np.array_equal(tag_col.validity.cpu().numpy(), t_valid)
+          and bool(tag_col.child.validity.all()),
+          "parquet_nested: tags differ from the written offsets and values")
+
+    def flat(b):
+        st = b["s"]
+        f = {name: Column(c.data, c.validity & st.validity, c.dtype)
+             for name, c in zip(st.field_names, st.children)}
+        return ColumnBatch({"k": f["k"], "v": f["v"], "price": b["price"]})
+
+    q6b = flat(batch)
+    (res, ng), counts, first_s = driven(PL.q6_step, q6b)
+    err = check_q6_nested(PL.result_groups(res, ng, "k"), arrays, s_valid,
+                          "parquet_nested")
+    check_counts("parquet_nested", counts, ("onehot_groupby",),
+                 {"onehot_groupby": 1})
+    step_ms = time_ms(lambda: PL.q6_step(q6b), reps=3)
+    traced = profiled(lambda: PL.q6_step(flat(read_parquet(path))), reps=1,
+                      warmup=0, agree=False)
+    e2e_ms = traced["ms"]
+    on_card = sum(t.numel() * t.element_size() for t in (
+        sk.data, sk.validity, sv.data, sv.validity, s.validity,
+        batch["price"].data, batch["price"].validity, tag_col.offsets,
+        tag_col.validity, tag_col.child.data, tag_col.child.validity))
+    emit({"phase": "parquet_nested", "rows": n, "groups": int(ng),
+          "tag_elements": int(offsets[-1]),
+          "null_structs": int((~s_valid).sum()),
+          "null_lists": int((~t_valid).sum()), "write_s": write_s,
+          "file_bytes": os.path.getsize(path), "card_bytes": on_card,
+          "launches": counts, "avg_price_max_rel_err": err,
+          "read_ms": read_ms, "footer_ms": stats["footer_s"] * 1e3,
+          "decode_ms": stats["decode_s"] * 1e3,
+          "decode_gb_per_s": stats["file_bytes"] / stats["decode_s"] / 1e9,
+          "decompress_ms": stats["decompress_s"] * 1e3,
+          "upload_ms": stats["upload_s"] * 1e3,
+          "upload_gb_per_s": on_card / stats["upload_s"] / 1e9,
+          "pages": stats["pages"], "step_first_s": first_s,
+          "step_ms": step_ms, "e2e_ms": e2e_ms,
+          "e2e_mrows_per_s": n / (e2e_ms * 1e-3) / 1e6,
+          "e2e_cuda_launches": traced["cuda_launches"],
+          "e2e_device_ms": traced["device_ms"],
+          "busy_share": (None if traced["idle_share"] is None
+                         else 1.0 - traced["idle_share"]),
+          "idle_share": traced["idle_share"], "card": nvidia_smi_line()})
+    return counts
+
+
+def phase_parquet_codecs():
+    """What ``ctypes.util.find_library`` finds for the ZSTD and BROTLI
+    codec libraries, and that both load (the fixtures then decode
+    through them)."""
+    from spark_rapids_jni_tpu_torch.io import pages as PG
+
+    found = PG.codec_libraries()
+    loaded = {}
+    for codec in (PG.ZSTD, PG.BROTLI):
+        loaded[PG.CODEC_LIBRARIES[codec][0]] = PG.codec_library(codec)._name
+    emit({"phase": "parquet_codecs", "find_library": found,
+          "loaded": loaded})
+    return {}
 
 
 def _delivered(res, cols):
@@ -5826,9 +6003,13 @@ def main() -> int:
         q6_pq = guarded("parquet_write", write_q6_parquet, q6_arrays,
                         pq_root)
         breadth("parquet_footer", phase_parquet_footer, q6_pq)
+        breadth("parquet_codecs", phase_parquet_codecs)
         breadth("parquet_fixture", phase_parquet_fixture)
         breadth("parquet_q6", phase_parquet_q6, q6_pq, q6_arrays)
         breadth("parquet_stream", phase_parquet_stream, q6_pq, pq_root)
+        # the rest of Parquet: a v2/ZSTD/DELTA q6 file, a nested q6 file
+        breadth("parquet_q6_v2", phase_parquet_q6_v2, q6_arrays, pq_root)
+        breadth("parquet_nested", phase_parquet_nested, q6_arrays, pq_root)
     finally:
         shutil.rmtree(pq_root, ignore_errors=True)
 

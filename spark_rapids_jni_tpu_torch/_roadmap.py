@@ -5,8 +5,6 @@ from __future__ import annotations
 from typing import Union
 
 _ITEMS = {
-    "14b": "nested Parquet columns, the DELTA_* and BYTE_STREAM_SPLIT "
-           "encodings, the ZSTD/LZ4/BROTLI codecs",
     16: "serving fleet",
     17: "tooling edges",
 }

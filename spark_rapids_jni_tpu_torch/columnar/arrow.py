@@ -180,7 +180,7 @@ def array_to_column(arr, device=None):
         if t.unit != "us":
             # Spark timestamps are micros: finer units truncate
             arr = arr.cast(pa.timestamp("us", tz=t.tz), safe=False)
-        spark_t = T.TIMESTAMP
+        spark_t = T.SparkType(T.Kind.TIMESTAMP, tz=t.tz or "")
     else:
         spark_t = _ARROW_TO_SPARK.get(t)
     if spark_t is None:
@@ -229,7 +229,8 @@ def _column_to_array(col) -> pa.Array:
     if col.dtype.kind is T.Kind.DATE:
         return pa.array(data, type=pa.date32(), mask=mask)
     if col.dtype.kind is T.Kind.TIMESTAMP:
-        return pa.array(data, type=pa.timestamp("us"), mask=mask)
+        return pa.array(data, type=pa.timestamp("us", tz=col.dtype.tz
+                                                 or None), mask=mask)
     return pa.array(data, mask=mask)
 
 
@@ -257,7 +258,7 @@ def _plain_values_array(data: np.ndarray, dtype: T.SparkType) -> pa.Array:
     if dtype.kind is T.Kind.DATE:
         return pa.array(data, type=pa.date32())
     if dtype.kind is T.Kind.TIMESTAMP:
-        return pa.array(data, type=pa.timestamp("us"))
+        return pa.array(data, type=pa.timestamp("us", tz=dtype.tz or None))
     return pa.array(data)
 
 

@@ -7,7 +7,8 @@ STRING has no single dtype: a string column is a padded char matrix
 scale) and picks a storage width by precision as cudf does (32, 64 or
 128 bits); every decimal column is stored as 128-bit limbs
 (:class:`..column.Decimal128Column`).  LIST and STRUCT carry their
-children's types.
+children's types; TIMESTAMP its time zone (``tz``, which ``repr`` leaves
+out, as the reference's does).
 """
 
 from __future__ import annotations
@@ -56,7 +57,8 @@ class SparkType:
 
     ``precision`` / ``scale`` mean something for DECIMAL only;
     ``children`` for LIST (the element type) and STRUCT (the field
-    types, named by ``field_names``).
+    types, named by ``field_names``); ``tz`` for TIMESTAMP only ("" is
+    naive, else an IANA or offset zone name, as the reference's).
     """
 
     kind: Kind
@@ -64,6 +66,7 @@ class SparkType:
     scale: int = 0
     children: tuple = ()
     field_names: tuple = ()
+    tz: str = ""
 
     @staticmethod
     def decimal(precision: int, scale: int) -> "SparkType":

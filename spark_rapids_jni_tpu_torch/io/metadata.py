@@ -23,8 +23,13 @@ The reference's ``io/parquet.py`` reads ``pq.ParquetFile(path).metadata``:
 * a column whose sort order is unknown (INT96, INTERVAL) has no
   statistics, as in pyarrow.
 
-Each leaf also carries the port type that the reference's ``from_arrow``
-gives the Arrow type pyarrow reads for it (:meth:`Leaf.port_type`).
+Each top-level column is a tree of leaf, struct and list nodes
+(:class:`Node`) with their definition and repetition levels, and each
+type is the one the reference's ``from_arrow`` gives the Arrow type pyarrow
+reads for it (:meth:`FileMetaData.column_type`), with the footer's
+``ARROW:schema`` laid over the Parquet types as parquet-cpp lays it
+(:mod:`.arrow_schema`): original time zones, and durations, fixed-size
+lists and views raising as the reference raises on them.
 """
 
 from __future__ import annotations
@@ -35,9 +40,8 @@ import os
 import struct as _struct
 from typing import List, Optional
 
-from .._roadmap import not_ported
 from ..columnar import types as T
-from . import thrift
+from . import arrow_schema, thrift
 
 # parquet.thrift enums
 BOOLEAN, INT32, INT64, INT96, FLOAT, DOUBLE, BYTE_ARRAY, FLBA = range(8)
@@ -66,8 +70,7 @@ _WIDE = _decimal.Context(prec=100)
 class Leaf:
     """One leaf column of the schema, in file (depth-first) order."""
 
-    def __init__(self, element, path, max_def: int, max_rep: int,
-                 top_is_group: bool):
+    def __init__(self, element, path, max_def: int, max_rep: int):
         if element.type not in range(len(PHYSICAL_NAMES)):
             raise ValueError(f"corrupt Parquet schema: leaf {path!r} has "
                              f"physical type {element.type}")
@@ -77,8 +80,8 @@ class Leaf:
         self.type_length = element.type_length
         self.max_def = max_def
         self.max_rep = max_rep
-        # a top-level group (struct, list, map) or a repeated leaf
-        self.nested = top_is_group or max_rep > 0
+        # the Arrow field of ARROW:schema laid over this leaf, if any
+        self.arrow: Optional[arrow_schema.ArrowField] = None
 
     @property
     def dotted(self) -> str:
@@ -156,36 +159,37 @@ class Leaf:
 
     def port_type(self) -> T.SparkType:
         """The port type of this leaf: the reference's ``from_arrow`` type
-        of the Arrow type pyarrow reads.  Raises where the reference's
-        ``array_to_column`` raises (unsigned ints, times, binaries, ...),
-        and ``not_ported`` for a nested column (item 14b)."""
-        if self.nested:
-            raise not_ported(f"nested Parquet column {self.dotted!r}",
-                             "14b")
+        of the Arrow type pyarrow reads, ``ARROW:schema`` applied (a
+        UTC-adjusted timestamp takes its original zone).  Raises where
+        the reference's ``array_to_column`` raises (unsigned ints, times,
+        binaries, durations, ...)."""
         kind, info = self.logical()
         phys = self.physical
+        arrow = self.arrow.type if self.arrow is not None else None
         if kind == "DECIMAL":
             precision, scale = info
-            if phys not in (INT32, INT64, FLBA):
-                raise not_ported(f"Parquet DECIMAL over "
-                                 f"{PHYSICAL_NAMES[phys]} (column "
-                                 f"{self.dotted!r})", "14b")
             if not 1 <= precision <= 38:
                 raise NotImplementedError(
                     f"arrow type decimal256({precision}, {scale}) of "
                     f"column {self.dotted!r} not supported yet")
-            return T.SparkType.decimal(precision, scale)
-        if kind == "STRING" and phys == BYTE_ARRAY:
+            if phys in (INT32, INT64, FLBA, BYTE_ARRAY):
+                return T.SparkType.decimal(precision, scale)
+        if kind == "STRING" and phys == BYTE_ARRAY and arrow != "Utf8View":
             return T.STRING
         if kind == "DATE" and phys == INT32:
             return T.DATE
         if kind == "TIMESTAMP" and phys == INT64:
-            return T.TIMESTAMP
+            tz = ""
+            if info[1]:  # UTC-adjusted: pyarrow's "UTC", or the origin's
+                tz = (self.arrow.tz if arrow == "Timestamp" and self.arrow.tz
+                      else "UTC")
+            return T.SparkType(T.Kind.TIMESTAMP, tz=tz)
         ints = {8: T.INT8, 16: T.INT16, 32: T.INT32, 64: T.INT64}
         if (kind == "INTEGER" and info[1] and phys in (INT32, INT64)
-                and info[0] in ints):
+                and info[0] in ints and not (phys == INT64
+                                             and arrow == "Duration")):
             return ints[info[0]]
-        if kind is None:
+        if kind is None and not (phys == INT64 and arrow == "Duration"):
             plain = {BOOLEAN: T.BOOLEAN, INT32: T.INT32, INT64: T.INT64,
                      INT96: T.TIMESTAMP, FLOAT: T.FLOAT32,
                      DOUBLE: T.FLOAT64}.get(phys)
@@ -194,6 +198,8 @@ class Leaf:
         what = kind if kind is not None else PHYSICAL_NAMES[phys]
         if kind == "INTEGER":
             what = f"{'' if info[1] else 'u'}int{info[0]}"
+        if arrow in ("Duration", "Utf8View"):
+            what = f"arrow {arrow}"
         raise NotImplementedError(
             f"Parquet type {what} over {PHYSICAL_NAMES[phys]} of column "
             f"{self.dotted!r} not supported yet (the reference's "
@@ -339,11 +345,94 @@ class RowGroupMetaData:
         return self._cols[i]
 
 
+LEAF, STRUCT, LIST = "leaf", "struct", "list"
+# Arrow list types the reference's array_to_column rejects: pyarrow
+# restores them from ARROW:schema over a Parquet list
+_ARROW_LISTS = ("List", "LargeList", "FixedSizeList", "ListView",
+                "LargeListView")
+_ARROW_REJECTED_LISTS = ("FixedSizeList", "ListView", "LargeListView")
+
+
+class Node:
+    """One node of a top-level column's tree: a ``leaf`` (``leaf`` its
+    index in :attr:`FileMetaData.leaves`), a ``struct`` (``children`` its
+    fields) or a ``list`` (``children`` its one element).
+
+    ``def_level`` is the definition level at which the node's value is
+    present (non-null); ``nullable`` says whether it can be null at all
+    (a REQUIRED node under a null struct is still valid, as pyarrow reads
+    it).  A list's elements exist from definition level ``elem_def`` on;
+    each list adds one repetition level below its parent's."""
+
+    def __init__(self, kind: str, name: str, nullable: bool, def_level: int,
+                 children=(), leaf: Optional[int] = None, elem_def: int = 0):
+        self.kind, self.name, self.nullable = kind, name, nullable
+        self.def_level, self.elem_def = def_level, elem_def
+        self.children = list(children)
+        self.leaf = leaf
+        self.arrow: Optional[arrow_schema.ArrowField] = None
+        # what a group the port does not read is (a MAP, an empty group)
+        self.opaque: Optional[str] = None
+
+    def leaf_indices(self) -> List[int]:
+        if self.kind == LEAF:
+            return [self.leaf]
+        return [i for c in self.children for i in c.leaf_indices()]
+
+    def port_type(self, leaves: List[Leaf]) -> T.SparkType:
+        """The reference's type of this node; raises where it does."""
+        if self.opaque is not None:
+            raise NotImplementedError(
+                f"{self.opaque} (column {self.name!r}) is not supported "
+                "yet (the reference's array_to_column rejects arrow type "
+                "map)")
+        if self.kind == LEAF:
+            return leaves[self.leaf].port_type()
+        if self.kind == STRUCT:
+            return T.SparkType.struct_of({c.name: c.port_type(leaves)
+                                          for c in self.children})
+        arrow = self.arrow.type if self.arrow is not None else None
+        if arrow in _ARROW_REJECTED_LISTS:
+            raise NotImplementedError(
+                f"arrow type {arrow} of column {self.name!r} not supported "
+                "yet (the reference's array_to_column rejects it)")
+        return T.SparkType.list_of(self.children[0].port_type(leaves))
+
+
+def _group_kind(e) -> Optional[str]:
+    """``LIST``, ``MAP`` or None: a group's annotation, from
+    ``logicalType`` first and ``converted_type`` second."""
+    lt = e.logicalType
+    if lt is not None:
+        if lt.LIST is not None:
+            return "LIST"
+        if lt.MAP is not None:
+            return "MAP"
+    if e.converted_type == CT_LIST:
+        return "LIST"
+    if e.converted_type in (CT_MAP, CT_MAP_KEY_VALUE):
+        return "MAP"
+    return None
+
+
+def _is_group(e) -> bool:
+    return e.type is None or bool(e.num_children)
+
+
 class FileMetaData:
     """pyarrow's ``ParquetFile(path).metadata`` for the scan's purposes,
     plus the schema's leaves (``leaves``), the top-level names
-    (``names``, pyarrow's ``schema_arrow.names``) and the leaves under
-    each top-level name (``leaves_of``)."""
+    (``names``, pyarrow's ``schema_arrow.names``) and each top-level
+    column's node tree (``columns``).
+
+    The tree follows parquet-cpp's reading of the schema: a group
+    annotated LIST holds one repeated child; a repeated primitive there,
+    or a repeated group with several fields or named ``array`` or
+    ``*_tuple``, is the element itself (the legacy 2-level forms), and
+    any other repeated group wraps the element (the 3-level form).  A
+    repeated field without the annotation is a list of non-null
+    elements.  A MAP or MAP_KEY_VALUE group raises the reference's
+    ``NotImplementedError`` when its column is typed."""
 
     def __init__(self, footer: bytes, file_size: Optional[int] = None):
         self.footer = footer
@@ -354,41 +443,119 @@ class FileMetaData:
             raise ValueError("parquet footer has no schema")
         self.leaves: List[Leaf] = []
         self.names: List[str] = []
-        self.leaves_of = {}
+        self.columns = {}
+        self._schema = schema
         pos = 1
         for _ in range(schema[0].num_children or 0):
-            pos = self._walk(schema, pos, [], 0, 0, None)
+            node, pos = self._node(pos, [], 0, 0)
+            self.names.append(node.name)
+            self.columns[node.name] = node
+        kv = {m.key: m.value for m in md.key_value_metadata or []}
+        self.arrow_fields = None
+        if arrow_schema.KEY in kv:
+            self.arrow_fields = arrow_schema.decode(kv[arrow_schema.KEY])
+            # parquet-cpp lays the origin schema over the top-level
+            # fields by position
+            if len(self.arrow_fields) == len(self.names):
+                for name, f in zip(self.names, self.arrow_fields):
+                    self._apply_arrow(self.columns[name], f)
         self.num_rows = md.num_rows or 0
         self.typed_order = bool(md.column_orders)
         self._groups = md.row_groups or []
         self._bound = {}
 
-    def _walk(self, schema, pos, path, max_def, max_rep, top):
-        if pos >= len(schema):
+    def _element(self, pos):
+        if pos >= len(self._schema):
             raise ValueError("parquet schema ends inside a group")
-        e = schema[pos]
-        path = path + [_required(e.name, "schema element name")]
-        if e.repetition_type == OPTIONAL:
-            max_def += 1
-        elif e.repetition_type == REPEATED:
-            max_def += 1
-            max_rep += 1
-        if top is None:
-            top = e.name
-            self.names.append(top)
-            self.leaves_of[top] = []
+        return self._schema[pos]
+
+    def _node(self, pos, path, def_, rep, repeated_ok=True):
+        """The node at schema position ``pos`` under ``path`` (its
+        parent's definition and repetition levels ``def_``, ``rep``) and
+        the position after it."""
+        e = self._element(pos)
+        name = _required(e.name, "schema element name")
+        if e.repetition_type == REPEATED and repeated_ok:
+            # a bare repeated field: a list of non-null elements
+            elem, pos = self._node(pos, path, def_ + 1, rep + 1,
+                                   repeated_ok=False)
+            elem.nullable = False
+            return Node(LIST, name, False, def_, [elem],
+                        elem_def=def_ + 1), pos
+        path = path + [name]
+        nullable = e.repetition_type == OPTIONAL
+        if e.repetition_type != REPEATED:
+            def_ += nullable
+        if not _is_group(e):
+            leaf = Leaf(e, path, def_, rep)
+            self.leaves.append(leaf)
+            return Node(LEAF, name, nullable, def_,
+                        leaf=len(self.leaves) - 1), pos + 1
         kids = e.num_children or 0
-        if e.type is None or kids:
-            pos += 1
-            for _ in range(kids):
-                pos = self._walk(schema, pos, path, max_def, max_rep, top)
-            if not kids:
-                self.leaves_of[top].append(None)  # an empty group
-            return pos
-        leaf = Leaf(e, path, max_def, max_rep, top_is_group=len(path) > 1)
-        self.leaves_of[top].append(len(self.leaves))
-        self.leaves.append(leaf)
-        return pos + 1
+        kind = _group_kind(e)
+        if kind == "MAP":
+            return self._opaque(pos, name, nullable, def_, "a Parquet MAP")
+        if kind == "LIST" and e.repetition_type != REPEATED:
+            return self._list(pos, path, name, nullable, def_, rep)
+        if not kids:
+            return self._opaque(pos, name, nullable, def_,
+                                "an empty Parquet group")
+        pos += 1
+        children = []
+        for _ in range(kids):
+            child, pos = self._node(pos, path, def_, rep)
+            children.append(child)
+        return Node(STRUCT, name, nullable, def_, children), pos
+
+    def _list(self, pos, path, name, nullable, def_, rep):
+        e = self._element(pos)
+        if (e.num_children or 0) != 1:
+            raise ValueError(f"corrupt Parquet schema: LIST group {name!r} "
+                             f"has {e.num_children} children, not one")
+        r = self._element(pos + 1)
+        if r.repetition_type != REPEATED:
+            raise ValueError(f"corrupt Parquet schema: the child of LIST "
+                             f"group {name!r} is not repeated")
+        r_name = _required(r.name, "schema element name")
+        if (_is_group(r) and (r.num_children or 0) == 1
+                and r_name != "array" and not r_name.endswith("_tuple")):
+            # 3-level: the repeated group wraps the element
+            elem, end = self._node(pos + 2, path + [r_name], def_ + 1,
+                                   rep + 1)
+        else:
+            # legacy 2-level: the repeated field is the element
+            elem, end = self._node(pos + 1, path, def_ + 1, rep + 1,
+                                   repeated_ok=False)
+            elem.nullable = False
+        return Node(LIST, name, nullable, def_, [elem],
+                    elem_def=def_ + 1), end
+
+    def _opaque(self, pos, name, nullable, def_, what):
+        """A group the port does not read (a MAP, an empty group): its
+        leaves are walked so the chunks line up, and typing it raises."""
+        end = pos + 1
+        for _ in range(self._element(pos).num_children or 0):
+            _, end = self._node(end, [name], def_, 0)
+        node = Node(STRUCT, name, nullable, def_)
+        node.opaque = what
+        return node, end
+
+    def _apply_arrow(self, node: Node, field) -> None:
+        node.arrow = field
+        if node.kind == LEAF:
+            self.leaves[node.leaf].arrow = field
+        elif (node.kind == STRUCT and field.type == "Struct"
+              and len(field.children) == len(node.children)):
+            for c, f in zip(node.children, field.children):
+                self._apply_arrow(c, f)
+        elif (node.kind == LIST and field.type in _ARROW_LISTS
+              and len(field.children) == 1):
+            self._apply_arrow(node.children[0], field.children[0])
+
+    def column_type(self, name: str) -> T.SparkType:
+        """Top-level column ``name``'s port type; raises where the
+        reference's ``array_to_column`` raises."""
+        return self.columns[name].port_type(self.leaves)
 
     @property
     def num_row_groups(self) -> int:

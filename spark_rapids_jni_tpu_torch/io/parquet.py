@@ -28,9 +28,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .._roadmap import not_ported
 from ..columnar import types as T
 from ..columnar.column import ColumnBatch, batch_from_numpy
+from . import metadata as M
 from . import pages as PG
 from .metadata import FileMetaData, read_metadata
 
@@ -153,76 +153,179 @@ def _footer(path: str) -> FileMetaData:
     return meta
 
 
-def _leaf(meta: FileMetaData, name: str):
-    """The one flat leaf of top-level column ``name`` and its port type
-    (which raises for a type the reference rejects)."""
-    leaves = meta.leaves_of[name]
-    if len(leaves) != 1 or leaves[0] is None:
-        raise not_ported(f"nested Parquet column {name!r}", "14b")
-    leaf = meta.leaves[leaves[0]]
-    return leaves[0], leaf, leaf.port_type()
+def _node_paths(node, space=0, above=()):
+    """``{leaf index: path}`` under ``node``: each path the nodes from the
+    top down to the leaf, as :func:`pages.assemble_levels` takes them,
+    and the nodes themselves."""
+    kind = {M.LEAF: 0, M.STRUCT: 1, M.LIST: 2}[node.kind]
+    here = above + ((node, (kind, space, node.def_level, node.elem_def)),)
+    if node.kind == M.LEAF:
+        return {node.leaf: here}
+    out = {}
+    for c in node.children:
+        out.update(_node_paths(c, space + (node.kind == M.LIST), here))
+    return out
+
+
+class _LeafValues:
+    """One leaf's values over the row groups read: a flat leaf's fixed
+    values per chunk, a nested leaf's pages (their levels assemble at
+    the end), and a string leaf's strings, as a dictionary or not."""
+
+    def __init__(self, leaf, st: T.SparkType, as_dictionary: bool):
+        self.leaf, self.type = leaf, st
+        self.strings = None
+        if st.kind is T.Kind.STRING:
+            self.strings = (PG.StringDictionary() if as_dictionary
+                            else PG.StringChunks())
+        self.parts = []
+
+    def add(self, pages, valid=None) -> None:
+        """One chunk's pages; ``valid`` is a flat leaf's validity."""
+        if self.strings is not None:
+            self.strings.add(pages)
+        if valid is None:
+            self.parts.extend(pages)
+        elif self.strings is None:
+            self.parts.append(PG.fixed_values(self.leaf, self.type, pages,
+                                              valid))
+
+    def data(self, valid: np.ndarray, nested: bool):
+        """The leaf's host data for its (present) rows ``valid``."""
+        if isinstance(self.strings, PG.StringDictionary):
+            data = self.strings.host_form(valid)
+            # an empty dictionary (no valid row): the reference decodes,
+            # to an all-null char matrix
+            return data if data is not None else \
+                PG.StringChunks().matrix(valid)
+        if self.strings is not None:
+            return self.strings.matrix(valid)
+        if nested:
+            return PG.fixed_values(self.leaf, self.type, self.parts, valid)
+        return self.parts[0] if len(self.parts) == 1 else \
+            np.concatenate(self.parts)
+
+
+class _Column:
+    """One selected top-level column while its row groups decode.
+
+    ``dictionaries`` says which string leaves read as dictionary columns:
+    ``"all"`` (``read_parquet`` under ``read_dictionary``: a top-level
+    string, and a nested one written from an Arrow dictionary, which
+    pyarrow restores), ``"arrow"`` (only those written from an Arrow
+    dictionary: the per-row-group readers) or None."""
+
+    def __init__(self, meta: FileMetaData, name: str,
+                 dictionaries: Optional[str]):
+        self.name = name
+        self.node = meta.columns[name]
+        self.type = meta.column_type(name)
+        self.flat = self.node.kind == M.LEAF
+        self.paths = _node_paths(self.node)
+        self.valids = []
+        self.leaves = {}
+        for li in self.paths:
+            leaf = meta.leaves[li]
+            from_dict = leaf.arrow is not None and leaf.arrow.dictionary
+            as_dict = (dictionaries == "all" and (self.flat or from_dict)
+                       or dictionaries == "arrow" and from_dict)
+            self.leaves[li] = _LeafValues(leaf, self._leaf_type(li), as_dict)
+
+    def _leaf_type(self, li: int) -> T.SparkType:
+        st = self.type
+        for node, _ in self.paths[li][1:]:
+            if st.kind is T.Kind.LIST:
+                st = st.children[0]
+            else:
+                st = st.children[st.field_names.index(node.name)]
+        return st
+
+    def add_chunk(self, li: int, pages, rows: int, g: int) -> None:
+        if not self.flat:
+            self.leaves[li].add(pages)
+            return
+        valid = PG._validity(pages, rows)
+        if valid.shape[0] != rows:
+            raise ValueError(f"corrupt Parquet chunk {self.name!r}: "
+                             f"{valid.shape[0]} values for {rows} rows in "
+                             f"row group {g}")
+        self.valids.append(valid)
+        self.leaves[li].add(pages, valid)
+
+    def host_form(self, rows: int):
+        """``batch_from_numpy``'s ``(data, validity, type)`` of the
+        column: each leaf's levels assembled into every node above it."""
+        if self.flat:
+            (values,) = self.leaves.values()
+            valid = np.concatenate(self.valids)
+            return values.data(valid, False), valid, self.type
+        built = {}
+        for li, path in self.paths.items():
+            values = self.leaves[li]
+            reps, defs, n = PG.levels_of(values.parts)
+            got = PG.assemble_levels(reps, defs, n, [p for _, p in path])
+            for (node, _), (present, offsets) in zip(path, got):
+                # a node that cannot be null is valid wherever it has a
+                # slot, even under a null struct (pyarrow gives it no
+                # validity bitmap)
+                valid = (present if node.nullable
+                         else np.ones(present.shape[0], np.bool_))
+                built.setdefault(id(node), (valid, offsets))
+            built[id(path[-1][0])] += (values.data(got[-1][0], True),)
+        top = built[id(self.node)][0].shape[0]
+        if top != rows:
+            raise ValueError(f"corrupt Parquet chunk {self.name!r}: its "
+                             f"levels hold {top} rows, the row groups "
+                             f"{rows}")
+
+        def form(node, st):
+            valid, offsets, *leaf_data = built[id(node)]
+            if node.kind == M.LEAF:
+                return leaf_data[0], valid, st
+            if node.kind == M.STRUCT:
+                return ({c.name: form(c, t) for c, t in
+                         zip(node.children, st.children)}, valid, st)
+            return (offsets, form(node.children[0], st.children[0])), \
+                valid, st
+
+        return form(self.node, self.type)
 
 
 def decode_row_groups(path: str, meta: FileMetaData, groups, names,
-                      strings_as_dictionary: bool = False) -> dict:
+                      dictionaries: Optional[str] = None) -> dict:
     """Row groups ``groups`` of columns ``names``, decoded on the host:
-    ``{name: (data, validity, type)}``, ``batch_from_numpy``'s form."""
-    cols = [(name, *_leaf(meta, name)) for name in names]
+    ``{name: (data, validity, type)}``, ``batch_from_numpy``'s form (a
+    list's data ``(offsets, child)``, a struct's ``{field: child}``);
+    ``dictionaries`` as :class:`_Column` takes it."""
+    cols = [_Column(meta, name, dictionaries) for name in names]
     if not groups:
-        return {name: PG.empty_host_column(st) for name, _, _, st in cols}
+        return {c.name: PG.empty_host_column(c.type) for c in cols}
     t0 = time.perf_counter()
-    acc = {}
-    for name, _, _, st in cols:
-        if st.kind is T.Kind.STRING:
-            vals = (PG.StringDictionary() if strings_as_dictionary
-                    else PG.StringChunks())
-        else:
-            vals = []
-        acc[name] = ([], vals)
     size = meta.file_size
+    rows = 0
     with open(path, "rb") as f:
         for g in groups:
             PG.STATS["row_group_decodes"] += 1
             rg = meta.row_group(g)
-            for name, ci, leaf, st in cols:
-                col = rg.column(ci)
-                start, length = col.chunk_start, col.total_compressed_size
-                if (start is None or length is None or start < 0
-                        or length < 0
-                        or (size is not None and start + length > size)):
-                    raise ValueError(f"corrupt Parquet footer: chunk of "
-                                     f"{name!r} in row group {g} lies "
-                                     "outside the file")
-                f.seek(start)
-                raw = f.read(length)
-                PG.STATS["file_bytes"] += len(raw)
-                pages = PG.read_chunk_pages(raw, col, leaf)
-                valid = PG._validity(pages, rg.num_rows)
-                if valid.shape[0] != rg.num_rows:
-                    raise ValueError(f"corrupt Parquet chunk {name!r}: "
-                                     f"{valid.shape[0]} values for "
-                                     f"{rg.num_rows} rows")
-                valids, vals = acc[name]
-                valids.append(valid)
-                if isinstance(vals, list):
-                    vals.append(PG.fixed_values(leaf, st, pages, valid))
-                else:
-                    vals.add(pages)
-    out = {}
-    for name, _, _, st in cols:
-        valids, vals = acc[name]
-        valid = np.concatenate(valids)
-        if isinstance(vals, list):
-            data = vals[0] if len(vals) == 1 else np.concatenate(vals)
-        elif isinstance(vals, PG.StringDictionary):
-            data = vals.host_form(valid)
-            if data is None:
-                # an empty dictionary (no valid row): the reference
-                # decodes, to an all-null char matrix
-                data = PG.StringChunks().matrix(valid)
-        else:
-            data = vals.matrix(valid)
-        out[name] = (data, valid, st)
+            rows += rg.num_rows
+            for c in cols:
+                for li in c.paths:
+                    col = rg.column(li)
+                    start = col.chunk_start
+                    length = col.total_compressed_size
+                    if (start is None or length is None or start < 0
+                            or length < 0
+                            or (size is not None and start + length > size)):
+                        raise ValueError(f"corrupt Parquet footer: chunk of "
+                                         f"{col.path_in_schema!r} in row "
+                                         f"group {g} lies outside the file")
+                    f.seek(start)
+                    raw = f.read(length)
+                    PG.STATS["file_bytes"] += len(raw)
+                    pages = PG.read_chunk_pages(raw, col, meta.leaves[li],
+                                                levels=not c.flat)
+                    c.add_chunk(li, pages, rg.num_rows, g)
+    out = {c.name: c.host_form(rows) for c in cols}
     PG.STATS["decode_s"] += time.perf_counter() - t0
     return out
 
@@ -265,7 +368,8 @@ def read_parquet(
     keep, _ = prune_row_groups(meta, keep, predicate, ignore_case)
     names = _match_columns(meta.names, columns, ignore_case)
     host = decode_row_groups(path, meta, keep, names,
-                             resolve_encoded_execution(device))
+                             "all" if resolve_encoded_execution(device)
+                             else None)
     return _upload(host, device)
 
 
@@ -290,7 +394,8 @@ def row_group_readers(
     (the parsed footer is shared: it is immutable).  ``rows`` comes from
     the footer, so the morsel schedule is planned without touching any
     data pages.  String columns decode to the char matrix, as the
-    reference's readers (no ``read_dictionary``) give them.
+    reference's readers (no ``read_dictionary``) give them, except those
+    written from an Arrow dictionary, which pyarrow restores as one.
 
     ``predicate`` prunes stats-cold row groups before any reader is
     built (see :func:`prune_row_groups`); when ``counters`` is a dict it
@@ -304,11 +409,16 @@ def row_group_readers(
         counters["scanned"] = len(keep)
     names = _match_columns(meta.names, columns, ignore_case)
     for name in names:
-        _leaf(meta, name)  # an unreadable column raises here, not later
+        meta.column_type(name)  # an unreadable column raises here
 
     def make(i):
         def read() -> ColumnBatch:
-            return _upload(decode_row_groups(path, meta, [i], names),
+            from ..columnar.encoded import resolve_encoded_execution
+
+            # strings written from an Arrow dictionary come back as
+            # dictionaries, as pyarrow restores them for the reference
+            arrow = "arrow" if resolve_encoded_execution(device) else None
+            return _upload(decode_row_groups(path, meta, [i], names, arrow),
                            device)
         return read
 

@@ -2,8 +2,9 @@
 
 The reference reads thrift through pyarrow; the card's machine has none,
 so the port parses the few structs a scan needs itself: ``FileMetaData``
-with its ``SchemaElement``, ``RowGroup``, ``ColumnChunk`` /
-``ColumnMetaData`` and ``Statistics``, and the ``PageHeader`` of data
+with its ``SchemaElement``, ``KeyValue`` metadata, ``RowGroup``,
+``ColumnChunk`` / ``ColumnMetaData`` and ``Statistics``, and the
+``PageHeader`` of data
 pages v1 and v2 and of dictionary pages.  Each struct becomes a plain
 Python object whose attributes are named as in ``parquet.thrift``; a field
 the file does not set is None.  Fields this module does not name are read
@@ -208,9 +209,11 @@ ColumnChunk = _struct_type("ColumnChunk", {3: ("meta_data", ColumnMetaData)})
 RowGroup = _struct_type("RowGroup", {
     1: ("columns", [ColumnChunk]), 3: ("num_rows", int)})
 ColumnOrder = _struct_type("ColumnOrder", {1: ("TYPE_ORDER", _Empty)})
+KeyValue = _struct_type("KeyValue", {1: ("key", str), 2: ("value", str)})
 FileMetaData = _struct_type("FileMetaData", {
     1: ("version", int), 2: ("schema", [SchemaElement]),
     3: ("num_rows", int), 4: ("row_groups", [RowGroup]),
+    5: ("key_value_metadata", [KeyValue]),
     7: ("column_orders", [ColumnOrder])})
 DataPageHeader = _struct_type("DataPageHeader", {
     1: ("num_values", int), 2: ("encoding", int),

@@ -45,8 +45,7 @@ the other committed.  Where the port differs:
   ``Decimal128Column.limbs`` is int64 in the port and uint64 in the
   reference (the same bits): the port writes int64 and, adopting a
   reference entry, views uint64 limbs as int64;
-* the port's types carry no time zone: ``tz`` is written as ``""`` and
-  ignored on read;
+* a timestamp type's time zone is written as ``tz`` and read back;
 * ``bfloat16`` has no npy form: a tree holding one is unstorable, and
   its ``put`` fails softly like any other unstorable tree.
 
@@ -103,7 +102,7 @@ def _enc_type(t: T.SparkType) -> dict:
         "kind": t.kind.value,
         "precision": t.precision,
         "scale": t.scale,
-        "tz": "",
+        "tz": t.tz,
         "children": [_enc_type(c) for c in t.children],
         "field_names": list(t.field_names),
     }
@@ -116,6 +115,7 @@ def _dec_type(d: dict) -> T.SparkType:
         scale=int(d.get("scale", 0)),
         children=tuple(_dec_type(c) for c in d.get("children", [])),
         field_names=tuple(d.get("field_names", [])),
+        tz=d.get("tz", ""),
     )
 
 

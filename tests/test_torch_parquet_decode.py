@@ -13,12 +13,17 @@ columns as dictionary columns: codes, canon and dictionary equal to what
 pyarrow's ``read_dictionary`` plus ``combine_chunks`` give).  Beside it:
 the committed pyarrow fixtures (``tests/data``, written by
 :func:`fixture_table` with the options in ``FIXTURES``) decode to their
-committed digest in both packages; q6 from Parquet equals the reference's
-jitted ``_q6_step``; the numpy harness writer (``tests/parquet_writer.py``)
-writes files pyarrow reads back; every unsupported encoding, codec and
-nested column raises ``not_ported``; a corrupt page raises; pre-1970
+committed digest in both packages (the DELTA/BYTE_STREAM_SPLIT v2 file,
+one file per codec, a nested ZSTD file and the harness writer's
+Hadoop-framed LZ4 file among them); each DELTA and BYTE_STREAM_SPLIT
+encoding under each page version, and the LZ4, ZSTD and BROTLI codecs,
+read as the reference reads them; a missing codec library raises; q6
+from Parquet equals the reference's jitted ``_q6_step``; the numpy
+harness writer (``tests/parquet_writer.py``) writes files pyarrow reads
+back, BYTE_ARRAY decimals among them; a corrupt page raises; pre-1970
 nanoseconds truncate toward zero; and the port's ``io`` imports and reads
-with pyarrow and jax blocked.
+with pyarrow and jax blocked.  Nested columns and the Arrow schema are in
+``test_torch_parquet_nested.py``.
 """
 
 import decimal
@@ -36,13 +41,16 @@ from spark_rapids_jni_tpu import config as jconfig
 from spark_rapids_jni_tpu.io import parquet as jparquet
 
 from spark_rapids_jni_tpu_torch import config
-from spark_rapids_jni_tpu_torch.columnar.column import StringColumn
+from spark_rapids_jni_tpu_torch.columnar.column import (ListColumn,
+                                                        StringColumn,
+                                                        StructColumn)
 from spark_rapids_jni_tpu_torch.columnar.encoded import is_encoded
 from spark_rapids_jni_tpu_torch.io import pages as PG
 from spark_rapids_jni_tpu_torch.io import parquet as tparquet
 from spark_rapids_jni_tpu_torch.shuffle.morsel import batch_digest
 
 import parquet_writer as PW
+from parquet_tables import harness_columns, nested_table
 from torch_parity import (assert_col_equal, assert_encoded_equal,
                           one_torch_thread, to_port)  # noqa: F401
 
@@ -58,8 +66,48 @@ FIXTURES = {
         row_group_size=400, data_page_size=1024, compression="snappy",
         data_page_version="2.0", use_deprecated_int96_timestamps=True,
         write_batch_size=64),
+    # the v2 writer's layout: DELTA_BINARY_PACKED ints, DELTA strings,
+    # BYTE_STREAM_SPLIT floats and FLBA decimals
+    "fixture_delta_v2.parquet": dict(
+        row_group_size=200, data_page_size=1024, compression="snappy",
+        data_page_version="2.0", store_decimal_as_integer=True,
+        write_batch_size=64, use_dictionary=["b", "i8"],
+        column_encoding={
+            "i16": "DELTA_BINARY_PACKED", "i32": "DELTA_BINARY_PACKED",
+            "i64": "DELTA_BINARY_PACKED", "d": "DELTA_BINARY_PACKED",
+            "ts_ms": "DELTA_BINARY_PACKED", "ts_us": "BYTE_STREAM_SPLIT",
+            "ts_ns": "DELTA_BINARY_PACKED", "dec9": "DELTA_BINARY_PACKED",
+            "dec18": "BYTE_STREAM_SPLIT", "f32": "BYTE_STREAM_SPLIT",
+            "f64": "BYTE_STREAM_SPLIT", "s": "DELTA_BYTE_ARRAY",
+            "u": "DELTA_LENGTH_BYTE_ARRAY", "dec38": "DELTA_BYTE_ARRAY"}),
+    "fixture_zstd.parquet": dict(
+        row_group_size=200, data_page_size=1024, compression="zstd",
+        data_page_version="1.0", write_batch_size=64),
+    "fixture_lz4.parquet": dict(
+        row_group_size=200, data_page_size=1024, compression="lz4",
+        data_page_version="2.0", write_batch_size=64),
+    "fixture_brotli.parquet": dict(
+        row_group_size=200, data_page_size=1024, compression="brotli",
+        data_page_version="1.0", write_batch_size=64),
+    "fixture_nested.parquet": dict(
+        row_group_size=100, data_page_size=512, compression="zstd",
+        data_page_version="2.0", write_batch_size=32),
+    # the harness writer's: Hadoop-framed LZ4, v1 pages
+    "fixture_lz4_hadoop.parquet": dict(
+        row_group_rows=150, page_rows=50, codec="lz4_hadoop",
+        encoding={"k": "delta", "price": "bss", "s.a": "bss",
+                  "tags.list.element": "delta"}),
 }
 FIXTURE_ROWS, FIXTURE_SEED = 1000, 15
+# fixtures of another table or size: (table, rows, seed)
+FIXTURE_TABLES = {
+    "fixture_delta_v2.parquet": ("flat", 400, 16),
+    "fixture_zstd.parquet": ("flat", 300, 17),
+    "fixture_lz4.parquet": ("flat", 300, 18),
+    "fixture_brotli.parquet": ("flat", 300, 19),
+    "fixture_nested.parquet": ("nested", 300, 20),
+    "fixture_lz4_hadoop.parquet": ("harness", 450, 21),
+}
 
 
 def fixture_table(n: int, seed: int) -> pa.Table:
@@ -121,29 +169,64 @@ def _modes(mode):
     jconfig.set("encoded_execution", mode)
 
 
+def _zones(t):
+    """The time zones of a type tree, in order."""
+    return (t.tz,) + tuple(z for c in t.children for z in _zones(c))
+
+
+def assert_columns_identical(jc, tc, carried, msg="", live=None):
+    """One port column holds the reference's bit for bit: ``repr`` of its
+    type and every time zone in it, validity, a list's offsets and a
+    struct's field names (then their children), string char matrices and
+    lengths whole, values on valid rows and zero under nulls, dictionary
+    columns buffer for buffer.  ``live`` marks the rows whose structs
+    above are present: a REQUIRED field under a null struct is valid in
+    both, and pyarrow leaves its value undefined there (the port's is
+    zero), so only live rows' values compare."""
+    assert is_encoded(tc) == is_encoded(carried), msg
+    if is_encoded(tc):
+        assert_encoded_equal(jc, tc, msg)
+        return
+    assert repr(tc.dtype) == repr(jc.dtype), msg
+    assert _zones(tc.dtype) == _zones(jc.dtype), msg
+    valid = tc.validity.numpy()
+    np.testing.assert_array_equal(valid, np.asarray(jc.validity),
+                                  f"{msg} validity")
+    if isinstance(tc, ListColumn):
+        np.testing.assert_array_equal(tc.offsets.numpy(),
+                                      np.asarray(jc.offsets), f"{msg} offs")
+        assert_columns_identical(jc.child, tc.child, carried.child,
+                                 f"{msg}.element")
+        return
+    if isinstance(tc, StructColumn):
+        assert list(tc.field_names) == list(jc.field_names), msg
+        here = valid if live is None else valid & live
+        for f, a, b, c in zip(jc.field_names, jc.children, tc.children,
+                              carried.children):
+            assert_columns_identical(a, b, c, f"{msg}.{f}", here)
+        return
+    if isinstance(tc, StringColumn):
+        assert_col_equal(jc, tc, msg=msg)
+        np.testing.assert_array_equal(tc.chars.numpy(),
+                                      np.asarray(jc.chars), msg)
+        np.testing.assert_array_equal(tc.lengths.numpy(),
+                                      np.asarray(jc.lengths), msg)
+        return
+    data = (tc.limbs if hasattr(tc, "limbs") else tc.data).numpy()
+    want = np.asarray(jc.limbs if hasattr(jc, "limbs") else jc.data)
+    rows = valid if live is None else valid & live
+    np.testing.assert_array_equal(data.view(want.dtype)[rows], want[rows],
+                                  msg)
+    assert not data[~rows].any(), f"{msg} null slots"
+
+
 def assert_batches_identical(jb, tb, msg=""):
-    """The port's batch holds the reference's bit for bit: names, types,
-    validity, values on valid rows (zero under nulls in the port), string
-    char matrices and lengths whole, dictionary columns buffer for
-    buffer."""
+    """The port's batch holds the reference's bit for bit, column by
+    column (:func:`assert_columns_identical`)."""
     assert list(tb.names) == list(jb.names), msg
     carried = to_port(jb)
     for name, jc, tc in zip(jb.names, jb.columns, tb.columns):
-        m = f"{msg} {name}"
-        assert is_encoded(tc) == is_encoded(carried[name]), m
-        if is_encoded(tc):
-            assert_encoded_equal(jc, tc, m)
-            continue
-        assert repr(tc.dtype) == repr(carried[name].dtype), m
-        assert_col_equal(jc, tc, msg=m)
-        if isinstance(tc, StringColumn):
-            np.testing.assert_array_equal(tc.chars.numpy(),
-                                          np.asarray(jc.chars), m)
-            np.testing.assert_array_equal(tc.lengths.numpy(),
-                                          np.asarray(jc.lengths), m)
-        else:
-            data = (tc.limbs if hasattr(tc, "limbs") else tc.data).numpy()
-            assert not data[~tc.validity.numpy()].any(), f"{m} null slots"
+        assert_columns_identical(jc, tc, carried[name], f"{msg} {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -275,14 +358,28 @@ def _digests():
         return json.load(f)
 
 
+def write_fixture(name: str, path: str) -> None:
+    """Write fixture ``name`` from its recipe (``FIXTURES``,
+    ``FIXTURE_TABLES``): how ``tests/data`` was made."""
+    kind, rows, seed = FIXTURE_TABLES.get(name, ("flat", FIXTURE_ROWS,
+                                                 FIXTURE_SEED))
+    if kind == "harness":
+        PW.write_parquet(path, harness_columns(rows, seed), **FIXTURES[name])
+        return
+    table = (fixture_table if kind == "flat" else nested_table)(rows, seed)
+    pq.write_table(table, path, **FIXTURES[name])
+
+
 @pytest.mark.parametrize("name", sorted(FIXTURES))
-def test_fixture_digest_both_packages(name):
-    """The committed pyarrow file holds its recipe's table, decodes in the
-    port to the committed digest (what ``chip_smoke.py`` checks on the
-    card), and the reference's read carries over to the same digest."""
+def test_fixture_digest_both_packages(tmp_path, name):
+    """The committed file holds its recipe's table, decodes in the port
+    to the committed digest (what ``chip_smoke.py`` checks on the card),
+    and the reference's read carries over to the same digest."""
     path = os.path.join(DATA, name)
-    want = fixture_table(FIXTURE_ROWS, FIXTURE_SEED)
-    got = pq.read_table(path)
+    fresh = str(tmp_path / name)
+    write_fixture(name, fresh)
+    want, got = pq.read_table(fresh), pq.read_table(path)
+    assert got.column_names == want.column_names
     for col in want.column_names:
         if col.startswith("ts_") and name.endswith("int96.parquet"):
             continue  # INT96 reads back as ns: compared through the digest
@@ -291,10 +388,40 @@ def test_fixture_digest_both_packages(name):
     for mode in ("off", "on"):
         _modes(mode)
         tb = tparquet.read_parquet(path, device=CPU)
-        jb = jparquet.read_parquet(path)
         assert batch_digest(tb) == digest, mode
+        if name == "fixture_delta_v2.parquet" and mode == "on":
+            continue  # the reference refuses DELTA strings here
+        jb = jparquet.read_parquet(path)
         assert batch_digest(to_port(jb)) == digest, mode
         assert_batches_identical(jb, tb, f"{name} {mode}")
+
+
+def test_fixtures_cover_encodings_and_codecs():
+    """The new fixtures hold what they are for: each codec, the DELTA and
+    BYTE_STREAM_SPLIT encodings in v2 pages, nested levels."""
+    def meta(name):
+        return pq.ParquetFile(os.path.join(DATA, name)).metadata
+
+    for name, codec in (("fixture_zstd.parquet", "ZSTD"),
+                        ("fixture_brotli.parquet", "BROTLI"),
+                        ("fixture_nested.parquet", "ZSTD")):
+        assert meta(name).row_group(0).column(0).compression == codec
+    ids = {name: tparquet.read_metadata(os.path.join(DATA, name))
+           .row_group(0).column(0).compression
+           for name in ("fixture_lz4.parquet", "fixture_lz4_hadoop.parquet")}
+    assert ids == {"fixture_lz4.parquet": PG.LZ4_RAW,
+                   "fixture_lz4_hadoop.parquet": PG.LZ4}
+    rg = meta("fixture_delta_v2.parquet").row_group(0)
+    encs = {rg.column(i).path_in_schema: set(rg.column(i).encodings)
+            for i in range(rg.num_columns)}
+    for col, enc in FIXTURES["fixture_delta_v2.parquet"][
+            "column_encoding"].items():
+        assert enc in encs[col], col
+    nested = tparquet.read_metadata(os.path.join(DATA,
+                                                 "fixture_nested.parquet"))
+    assert max(lf.max_rep for lf in nested.leaves) == 2
+    sizes = [os.path.getsize(os.path.join(DATA, n)) for n in FIXTURES]
+    assert max(sizes) <= 150 << 10 and sum(sizes) <= 600 << 10
 
 
 def test_fixtures_cover_copies_fallback_and_v2():
@@ -427,34 +554,168 @@ def _write(tmp_path, name, table, **kw):
     return path
 
 
-@pytest.mark.parametrize("what,kw", [
-    ("DELTA_BINARY_PACKED", dict(column_encoding={"x": "DELTA_BINARY_PACKED"},
-                                 use_dictionary=False)),
-    ("BYTE_STREAM_SPLIT", dict(column_encoding={"x": "BYTE_STREAM_SPLIT"},
-                               use_dictionary=False)),
-    ("ZSTD", dict(compression="zstd")),
-    ("LZ4", dict(compression="lz4")),
-    ("BROTLI", dict(compression="brotli")),
-])
-def test_unsupported_encoding_or_codec_raises(tmp_path, what, kw):
-    t = pa.table({"x": pa.array(np.arange(100, dtype=np.int64))})
-    path = _write(tmp_path, f"{what}.parquet", t, **kw)
-    with pytest.raises(NotImplementedError, match="14b") as e:
-        tparquet.read_parquet(path, device=CPU)
-    assert what in str(e.value)
+# ---------------------------------------------------------------------------
+# the DELTA and BYTE_STREAM_SPLIT encodings, the LZ4, ZSTD and BROTLI codecs
+# ---------------------------------------------------------------------------
+
+ENCODED_COLUMNS = {
+    "DELTA_BINARY_PACKED": ("i8", "i16", "i32", "i64", "d", "ts_ms",
+                            "ts_us", "ts_ns", "dec9", "dec18",
+                            "l.list.element"),
+    "DELTA_LENGTH_BYTE_ARRAY": ("s", "u", "ls.list.element"),
+    "DELTA_BYTE_ARRAY": ("s", "u", "dec38", "ls.list.element"),
+    "BYTE_STREAM_SPLIT": ("f32", "f64", "i32", "i64", "dec9", "dec38",
+                          "l.list.element"),
+}
 
 
-@pytest.mark.parametrize("col", [
-    pa.array([{"a": 1}, None, {"a": 3}]),
-    pa.array([[1, 2], None, [3]], pa.list_(pa.int32()))])
-def test_nested_column_raises(tmp_path, col):
-    path = _write(tmp_path, "nested.parquet",
-                  pa.table({"n": col, "flat": [1, 2, 3]}))
-    with pytest.raises(NotImplementedError, match="14b.*nested|nested.*14b"):
+def encodings_table(n: int, seed: int) -> pa.Table:
+    """``fixture_table`` plus a list of int64 and a list of strings."""
+    rng = np.random.default_rng(seed + 1)
+    lens = rng.integers(0, 4, n)
+    offs = pa.array(np.concatenate([[0], np.cumsum(lens)]).astype(np.int32))
+    m = int(lens.sum())
+    null = pa.array(rng.random(n) < 0.1)
+    ints = pa.array(rng.integers(-2 ** 62, 2 ** 62, m), pa.int64(),
+                    mask=rng.random(m) < 0.1)
+    strs = pa.array([f"pre-{i % 7}-{i}" for i in range(m)],
+                    mask=rng.random(m) < 0.1)
+    t = fixture_table(n, seed)
+    t = t.append_column("l", pa.ListArray.from_arrays(offs, ints, mask=null))
+    return t.append_column("ls", pa.ListArray.from_arrays(offs, strs,
+                                                          mask=null))
+
+
+def _reference(path, mode, strings_refused: bool, **kw):
+    """The reference's batch.  pyarrow's ``read_dictionary`` refuses
+    DELTA string pages (``OSError``); there the reference's own
+    ``from_arrow`` of the plain read with its top-level strings
+    dictionary-encoded in order of first appearance stands in for it."""
+    from spark_rapids_jni_tpu.columnar.arrow import from_arrow
+
+    if not (mode == "on" and strings_refused):
+        return jparquet.read_parquet(path, **kw)
+    with pytest.raises(OSError, match="DictAccumulator"):
+        jparquet.read_parquet(path, **kw)
+    names = tparquet._match_columns(pq.ParquetFile(path).schema_arrow.names,
+                                    kw.get("columns"),
+                                    kw.get("ignore_case", False))
+    t = pq.read_table(path, columns=names)
+    for i, name in enumerate(t.column_names):
+        if pa.types.is_string(t.schema.field(name).type):
+            t = t.set_column(i, name, t.column(name).combine_chunks()
+                             .dictionary_encode())
+    return from_arrow(t)
+
+
+@pytest.mark.parametrize("version", PAGE_VERSIONS)
+@pytest.mark.parametrize("encoding", sorted(ENCODED_COLUMNS))
+def test_encoding_parity(tmp_path, encoding, version):
+    """Each new encoding (on flat and nested leaves, beside dictionary
+    columns) under each page version reads as the reference reads it,
+    ``encoded_execution`` off and on.  Under on, a DELTA string chunk
+    joins the column's dictionary in first-appearance order, where the
+    reference raises."""
+    cols = ENCODED_COLUMNS[encoding]
+    table = encodings_table(500, 23)
+    path = str(tmp_path / "enc.parquet")
+    pq.write_table(table, path, row_group_size=200, data_page_size=700,
+                   data_page_version=version, write_batch_size=64,
+                   store_decimal_as_integer=encoding == "DELTA_BINARY_PACKED",
+                   use_dictionary=[c for c in table.column_names
+                                   if c not in cols and c not in ("l", "ls")],
+                   column_encoding={c: encoding for c in cols})
+    rg = pq.ParquetFile(path).metadata.row_group(0)
+    used = {rg.column(i).path_in_schema for i in range(rg.num_columns)
+            if encoding in rg.column(i).encodings}
+    assert used == set(cols)
+    refused = encoding.startswith("DELTA_") and encoding.endswith("ARRAY")
+    for mode in ("off", "on"):
+        _modes(mode)
+        for kw in ({}, {"columns": ["S", "i64", "l"], "ignore_case": True}):
+            tb = tparquet.read_parquet(path, device=CPU, **kw)
+            jb = _reference(path, mode, refused, **kw)
+            assert_batches_identical(jb, tb, f"{mode} {kw}")
+
+
+CODEC_CASES = ("lz4", "zstd", "brotli")
+
+
+@pytest.mark.parametrize("version", PAGE_VERSIONS)
+@pytest.mark.parametrize("codec", CODEC_CASES)
+def test_codec_parity(tmp_path, codec, version):
+    """LZ4 (pyarrow writes LZ4_RAW), ZSTD and BROTLI pages, flat and
+    nested, with dictionaries and a PLAIN fallback, read as the reference
+    reads them, ``encoded_execution`` off and on, whole and split."""
+    table = encodings_table(400, 29)
+    path = str(tmp_path / f"{codec}.parquet")
+    pq.write_table(table, path, row_group_size=150, data_page_size=600,
+                   compression=codec, data_page_version=version,
+                   dictionary_pagesize_limit=256, write_batch_size=64)
+    size = os.path.getsize(path)
+    for mode in ("off", "on"):
+        _modes(mode)
+        for kw in ({}, {"part_offset": 0, "part_length": size // 2}):
+            assert_batches_identical(jparquet.read_parquet(path, **kw),
+                                     tparquet.read_parquet(path, device=CPU,
+                                                           **kw),
+                                     f"{mode} {kw}")
+
+
+def test_missing_codec_library_raises(tmp_path, monkeypatch):
+    """A ZSTD or BROTLI page on a system without the library raises an
+    ``OSError`` that names it: nothing falls back."""
+    import ctypes
+    import ctypes.util
+
+    path = str(tmp_path / "z.parquet")
+    pq.write_table(pa.table({"x": np.arange(50)}), path, compression="zstd")
+    monkeypatch.setattr(PG, "_codec_libs", {})
+    monkeypatch.setattr(ctypes.util, "find_library", lambda name: None)
+
+    def no_lib(name, *a, **k):
+        raise OSError(f"{name}: cannot open shared object file")
+
+    monkeypatch.setattr(ctypes, "CDLL", no_lib)
+    with pytest.raises(OSError, match="libzstd"):
         tparquet.read_parquet(path, device=CPU)
-    # a flat column beside it reads
-    assert tparquet.read_parquet(path, columns=["flat"],
-                                 device=CPU).num_rows == 3
+    with pytest.raises(OSError, match="libbrotlidec"):
+        PG.decompress(PG.BROTLI, np.zeros(4, np.uint8), 4)
+    assert PG.codec_libraries() == {"zstd": None, "brotlidec": None}
+
+
+def test_lzo_raises_as_pyarrow_does():
+    with pytest.raises(NotImplementedError, match="LZO"):
+        PG.decompress(PG.LZO, np.zeros(4, np.uint8), 4)
+
+
+def test_byte_array_decimals_from_the_harness_writer(tmp_path):
+    """BYTE_ARRAY decimals (the shortest big-endian two's complement,
+    precision 1 to 38, with nulls, flat and in a struct) read as the
+    reference reads them; precision 38's extremes included."""
+    rng = np.random.default_rng(31)
+    n = 600
+    cols = {}
+    for p in (1, 9, 18, 19, 38):
+        vals = [int(x) % (10 ** p) * (1 if i % 2 else -1)
+                for i, x in enumerate(rng.integers(0, 2 ** 62, n))]
+        vals[:2] = [10 ** p - 1, -(10 ** p - 1)]
+        cols[f"d{p}"] = PW.Decimal(vals, p, min(p, 4) if p > 4 else 0,
+                                   rng.random(n) > 0.1)
+    cols["s"] = PW.Struct({"d": cols["d38"]}, rng.random(n) > 0.1)
+    path = str(tmp_path / "dec.parquet")
+    PW.write_parquet(path, cols, row_group_rows=250, page_rows=100,
+                     codec="snappy", page_version=2)
+    t = pq.read_table(path)
+    assert t.column("d38").type == pa.decimal128(38, 4)
+    for mode in ("off", "on"):
+        _modes(mode)
+        assert_batches_identical(jparquet.read_parquet(path),
+                                 tparquet.read_parquet(path, device=CPU),
+                                 mode)
+    bad = np.frombuffer(bytes(17), np.uint8)
+    with pytest.raises(ValueError, match="width or count"):
+        PG.be_decimal_limbs(np.array([0, 17], np.int64), bad)
 
 
 @pytest.mark.parametrize("typ", [pa.uint8(), pa.uint32(), pa.uint64(),
@@ -504,8 +765,9 @@ def test_corrupt_pages_raise(tmp_path):
 def test_mutated_fixture_decodes_or_raises_cleanly(tmp_path, region):
     """A seeded sweep of byte mutations of the committed fixture, in its
     pages or in its footer: every read decodes or raises ValueError (a
-    corrupt page or footer) or ``not_ported`` (a mutated encoding or
-    codec id); none fails any other way or reads past a buffer."""
+    corrupt page or footer, a mutated encoding or codec id) or
+    NotImplementedError (a type the reference rejects, LZO); none fails
+    any other way or reads past a buffer."""
     src = open(os.path.join(DATA, "fixture_v2_int96.parquet"), "rb").read()
     footer_at = len(src) - 8 - int.from_bytes(src[-8:-4], "little")
     lo, hi = (4, footer_at) if region == "pages" else (footer_at,
@@ -550,7 +812,7 @@ def test_snappy_copies_at_every_offset_width():
 def test_io_imports_and_reads_without_pyarrow_or_jax():
     """The port's io imports nothing of pyarrow, jax or the reference: a
     fresh interpreter with all three blocked imports it and reads the
-    committed fixture to its digest."""
+    committed flat fixture and the nested ZSTD one to their digests."""
     repo = os.path.dirname(DATA.rstrip("/"))
     repo = os.path.dirname(repo)
     code = (
@@ -561,12 +823,13 @@ def test_io_imports_and_reads_without_pyarrow_or_jax():
         "from spark_rapids_jni_tpu_torch import io\n"
         "from spark_rapids_jni_tpu_torch.shuffle.morsel import "
         "batch_digest\n"
-        f"b = io.read_parquet({os.path.join(DATA, 'fixture_v1.parquet')!r},"
-        " device='cpu')\n"
-        "print(batch_digest(b))\n")
+        "for name in ('fixture_v1.parquet', 'fixture_nested.parquet'):\n"
+        f"    b = io.read_parquet({DATA!r} + '/' + name, device='cpu')\n"
+        "    print(batch_digest(b))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = repo
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, cwd=repo)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == _digests()["fixture_v1.parquet"]
+    assert out.stdout.split() == [_digests()["fixture_v1.parquet"],
+                                  _digests()["fixture_nested.parquet"]]
