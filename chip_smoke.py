@@ -229,7 +229,28 @@ Phases, each printing one JSON line:
    BYTE_STREAM_SPLIT); ``parquet_nested`` (``s: struct<k, v>`` about 1 %
    null, ``price`` and ``tags: list<int32>`` of 0-4 elements: q6 over the
    struct's fields with its validity ANDed in, one K1 launch, against
-   the oracle, and ``tags`` equal to the written offsets and values).
+   the oracle, and ``tags`` equal to the written offsets and values);
+18. the serving runtime (``serve/``), last: ``serve_tenants`` (the
+   reference's ``bench.py --serve`` at 2^24 rows a step: 4 tenant
+   streams of 3 queries of 2 steps, streams 0-1 q6's one-hot step, 2 q95
+   through the hash join, 3 ``plan.execute`` of q9 pinned on the shared
+   plan cache; each step's input a ``SpillableHandle`` charged to the
+   tenant's ``TaskContext``, on an arena of one batch a stream plus one
+   with the spill framework installed; a solo wave and a concurrent one,
+   each result against its oracle and solo equal to concurrent, ints
+   exact and floats rel 1e-5, the K1, K2 and K3 launches of each wave
+   exact, the arenas at 0 and no spill file left; p50/p99 latency, wall
+   and Mrows/s of each wave); ``serve_cancel`` (a tenant parked in the
+   arena behind another is cancelled and the other answers right; a
+   query past its ``timeout_s`` is re-admitted once and answers right;
+   a ``task_cancel`` rule at ``serve_step`` cancels its session);
+   ``serve_drain`` (the q95 fact's keyed exchange over 8 shards in two
+   rounds or more inside a tenant, pipelined on the runtime's drain
+   lane, bit-identical to the same exchange with no lane, then two
+   tenants' at once; the wall of each); ``serve_transports`` (q6's
+   column bytes over the shm plane and the frames plane, CRC-verified
+   and byte-equal, the wire's small-frame round trip over unix and tcp,
+   10^4 fsync'd journal appends and their replay; ms and GB/s).
 
 It then prints one ``kernels`` line and, last, ``{"ok": true, "device":
 ...}``.  Any mismatch or exception exits nonzero without that line, as
@@ -946,20 +967,38 @@ def check_q6(res, ng, arrays, label):
     return check_q6_groups(PL.result_groups(res, ng, "k"), arrays, label)
 
 
-def check_q6_groups(got, arrays, label):
-    """q6's groups (``result_groups``' form) against the numpy oracle:
-    sums and counts exact, avg(price) rel ``FLOAT_RTOL``."""
+def q6_oracle_groups(arrays):
     from spark_rapids_jni_tpu_torch import pipelines as PL
 
     uniq, sums, cnts, avgs = PL.q6_oracle(*arrays)
-    check(sorted(got) == uniq.tolist(), f"{label}: groups differ")
+    return {int(k): {"sum_v": int(s), "cnt": int(c), "avg_price": float(a)}
+            for k, s, c, a in zip(uniq, sums, cnts, avgs)}
+
+
+def groups_agree(got, want, floats, label):
+    """``want``'s groups and columns in ``got`` (``result_groups``' form):
+    ints and counts exact, the columns in ``floats`` rel ``FLOAT_RTOL``
+    (K1's and ``index_add_``'s atomics move the last bits from run to
+    run).  Returns the worst float rel error."""
+    check(sorted(got, key=str) == sorted(want, key=str),
+          f"{label}: groups differ")
     worst = 0.0
-    for k, s, c, a in zip(uniq.tolist(), sums, cnts, avgs):
-        check(got[k]["sum_v"] == int(s), f"{label}: sum(v) of {k}")
-        check(got[k]["cnt"] == int(c), f"{label}: count of {k}")
-        worst = max(worst, abs(got[k]["avg_price"] - a) / abs(a))
-    check(worst <= FLOAT_RTOL, f"{label}: avg(price) rel err {worst}")
+    for k in set(got) & set(want):
+        for col, v in want[k].items():
+            g = got[k].get(col)
+            if col in floats and v is not None and g is not None:
+                check(abs(g - v) <= FLOAT_RTOL * abs(v),
+                      f"{label}: {col} of {k}: {g} vs {v}")
+                worst = max(worst, abs(g - v) / abs(v) if v else 0.0)
+            else:
+                check(g == v, f"{label}: {col} of {k}: {g} vs {v}")
     return worst
+
+
+def check_q6_groups(got, arrays, label):
+    """q6's groups (``result_groups``' form) against the numpy oracle:
+    sums and counts exact, avg(price) rel ``FLOAT_RTOL``."""
+    return groups_agree(got, q6_oracle_groups(arrays), ("avg_price",), label)
 
 
 def check_q95(res, ng, arrays, label):
@@ -1296,18 +1335,9 @@ def same_groups(got, ng, want, wng, key, floats, label):
     ints and counts exact, floats rel ``FLOAT_RTOL``."""
     from spark_rapids_jni_tpu_torch import pipelines as PL
 
-    a = PL.result_groups(got, ng, key)
-    b = PL.result_groups(want, wng, key)
-    check(sorted(a, key=str) == sorted(b, key=str),
-          f"{label}: groups differ from the pipelines step")
-    for k in set(a) & set(b):
-        for col, v in b[k].items():
-            g = a[k].get(col)
-            if col in floats and v is not None and g is not None:
-                check(abs(g - v) <= FLOAT_RTOL * abs(v),
-                      f"{label}: {col} of {k}: {g} vs {v}")
-            else:
-                check(g == v, f"{label}: {col} of {k}: {g} vs {v}")
+    groups_agree(PL.result_groups(got, ng, key),
+                 PL.result_groups(want, wng, key), floats,
+                 f"{label} (against the pipelines step)")
 
 
 def check_q9(res, ng, arrays, label):
@@ -5752,6 +5782,790 @@ def phase_parquet_stream(path, root):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the serving runtime (serve/): tenants, kill safety, the drain lane and
+# the transports
+# ---------------------------------------------------------------------------
+
+SERVE_STREAMS = 4           # bench.py --serve: tenant streams,
+SERVE_QUERIES = 3           # ... queries a stream
+SERVE_STEPS = 2             # ... and steps a query
+# stream i's query: streams 0-1 q6's one-hot step (K1), stream 2 q95
+# through the hash join (K2, K3), stream 3 q9 through plan.execute
+SERVE_KINDS = ("q6", "q6", "q95_hashjoin", "q9")
+SERVE_WAIT_S = 300.0        # a session's result wait
+SERVE_SEGMENT = 1 << 20     # the data plane's chunk (serve_segment_bytes)
+SERVE_PINGS = 2000          # small-frame round trips a transport
+SERVE_JOURNAL = 10_000      # journal appends (each fsync'd)
+
+
+def _pct(vals, q):
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(round(q * (len(vals) - 1))))]
+
+
+def q95_oracle_groups(arrs):
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
+    orders, net = PL.q95_oracle(arrs)
+    return {s: {"orders": int(orders[s]), "net": int(net[s])}
+            for s in range(PL.Q95_SEG)}
+
+
+def q9_oracle_groups(arrs):
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
+    net, orders = PL.q9_oracle(arrs)
+    return {s: {"net_hi": int(net[s]), "orders_hi": int(orders[s]),
+                "avg_hi": float(net[s] / orders[s])}
+            for s in range(PL.Q95_SEG)}
+
+
+SERVE_FLOATS = {"q6": ("avg_price",), "q95_hashjoin": (), "q9": ("avg_hi",)}
+
+
+def serve_inputs(n, device=None):
+    """Each (stream, step)'s host arrays once (seed 1000 * stream +
+    step; a stream's queries reuse its steps' inputs) with their oracle
+    groups, and each q95/q9 stream's dimensions (its step 0's), which
+    stay resident on the card: q9's cached plan keeps its broadcast
+    table only while its build side is the same batch."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+
+    host, oracle, dims = {}, {}, {}
+    for i, kind in enumerate(SERVE_KINDS):
+        for s in range(SERVE_STEPS):
+            seed = 1000 * i + s
+            if kind == "q6":
+                arrs = PL.example_arrays(n, seed)
+                oracle[(i, s)] = q6_oracle_groups(arrs)
+            else:
+                full = PL.q95_arrays(n, seed)
+                if s == 0:
+                    dims[i] = full
+                arrs = {"fact": full["fact"], "dim1": dims[i]["dim1"],
+                        "dim2": dims[i]["dim2"]}
+                oracle[(i, s)] = (q95_oracle_groups(arrs)
+                                  if kind == "q95_hashjoin"
+                                  else q9_oracle_groups(arrs))
+                arrs = arrs["fact"]
+            host[(i, s)] = arrs
+    return host, oracle, dims
+
+
+def serve_upload(kind, arrs, device=None):
+    """One step's input batch on the card (a fresh pageable upload)."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+
+    if kind == "q6":
+        k, v, price = arrs
+        ones = np.ones(k.shape[0], np.bool_)
+        return batch_from_numpy({"k": (k, ones, "int32"),
+                                 "v": (v, ones, "int64"),
+                                 "price": (price, ones, "float64")}, device)
+    return batch_from_numpy(
+        {c: (a, np.ones(a.shape, np.bool_), PL._Q95_TYPES[c])
+         for c, a in arrs.items()}, device)
+
+
+def serve_dim_batches(dims, device=None):
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
+
+    return {i: {part: batch_from_numpy(
+        {c: (a, np.ones(a.shape, np.bool_), PL._Q95_TYPES[c])
+         for c, a in full[part].items()}, device)
+        for part in ("dim1", "dim2")} for i, full in dims.items()}
+
+
+SERVE_PLANS = []  # q9's compiled plans: their broadcast tables close last
+
+
+def close_serve_plans():
+    from spark_rapids_jni_tpu_torch import plan as PLAN
+
+    while SERVE_PLANS:
+        SERVE_PLANS.pop().close()
+    PLAN.reset_plan_cache()
+
+
+def serve_step(kind, b, dimb, sess):
+    """One step of ``kind`` over the input batch ``b``; returns its
+    groups as host dicts and, for q9, whether the plan cache hit."""
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch import plan as PLAN
+    from spark_rapids_jni_tpu_torch.plan import queries as Q
+
+    if kind == "q6":
+        return PL.result_groups(*PL.q6_step(b), "k"), None
+    if kind == "q95_hashjoin":
+        return PL.result_groups(*PL.q95_hashjoin_step(
+            b, dimb["dim1"], dimb["dim2"]), "seg"), None
+    inputs = {"fact": b, "dim1": dimb["dim1"], "dim2": dimb["dim2"]}
+    # compiled outside the tenant's TaskContext: its broadcast table
+    # outlives the session, so the stream's next query hits the cache
+    cp = PLAN.compile_plan(Q.q9_plan(), inputs)
+    if cp.last_lookup != "hit":
+        SERVE_PLANS.append(cp)
+    sess.pin_plan(cp.key)
+    return PL.result_groups(*cp(inputs), "seg"), cp.last_lookup
+
+
+def serve_query(stream, k, host, dimb, device=None):
+    """``query_fn(ctx, sess)`` of stream ``stream``'s query ``k``: each
+    step's input uploaded into a ``SpillableHandle`` charged to the
+    tenant's ``TaskContext``, read back pinned, run; returns the steps'
+    groups, the q9 lookups, the query's own seconds and the seconds its
+    uploads held the host (a pageable copy returns once its bytes are
+    staged)."""
+    from spark_rapids_jni_tpu_torch.mem import SpillableHandle
+
+    kind = SERVE_KINDS[stream]
+
+    def q(ctx, sess):
+        t0 = time.perf_counter()
+        groups, lookups, upload_s = [], [], 0.0
+        for s in range(SERVE_STEPS):
+            t1 = time.perf_counter()
+            b = serve_upload(kind, host[(stream, s)], device)
+            upload_s += time.perf_counter() - t1
+            h = SpillableHandle(b, ctx=ctx, name=f"serve-{stream}-{k}-{s}")
+            del b
+            try:
+                with h.pinned():
+                    g, lookup = serve_step(kind, h.get(),
+                                           dimb.get(stream), sess)
+            finally:
+                h.close()
+            groups.append(g)
+            lookups.append(lookup)
+        return groups, lookups, time.perf_counter() - t0, upload_s
+    return q
+
+
+def serve_wave(max_concurrent, base, host, dimb, est, device=None):
+    """One wave: every stream, on a thread of its own, submits its
+    queries one after another (a tenant waits for its answer), so at
+    most one query a stream is in flight.  Returns each query's result,
+    its submit-to-answer seconds, the wave's wall seconds and whether
+    ``shutdown()`` came back clean."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch.serve import ServeRuntime
+
+    rt = ServeRuntime(max_concurrent=max_concurrent, task_id_base=base)
+    outs, e2e, sessions, errors = {}, {}, {}, {}
+
+    def drive(i):
+        try:
+            for k in range(SERVE_QUERIES):
+                t0 = time.perf_counter()
+                sess = rt.submit(serve_query(i, k, host, dimb, device),
+                                 est_bytes=est, tenant=f"stream-{i}")
+                sessions[(i, k)] = sess
+                outs[(i, k)] = sess.result(timeout=SERVE_WAIT_S)
+                e2e[(i, k)] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 - reported by the phase
+            errors[i] = repr(e)
+
+    threads = [threading.Thread(target=drive, args=(i,), daemon=True)
+               for i in range(SERVE_STREAMS)]
+    t0 = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SERVE_WAIT_S)
+    finally:
+        clean = rt.shutdown()
+    wall = time.perf_counter() - t0
+    check(not errors, f"serve wave x{max_concurrent}: {errors}")
+    statuses = sorted({s.status for s in sessions.values()})
+    check(statuses == ["done"], f"serve wave x{max_concurrent}: "
+          f"statuses {statuses}")
+    return outs, e2e, sessions, wall, clean
+
+
+def serve_expected_counts(host, dimb, device=None):
+    """Each step kind's launches, measured once: q6's step, q95's hash
+    join step, q9's first (compiling) step and a cache-hit step."""
+    class _Sess:
+        def pin_plan(self, key):
+            pass
+
+    per = {}
+    for i, kind in enumerate(SERVE_KINDS):
+        if kind in per:
+            continue
+        b = serve_upload(kind, host[(i, 0)], device)
+        close_serve_plans()
+        _, per[kind], _ = driven(serve_step, kind, b, dimb.get(i), _Sess())
+        if kind == "q9":
+            _, per["q9_hit"], _ = driven(serve_step, kind, b, dimb.get(i),
+                                         _Sess())
+        del b
+    close_serve_plans()
+    want = no_kernels()
+    for i, kind in enumerate(SERVE_KINDS):
+        n_steps = SERVE_QUERIES * SERVE_STEPS
+        if kind == "q9":
+            parts = [(per["q9"], 1), (per["q9_hit"], n_steps - 1)]
+        else:
+            parts = [(per[kind], n_steps)]
+        for counts, times in parts:
+            for key, v in counts.items():
+                want[key] += v * times
+    return want, per
+
+
+def phase_serve_tenants(n=None, device=None):
+    """The reference's ``bench.py --serve`` (``bench.py:583-700``) at the
+    main path's width: 4 tenant streams of 3 queries of 2 steps, each
+    step's 2^24-row input a ``SpillableHandle`` charged to the tenant's
+    ``TaskContext`` (``est_bytes`` one batch); streams 0-1 q6's one-hot
+    step, stream 2 q95 through the hash join, stream 3 ``plan.execute``
+    of q9 with the plan pinned on the shared cache.  The arena holds
+    one batch a stream plus one, the spill framework is installed.  A
+    solo wave (``max_concurrent=1``), then a concurrent one (4), each
+    from an empty plan cache: every result against its numpy oracle and
+    solo equal to concurrent (ints exact, floats rel 1e-5), every q9
+    query after a stream's first a cache hit, ``shutdown()`` clean, the
+    arenas at 0 and no spill file left, and each wave's K1, K2, K3
+    record and K3 probe launches exactly those of its steps."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch.mem import (
+        RmmSpark, batch_nbytes, install_spill_framework,
+        shutdown_spill_framework)
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+
+    n = n or N_FACT
+    t0 = time.perf_counter()
+    host, oracle, dims = serve_inputs(n)
+    inputs_s = time.perf_counter() - t0
+    dimb = serve_dim_batches(dims, device)
+    est = batch_nbytes(serve_upload("q6", host[(0, 0)], device))
+    want, per_step = serve_expected_counts(host, dimb, device)
+    pool = est * (SERVE_STREAMS + 1)
+    fw = install_spill_framework()
+    spill_dir = fw.spill_dir
+    adaptor = RmmSpark.set_event_handler(pool, host_pool_bytes=est,
+                                         poll_ms=10.0)
+    # solo queues the whole wave behind one slot
+    config.set("serve_admit_timeout_s", SERVE_WAIT_S)
+    waves, total = {}, no_kernels()
+    try:
+        for label, conc, base in (("solo", 1, 30_000),
+                                  ("concurrent", SERVE_STREAMS, 40_000)):
+            close_serve_plans()
+            torch.cuda.synchronize()
+            KER.reset_launches()
+            outs, e2e, sessions, wall, clean = serve_wave(
+                conc, base, host, dimb, est, device)
+            torch.cuda.synchronize()
+            counts = dict(KER.launches)
+            drained = (adaptor.total_allocated(),
+                       adaptor.host_total_allocated())
+            close_serve_plans()
+            for key, v in counts.items():
+                total[key] += v
+            check(clean, f"serve_tenants {label}: shutdown() not clean")
+            check(drained == (0, 0),
+                  f"serve_tenants {label}: arenas left at {drained}")
+            for key in ("onehot_groupby", "slot_table_build",
+                        "slot_table_records", "slot_table_probe"):
+                check(counts[key] == want[key],
+                      f"serve_tenants {label}: {counts[key]} {key} "
+                      f"launches, expected {want[key]}")
+            worst = 0.0
+            for (i, k), (groups, lookups, _, _) in outs.items():
+                kind = SERVE_KINDS[i]
+                for s, g in enumerate(groups):
+                    worst = max(worst, groups_agree(
+                        g, oracle[(i, s)], SERVE_FLOATS[kind],
+                        f"serve_tenants {label} stream {i} query {k} "
+                        f"step {s}"))
+                if kind == "q9":
+                    hits = lookups if k else lookups[1:]
+                    check(all(x == "hit" for x in hits),
+                          f"serve_tenants {label}: q9 query {k} lookups "
+                          f"{lookups}")
+            lat = [o[2] for o in outs.values()]
+            rows = n * len(outs) * SERVE_STEPS
+            waves[label] = {
+                "max_concurrent": conc, "queries": len(outs),
+                "p50_ms": _pct(lat, 0.5) * 1e3,
+                "p99_ms": _pct(lat, 0.99) * 1e3,
+                "e2e_p50_ms": _pct(list(e2e.values()), 0.5) * 1e3,
+                "e2e_p99_ms": _pct(list(e2e.values()), 0.99) * 1e3,
+                "wall_ms": wall * 1e3, "mrows_per_s": rows / wall / 1e6,
+                "upload_share": sum(o[3] for o in outs.values())
+                / sum(lat),
+                "granted_bytes": sorted({s.granted_bytes
+                                         for s in sessions.values()}),
+                "attempts": sorted({s.attempts for s in sessions.values()}),
+                "float_max_rel_err": worst, "launches": counts,
+                "results": outs}
+        left_files = os.listdir(spill_dir)
+        left_handles = len(fw.store)
+        spills = fw.metrics.snapshot()
+    finally:
+        config.reset("serve_admit_timeout_s")
+        close_serve_plans()
+        RmmSpark.clear_event_handler()
+        shutdown_spill_framework()
+    check(left_files == [], f"serve_tenants: spill files left {left_files}")
+    check(left_handles == 0, f"serve_tenants: {left_handles} handles left")
+    if len(waves) == 2:
+        solo, conc = waves["solo"]["results"], waves["concurrent"]["results"]
+        for key in solo:
+            kind = SERVE_KINDS[key[0]]
+            for s, (a, b) in enumerate(zip(solo[key][0], conc[key][0])):
+                groups_agree(b, a, SERVE_FLOATS[kind],
+                             f"serve_tenants concurrent vs solo {key} "
+                             f"step {s}")
+    for w in waves.values():
+        del w["results"]
+    emit({"phase": "serve_tenants", "rows_per_step": n,
+          "streams": list(SERVE_KINDS), "queries_per_stream": SERVE_QUERIES,
+          "steps_per_query": SERVE_STEPS, "batch_bytes": est,
+          "pool_bytes": pool, "inputs_s": inputs_s,
+          "launches_per_step": per_step, "expected_per_wave": want,
+          **waves, "transitions": spill_transitions(spills),
+          "card": nvidia_smi_line()})
+    return total
+
+
+def _parked(sess):
+    """Is ``sess``'s thread parked in the arena (blocked or BUFN)?"""
+    from spark_rapids_jni_tpu_torch.mem import RmmSpark, ThreadState
+
+    th = sess._thread
+    if th is None or th.ident is None:
+        return False
+    try:
+        st = RmmSpark.get_state_of(th.ident)
+    except Exception:  # noqa: BLE001 - not registered yet
+        return False
+    return st in (ThreadState.BLOCKED, ThreadState.BUFN,
+                  ThreadState.BUFN_WAIT, ThreadState.BUFN_THROW)
+
+
+def _poll(pred, timeout=30.0, interval=0.005):
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        if pred():
+            return True
+        time.sleep(interval)
+    return pred()
+
+
+def phase_serve_cancel(q6_arrays, n=None, device=None):
+    """Kill safety on the card with 2^24-row q6 batches: (1) tenant B
+    parked in the arena behind tenant A (an arena of 1.5 batches; A
+    holds its pinned input until released) is cancelled: B ends
+    ``cancelled``, A's result equals the oracle; (2) a query whose first
+    attempt outlives its ``timeout_s`` is re-admitted once and answers
+    right (``attempts == 2``); (3) a ``task_cancel`` rule at
+    ``serve_step`` ends its session ``cancelled``.  After each case both
+    arenas are at 0 and no spill file is left."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch import faultinj
+    from spark_rapids_jni_tpu_torch.mem import (
+        RmmSpark, SpillableHandle, batch_nbytes, install_spill_framework,
+        shutdown_spill_framework)
+    from spark_rapids_jni_tpu_torch.ops import kernels as KER
+    from spark_rapids_jni_tpu_torch.serve import (QueryCancelled,
+                                                  ServeRuntime)
+
+    n = n or q6_arrays[0].shape[0]
+    want = q6_oracle_groups(q6_arrays)
+    est = batch_nbytes(serve_upload("q6", q6_arrays, device))
+    cases, total = {}, no_kernels()
+
+    def q6_query(gate=None, hold_s=None):
+        from spark_rapids_jni_tpu_torch import pipelines as PL
+
+        def q(ctx, sess):
+            h = SpillableHandle(serve_upload("q6", q6_arrays, device),
+                                ctx=ctx, name=f"cancel-{sess.session_id}")
+            try:
+                with h.pinned():
+                    b = h.get()
+                    if gate is not None:
+                        gate.wait(SERVE_WAIT_S)
+                    if hold_s is not None and sess.attempts == 1:
+                        end = time.monotonic() + hold_s
+                        while time.monotonic() < end:
+                            sess._check_cancelled()
+                            time.sleep(0.01)
+                    return PL.result_groups(*PL.q6_step(b), "k")
+            finally:
+                h.close()
+        return q
+
+    def run_case(label, pool, body):
+        fw = install_spill_framework()
+        spill_dir = fw.spill_dir
+        adaptor = RmmSpark.set_event_handler(pool, host_pool_bytes=est,
+                                             poll_ms=10.0)
+        rt = ServeRuntime()
+        try:
+            torch.cuda.synchronize()
+            KER.reset_launches()
+            t0 = time.perf_counter()
+            info = body(rt, adaptor)
+            clean = rt.shutdown()
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = dict(KER.launches)
+            drained = (adaptor.total_allocated(),
+                       adaptor.host_total_allocated())
+            left = os.listdir(spill_dir)
+        finally:
+            rt.shutdown()
+            RmmSpark.clear_event_handler()
+            shutdown_spill_framework()
+        check(clean, f"serve_cancel {label}: shutdown() not clean")
+        check(drained == (0, 0),
+              f"serve_cancel {label}: arenas left at {drained}")
+        check(left == [], f"serve_cancel {label}: spill files left {left}")
+        for key, v in counts.items():
+            total[key] += v
+        cases[label] = {"wall_ms": wall * 1e3, "pool_bytes": pool,
+                        "launches": counts, **info}
+
+    def parked(rt, adaptor):
+        gate = threading.Event()
+        a = rt.submit(q6_query(gate=gate), est_bytes=est, tenant="A")
+        # A's input charged and pinned before B arrives
+        ok_a = _poll(lambda: a.status == "running"
+                     and adaptor.total_allocated() >= est)
+        b = rt.submit(q6_query(), est_bytes=est, tenant="B")
+        ok_b = _poll(lambda: _parked(b))
+        time.sleep(0.2)
+        t0 = time.perf_counter()
+        rt.cancel(b)
+        try:
+            b.result(timeout=30)
+            raised = None
+        except QueryCancelled as e:
+            raised = type(e).__name__
+        unwind_ms = (time.perf_counter() - t0) * 1e3
+        gate.set()
+        got = a.result(timeout=SERVE_WAIT_S)
+        groups_agree(got, want, ("avg_price",), "serve_cancel parked: A")
+        check(ok_a and ok_b, f"serve_cancel parked: A running {ok_a}, "
+              f"B parked {ok_b}")
+        check(raised == "QueryCancelled" and b.status == "cancelled",
+              f"serve_cancel parked: B ended {b.status} ({raised})")
+        check(a.status == "done", f"serve_cancel parked: A {a.status}")
+        return {"unwind_ms": unwind_ms, "b_status": b.status,
+                "b_granted_bytes": b.granted_bytes}
+
+    def timeout(rt, adaptor):
+        s = rt.submit(q6_query(hold_s=60.0), est_bytes=est,
+                      tenant="slow", timeout_s=2.0)
+        got = s.result(timeout=SERVE_WAIT_S)
+        groups_agree(got, want, ("avg_price",), "serve_cancel timeout")
+        check(s.status == "done" and s.attempts == 2,
+              f"serve_cancel timeout: {s.status} after {s.attempts} "
+              "attempts")
+        return {"attempts": s.attempts, "timeout_s": 2.0}
+
+    def injected(rt, adaptor):
+        with faultinj.scope({"faults": [{"match": "serve_step", "count": 1,
+                                         "fault": "task_cancel"}]}):
+            s = rt.submit(q6_query(), est_bytes=est, tenant="killed")
+            try:
+                s.result(timeout=SERVE_WAIT_S)
+                raised = None
+            except faultinj.TaskCancelled as e:
+                raised = type(e).__name__
+            fired = faultinj.fire_counts().get("serve_step", 0)
+        check(raised == "TaskCancelled" and s.status == "cancelled",
+              f"serve_cancel injected: {s.status} ({raised})")
+        check(fired == 1, f"serve_cancel injected: {fired} firings")
+        return {"status": s.status, "fired": fired}
+
+    run_case("parked", int(1.5 * est), parked)
+    run_case("timeout", 4 * est, timeout)
+    run_case("injected", 4 * est, injected)
+    want_k1 = {"parked": 1, "timeout": 1, "injected": 0}
+    for label, c in cases.items():
+        check(c["launches"]["onehot_groupby"] == want_k1[label],
+              f"serve_cancel {label}: {c['launches']['onehot_groupby']} "
+              f"K1 launches, expected {want_k1[label]}")
+    emit({"phase": "serve_cancel", "rows": n, "batch_bytes": est, **cases,
+          "card": nvidia_smi_line()})
+    return total
+
+
+def phase_serve_drain(fact, n_round=1 << 17):
+    """The drain lane on the card: ``exchange()`` of the q95 fact (2^24
+    rows keyed on ``k`` over ``ShardMesh(8)``, ``round_rows`` 2^17, so
+    two rounds or more) inside a tenant: ``rounds_overlapped >= 1`` and
+    the delivered arrays bit-identical to the same exchange with no
+    lane; then two tenants' exchanges at once, both identical to it.
+    The wall of each; every thread uses the default stream, so the
+    lane's overlap is on the host."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch.mem import RmmSpark
+    from spark_rapids_jni_tpu_torch.parallel.mesh import ShardMesh
+    from spark_rapids_jni_tpu_torch.serve import ServeRuntime
+    from spark_rapids_jni_tpu_torch.shuffle import (ShuffleRegistry,
+                                                    ShuffleService)
+
+    mesh = ShardMesh(P_SHARDS, device=fact["k"].device)
+
+    def run(ctx=None):
+        res = ShuffleService(mesh, registry=ShuffleRegistry()).exchange(
+            fact, key_names=["k"], round_rows=n_round, ctx=ctx)
+        torch.cuda.synchronize()
+        return res
+
+    run()  # warm
+    (plain, plain_counts, plain_s) = driven(run)
+    t0 = time.perf_counter()
+    run()
+    plain_again_s = time.perf_counter() - t0
+    check(plain.rounds >= 2, f"serve_drain: {plain.rounds} round(s)")
+    check(plain.rounds_overlapped == 0,
+          "serve_drain: rounds overlapped with no lane installed")
+    oracle = fact_oracle(fact)
+    same_multiset(plain, oracle, "serve_drain no lane")
+    adaptor = RmmSpark.set_event_handler(64 << 30, poll_ms=10.0)
+    out = {}
+    try:
+        rt = ServeRuntime()
+        try:
+            def q(ctx):
+                t0 = time.perf_counter()
+                res = run(ctx)
+                return res, time.perf_counter() - t0
+
+            torch.cuda.synchronize()
+            from spark_rapids_jni_tpu_torch.ops import kernels as KER
+
+            KER.reset_launches()
+            one = rt.submit(q, tenant="drain-1")
+            res1, s1 = one.result(timeout=SERVE_WAIT_S)
+            one_counts = dict(KER.launches)
+            same_result(res1, plain, "serve_drain lane vs no lane")
+            check(res1.rounds_overlapped >= 1,
+                  f"serve_drain: {res1.rounds_overlapped} rounds overlapped")
+            out["one_tenant"] = {"ms": s1 * 1e3,
+                                 "rounds_overlapped": res1.rounds_overlapped,
+                                 "launches": one_counts}
+            del res1
+            # two tenants at once: both rounds through the one lane
+            start = threading.Barrier(2)
+
+            def q2(ctx):
+                start.wait(60)
+                return q(ctx)
+
+            t0 = time.perf_counter()
+            pair = [rt.submit(q2, tenant=f"drain-{j}") for j in (2, 3)]
+            got = [s.result(timeout=SERVE_WAIT_S) for s in pair]
+            pair_s = time.perf_counter() - t0
+            for j, (res, s) in enumerate(got):
+                same_result(res, plain, f"serve_drain tenant {j} of two")
+            out["two_tenants"] = {
+                "wall_ms": pair_s * 1e3,
+                "each_ms": [s * 1e3 for _, s in got],
+                "rounds_overlapped": [r.rounds_overlapped for r, _ in got]}
+            del got, pair
+        finally:
+            check(rt.shutdown(), "serve_drain: shutdown() not clean")
+        drained = adaptor.total_allocated()
+    finally:
+        RmmSpark.clear_event_handler()
+    check(drained == 0, f"serve_drain: {drained} bytes left in the arena")
+    emit({"phase": "serve_drain", "rows": fact.num_rows, "shards": P_SHARDS,
+          "round_rows": n_round, "rounds": plain.rounds,
+          "capacity": plain.capacity, "no_lane_ms": plain_s * 1e3,
+          "no_lane_again_ms": plain_again_s * 1e3,
+          "no_lane_launches": plain_counts, **out,
+          "card": nvidia_smi_line()})
+    total = no_kernels()
+    for c in (plain_counts, out.get("one_tenant", {}).get("launches", {})):
+        for k, v in c.items():
+            total[k] += v
+    return total
+
+
+def _transport_pair(kind):
+    """A connected (writer, reader) transport pair: a Unix socket pair,
+    or a TCP loopback connection."""
+    import socket
+
+    from spark_rapids_jni_tpu_torch.serve import wire
+
+    if kind == "unix":
+        a, b = socket.socketpair(socket.AF_UNIX, socket.SOCK_STREAM)
+        return wire.wrap(a, "unix", role="wk"), wire.wrap(b, "unix",
+                                                          role="sup")
+    lst, addr = wire.listen("tcp", "127.0.0.1:0")
+    try:
+        wk = wire.connect("tcp", addr, role="wk")
+        conn, _ = lst.accept()
+    finally:
+        lst.close()
+    return wk, wire.wrap(conn, "tcp", role="sup")
+
+
+def _payload_over(plane, payload):
+    """``payload`` from a writer thread to this thread over ``plane``
+    (``shm``: a sealed memfd by SCM_RIGHTS over a Unix socket pair;
+    ``frames``: data frames over TCP loopback), verified against the
+    descriptor's chunk CRCs; returns the bytes read, the seconds from
+    the first stamp to the verified copy, and the ms of each piece (the
+    writer's CRC stamping and its memfd write or frame sends, the
+    reader's copy out or frame receipt, and its CRC verify)."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch.serve import data_plane as DP
+
+    writer, reader = _transport_pair("unix" if plane == "shm" else "tcp")
+    errors, pieces = [], {}
+
+    def ms_since(t0):
+        return (time.perf_counter() - t0) * 1e3
+
+    def write():
+        try:
+            t0 = time.perf_counter()
+            crcs = DP.chunk_crcs(payload, SERVE_SEGMENT)
+            pieces["stamp_ms"] = ms_since(t0)
+            desc = DP.build_descriptor(plane, DP.segment_name(0, 1, 0),
+                                       len(payload), "q6-columns",
+                                       SERVE_SEGMENT, crcs, 1)
+            t0 = time.perf_counter()
+            if plane == "shm":
+                fd = DP.make_segment(desc["seg"], payload)
+                DP.seal_segment(fd)
+                try:
+                    writer.send_with_fds({"op": "result", "desc": desc},
+                                         [fd])
+                finally:
+                    os.close(fd)
+            else:
+                writer.send({"op": "result", "desc": desc})
+                view = memoryview(payload)
+                for seq, off in enumerate(range(0, len(view),
+                                                SERVE_SEGMENT)):
+                    writer.send_data(1, seq, view[off:off + SERVE_SEGMENT])
+            pieces["write_ms"] = ms_since(t0)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    reader.settimeout(60.0)
+    t_start = time.perf_counter()
+    th = threading.Thread(target=write, daemon=True)
+    th.start()
+    try:
+        msg = reader.recv()
+        desc = msg["desc"]
+        DP.verify_epoch(desc, 1)
+        t0 = time.perf_counter()
+        if plane == "shm":
+            (fd,) = reader.take_fds(1)
+            try:
+                got = DP.read_segment(fd, desc)  # copy out, then verify
+            finally:
+                os.close(fd)
+            pieces["read_and_verify_ms"] = ms_since(t0)
+        else:
+            parts = []
+            while sum(len(p) for p in parts) < desc["size"]:
+                parts.append(reader.recv().payload)
+            got = b"".join(parts)
+            pieces["read_ms"] = ms_since(t0)
+            t0 = time.perf_counter()
+            DP.verify_chunks(got, desc)
+            pieces["verify_ms"] = ms_since(t0)
+        dt = time.perf_counter() - t_start
+    finally:
+        th.join(60)
+        writer.close()
+        reader.close()
+    check(not errors, f"serve_transports {plane}: {errors}")
+    return got, dt, pieces
+
+
+def phase_serve_transports(q6b):
+    """The fleet's transports on the host, a baseline for the fleet:
+    q6's 2^24-row column bytes (``.cpu()``) across the shm plane and the
+    frames plane, CRC-verified and byte-equal; the wire's small-frame
+    round trip over unix and tcp; 10^4 journal appends (each fsync'd)
+    and their replay."""
+    import shutil
+    import tempfile
+
+    from spark_rapids_jni_tpu_torch.serve import journal as J
+
+    payload = b"".join(q6b[c].data.cpu().numpy().tobytes()
+                       for c in ("k", "v", "price"))
+    out = {"payload_bytes": len(payload)}
+    for plane in ("shm", "frames"):
+        got, dt, pieces = _payload_over(plane, payload)
+        check(got == payload, f"serve_transports {plane}: bytes differ")
+        out[plane] = {"ms": dt * 1e3, "gb_per_s": len(payload) / dt / 1e9,
+                      **pieces}
+        del got
+    for kind in ("unix", "tcp"):
+        a, b = _transport_pair(kind)
+        try:
+            a.settimeout(10.0)
+            b.settimeout(10.0)
+            ping = {"op": "ping", "t": 0.5}
+            t0 = time.perf_counter()
+            ok = True
+            for i in range(SERVE_PINGS):
+                b.send(ping)
+                ok = ok and a.recv() == ping
+                a.send({"op": "pong", "t": i})
+                ok = ok and b.recv() == {"op": "pong", "t": i}
+            dt = time.perf_counter() - t0
+        finally:
+            a.close()
+            b.close()
+        check(ok, f"serve_transports {kind}: a round trip differed")
+        out[f"wire_{kind}"] = {"round_trips": SERVE_PINGS,
+                               "us_per_round_trip": dt / SERVE_PINGS * 1e6}
+    root = tempfile.mkdtemp(prefix="srj_journal_")
+    try:
+        path = J.journal_path(root)
+        j = J.SessionJournal(path)
+        t0 = time.perf_counter()
+        try:
+            for sid in range(SERVE_JOURNAL):
+                j.append("submit", sid=sid, kind="q6",
+                         params={"rows": 1 << 24}, tenant=f"t{sid % 4}",
+                         est_bytes=1 << 28)
+        finally:
+            j.close()
+        append_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state = J.replay(path)
+        replay_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(state.records == SERVE_JOURNAL and len(state.sessions)
+          == SERVE_JOURNAL and not state.truncated_tail,
+          f"serve_transports journal: {state.records} records replayed")
+    out["journal"] = {"records": SERVE_JOURNAL, "bytes": size,
+                      "append_ms": append_s * 1e3,
+                      "appends_per_s": SERVE_JOURNAL / append_s,
+                      "replay_ms": replay_s * 1e3,
+                      "replayed_per_s": SERVE_JOURNAL / replay_s}
+    emit({"phase": "serve_transports", **out, "card": nvidia_smi_line()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an "
@@ -6012,6 +6826,12 @@ def main() -> int:
         breadth("parquet_nested", phase_parquet_nested, q6_arrays, pq_root)
     finally:
         shutil.rmtree(pq_root, ignore_errors=True)
+    # the serving runtime (serve/): four tenants' q6, q95 and q9, kill
+    # safety, the shared drain lane, and the fleet's transports
+    breadth("serve_tenants", phase_serve_tenants)
+    breadth("serve_cancel", phase_serve_cancel, q6_arrays)
+    breadth("serve_drain", phase_serve_drain, fact)
+    guarded("serve_transports", phase_serve_transports, q6b)
 
     kernels = []
     for name, lst in cases.items():

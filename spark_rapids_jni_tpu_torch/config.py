@@ -220,6 +220,35 @@ _register("spill_codec", "off", str,
 _register("mem_pool_bytes", 0, int,
           "Default logical device-memory arena size for "
           "RmmSpark.set_event_handler (0 = the caller must pass one).")
+_register("serve_max_concurrent", 4, int,
+          "Admission slots of the serving runtime (serve/runtime.py): "
+          "how many tenant queries may hold a TaskContext at once; the "
+          "rest wait in the admission queue (their wait is visible to "
+          "the deadlock scan via ThreadStateRegistry).")
+_register("serve_admit_timeout_s", 30.0, float,
+          "Max seconds a submitted query may wait in the admission "
+          "queue before failing with QueryTimeout (per admission "
+          "attempt; re-admissions get a fresh window).")
+_register("serve_stall_break_ms", 2000.0, float,
+          "Serving-mode watchdog escalation: threads continuously "
+          "blocked past this are treated as a cross-tenant deadlock "
+          "cycle even while other tenants keep running, and the "
+          "lowest-priority one is rolled back (RetryOOM).  0 disables; "
+          "armed by ServeRuntime on construction.")
+_register("serve_max_readmissions", 2, int,
+          "How many times a query killed by its own timeout is backed "
+          "off and re-admitted before QueryTimeout surfaces (external "
+          "cancels never re-admit).")
+_register("serve_backoff_ms", 50.0, float,
+          "Base backoff between a query's timeout kill and its "
+          "re-admission, doubled per attempt (serve/runtime.py).")
+_register("serve_data_plane", "auto", str,
+          "How result payloads cross a process boundary "
+          "(serve/data_plane.py): 'shm' (a sealed memfd passed by "
+          "SCM_RIGHTS; unix transport only), 'frames' (MSB-flagged "
+          "binary frames on the socket), 'json' (base64 in the message, "
+          "refused past the control-frame cap) or 'auto' (shm on unix, "
+          "frames on tcp).")
 
 
 def knob_fingerprint() -> tuple:

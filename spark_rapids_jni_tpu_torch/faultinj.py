@@ -31,10 +31,16 @@ at them, with a probability, a count and a skip.
   at the shuffle store's pre-rename probe (``store_commit``; the write
   is torn) and ``"store_corrupt"`` :class:`StoreCorruptionError` at its
   post-commit probe (``store_corrupt_file``; the store flips bytes in a
-  chunk it just committed).  The reference's other kinds (serving
-  fleet, network, cache, journal) belong to paths the port does not
-  carry yet: a rule naming one raises ``not_ported`` (ROADMAP item
-  17), an unknown kind ``ValueError``.
+  chunk it just committed); ``"task_cancel"`` :class:`TaskCancelled`
+  at any boundary (the serving runtime unwinds the session as if
+  cancelled); ``"net_drop"``/``"net_stall"``/``"net_torn"`` at a
+  transport's ``net_send_<role>``/``net_recv_<role>`` probes (the
+  transport turns each into real wire damage); ``"shm_torn"`` and
+  ``"shm_stale"`` for the data plane; ``"supervisor_crash"`` and
+  ``"journal_torn"`` at the session journal's probes.  The reference's
+  other kinds belong to paths the port does not carry yet: a rule
+  naming one raises ``not_ported`` with the ROADMAP item that brings
+  it (:data:`UNPORTED_KINDS`), an unknown kind ``ValueError``.
 * ``dynamic: true`` re-reads the file when its mtime changes.
 
 Observability (reset by :func:`configure` / :func:`reset_stats`):
@@ -117,6 +123,56 @@ class StoreCorruptionError(OSError):
     caller's lineage."""
 
 
+class TaskCancelled(RuntimeError):
+    """Injected tenant kill (kind ``"task_cancel"``): the serving runtime
+    (``serve/runtime.py``) treats it exactly like an external
+    ``ServeRuntime.cancel()`` arriving at that boundary: the session
+    unwinds kill-safe (arena drained, spill files deleted, plan-cache
+    pins released) and reports itself cancelled."""
+
+
+class NetDropError(ConnectionError):
+    """The link dropped (kind ``"net_drop"``), raised at a transport's
+    ``net_send_<role>``/``net_recv_<role>`` probe (serve/wire.py); the
+    transport turns it into a real closed socket."""
+
+
+class NetStallError(OSError):
+    """The link stalled (kind ``"net_stall"``): the transport sleeps past
+    its frame deadline, then drops the connection like ``net_drop``."""
+
+
+class NetTornError(ConnectionError):
+    """A frame tore on the wire (kind ``"net_torn"``): on send the
+    transport writes the header and half the payload and closes; on recv
+    the frame already read is discarded and the link closed."""
+
+
+class ShmTornError(OSError):
+    """A data-plane payload tore after its CRC stamp (kind
+    ``"shm_torn"``): the writer flips bytes in the already-stamped
+    segment, and the reader's per-chunk CRC check must catch it."""
+
+
+class ShmStaleError(OSError):
+    """A prior generation's segment resurfaced (kind ``"shm_stale"``):
+    the writer stamps the descriptor with the previous fence epoch, and
+    the reader's epoch check must reject it."""
+
+
+class SupervisorCrash(RuntimeError):
+    """The supervisor died abruptly (kind ``"supervisor_crash"``), raised
+    at the session journal's ``journal_append``/``journal_replay`` probes
+    (serve/journal.py) before the record is written or folded."""
+
+
+class JournalTornError(OSError):
+    """The journal record just appended tore (kind ``"journal_torn"``):
+    the journal truncates the tail of the record it just wrote, before
+    any fsync, then re-raises, because a torn tail exists only when the
+    writer died mid-write."""
+
+
 def _raise_exception(name: str):
     raise InjectedFault(f"injected exception at {name}")
 
@@ -155,6 +211,38 @@ def _raise_store_corrupt(name: str):
     raise StoreCorruptionError(f"injected store corruption at {name}")
 
 
+def _raise_task_cancel(name: str):
+    raise TaskCancelled(f"injected task cancel at {name}")
+
+
+def _raise_net_drop(name: str):
+    raise NetDropError(f"injected link drop at {name}")
+
+
+def _raise_net_stall(name: str):
+    raise NetStallError(f"injected link stall at {name}")
+
+
+def _raise_net_torn(name: str):
+    raise NetTornError(f"injected torn frame at {name}")
+
+
+def _raise_shm_torn(name: str):
+    raise ShmTornError(f"injected torn shared-memory payload at {name}")
+
+
+def _raise_shm_stale(name: str):
+    raise ShmStaleError(f"injected stale segment descriptor at {name}")
+
+
+def _raise_supervisor_crash(name: str):
+    raise SupervisorCrash(f"injected supervisor crash at {name}")
+
+
+def _raise_journal_torn(name: str):
+    raise JournalTornError(f"injected torn journal record at {name}")
+
+
 FAULT_KINDS = {
     "exception": _raise_exception,
     "oom": _raise_oom,
@@ -165,15 +253,23 @@ FAULT_KINDS = {
     "host_corrupt": _raise_host_corrupt,
     "store_commit": _raise_store_commit,
     "store_corrupt": _raise_store_corrupt,
+    "task_cancel": _raise_task_cancel,
+    "net_drop": _raise_net_drop,
+    "net_stall": _raise_net_stall,
+    "net_torn": _raise_net_torn,
+    "shm_torn": _raise_shm_torn,
+    "shm_stale": _raise_shm_stale,
+    "supervisor_crash": _raise_supervisor_crash,
+    "journal_torn": _raise_journal_torn,
 }
 
-# the reference's kinds whose paths the port does not carry yet
-UNPORTED_KINDS = (
-    "task_cancel", "worker_crash", "worker_stall", "net_drop", "net_stall",
-    "net_torn", "shm_torn", "shm_stale", "cache_stale", "cache_corrupt",
-    "scale_up_fail", "drain_stuck", "zone_map_corrupt", "supervisor_crash",
-    "journal_torn",
-)
+# the reference's kinds whose paths the port does not carry yet, each
+# with the ROADMAP item that brings its path
+UNPORTED_KINDS = {
+    "worker_crash": 16, "worker_stall": 16, "cache_stale": 16,
+    "cache_corrupt": 16, "scale_up_fail": 16, "drain_stuck": 16,
+    "zone_map_corrupt": 17,
+}
 
 
 class _Rule:
@@ -188,7 +284,8 @@ class _Rule:
             raise ValueError(f"skip must be >= 0, got {self.skip}")
         self.fault = spec.get("fault", "exception")
         if self.fault in UNPORTED_KINDS:
-            raise not_ported(f"fault kind {self.fault}", 17)
+            raise not_ported(f"fault kind {self.fault}",
+                             UNPORTED_KINDS[self.fault])
         if self.fault not in FAULT_KINDS:
             raise ValueError(f"unknown fault kind {self.fault!r}; known: "
                              f"{sorted(FAULT_KINDS)}")

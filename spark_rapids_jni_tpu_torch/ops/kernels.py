@@ -36,6 +36,7 @@ every size.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
@@ -49,6 +50,8 @@ from . import _build
 launches: Dict[str, int] = {"onehot_groupby": 0, "onehot_groupby_parts": 0,
                             "slot_table_build": 0, "slot_table_records": 0,
                             "slot_table_probe": 0, "partition_scatter": 0}
+# serving tenants launch from several threads at once
+_launches_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,8 +89,15 @@ _bound: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _launches_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of ``name``'s kernel."""
+    with _launches_lock:
+        launches[name] += 1
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -200,7 +210,7 @@ def onehot_groupby_parts(bucket, int_payload, float_payload, domain: int):
             of.data_ptr() if mf else None, n, mi, mf, domain, dtile,
             rows_per_block, _stream(bucket))
     _check(rc, lib, "srj_onehot_error_string", what)
-    launches["onehot_groupby_parts"] += 1
+    _count("onehot_groupby_parts")
     return oi, of
 
 
@@ -401,7 +411,7 @@ def onehot_groupby_columns(key, key_valid, row_live, cols, int_sums,
         nc, ni, nf, nd, oi.data_ptr(), of.data_ptr(), overflow.data_ptr(),
         n, K, dtile, _dev_index(dev), _stream(key))
     _check(rc, lib, "srj_onehot_error_string", what)
-    launches["onehot_groupby"] += 1
+    _count("onehot_groupby")
     return oi, of, overflow
 
 
@@ -519,7 +529,7 @@ def slot_table_build(words: Sequence[torch.Tensor], live: torch.Tensor,
                             min(mr, _INT32_MAX), _dev_index(dev),
                             _stream(live))
     _check(rc, lib, "srj_slot_error_string", what)
-    launches["slot_table_build"] += 1
+    _count("slot_table_build")
     return owner, slot, overflow
 
 
@@ -652,7 +662,7 @@ def slot_table_records(owner: torch.Tensor, build_words) -> SlotRecords:
         rc = lib.srj_slot_records(owner.data_ptr(), ptrs, W, rec.data_ptr(),
                                   bound.data_ptr(), S, n, _stream(owner))
     _check(rc, lib, "srj_slot_error_string", what)
-    launches["slot_table_records"] += 1
+    _count("slot_table_records")
     return SlotRecords(rec, bound, n, W)
 
 
@@ -720,7 +730,7 @@ def slot_table_probe_records(recs: SlotRecords, probe_words,
                             min(max(mr, 0), _INT32_MAX), int(smem),
                             _dev_index(dev), _stream(live))
     _check(rc, lib, "srj_slot_error_string", what)
-    launches["slot_table_probe"] += 1
+    _count("slot_table_probe")
     return found, slot
 
 
@@ -965,7 +975,7 @@ class PartitionScatter:
             pid.data_ptr(), base.data_ptr(), self._dir.data_ptr(), S, P,
             self.C, M, r_lo, r_hi, self._dev, self._stream)
         _check(rc, self._lib, "srj_partition_scatter_error_string", what)
-        launches["partition_scatter"] += 1
+        _count("partition_scatter")
 
 
 def partition_scatter_mapped(rounds, morsel_leaves, pid, base, P: int,

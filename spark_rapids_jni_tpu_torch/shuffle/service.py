@@ -79,9 +79,18 @@ process holds its global arrays).  On ranks the stream adopts a round
 only when every rank can (an all-reduce of the verdicts), and a received
 chunk's re-drive, a collective the other ranks are not in, is not
 available: a rank recovers a lost received chunk only from the store,
-else the loss raises :class:`ShuffleError`.  The reference's shared
-drain lane belongs to the serving fleet (ROADMAP item 16); rounds run
-one after another.
+else the loss raises :class:`ShuffleError`.
+
+The shared drain lane (:func:`install_drain_lane`, installed by
+``serve/runtime.py``): with a lane installed, :meth:`ShuffleService.
+exchange` pipelines its rounds at depth 1, round r+1 running on the lane
+thread while the calling thread wraps round r's chunk, and one lane
+serves every tenant.  Every task shares the device's default stream,
+so a lane round and a tenant's own work are ordered on the device: the
+overlap is on the host.  On a :class:`~..parallel.mesh.ProcessMesh` the
+rounds stay sequential: each round is a collective every rank must
+enter in the same order, and the reference, one process holding every
+device, has no such case.
 """
 
 from __future__ import annotations
@@ -125,6 +134,24 @@ _io_probe = faultinj.instrument(lambda: None, "shuffle_io_round")
 
 _IO_RETRIES = 3  # bounded re-drives of one round on transport faults
 
+# The serving runtime's shared drain lane.  The contract:
+# ``submit(task_id, fn)`` returns a Future whose ``result()`` re-raises;
+# ``task_id`` attributes the lane thread's arena charges (and its place
+# in the deadlock scan) to the tenant that owns the round.
+_drain_lane = [None]
+
+
+def install_drain_lane(lane) -> None:
+    _drain_lane[0] = lane
+
+
+def clear_drain_lane() -> None:
+    _drain_lane[0] = None
+
+
+def get_drain_lane():
+    return _drain_lane[0]
+
 
 @dataclass
 class ShuffleResult:
@@ -165,6 +192,18 @@ def _concat_rounds(chunks, L: int):
         out.append(torch.stack([p.reshape((L, -1) + rest) for p in parts],
                                dim=1).reshape((-1,) + rest))
     return out
+
+
+def _on_device(dev: torch.device, fn):
+    """``fn`` made to run with ``dev`` current on whichever thread calls
+    it (the lane thread's current CUDA device is its own)."""
+    if dev.type != "cuda":
+        return fn
+
+    def run():
+        with torch.cuda.device(dev):
+            return fn()
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -579,11 +618,44 @@ class ShuffleService:
         def adopt_round(name):
             return lambda: store.adopt(store_key, name, mesh.device)
 
+        lane = get_drain_lane()
+        overlapped = [0]
+
+        def rounds():
+            # depth 1 on the shared lane: round r+1 is in flight on the
+            # lane thread while round r's chunk is wrapped here.  With no
+            # lane, one round, or ranks (each round a collective), the
+            # rounds run one after another on this thread.
+            if lane is None or plan.rounds <= 1 or not mesh.holds_all:
+                for r in range(plan.rounds):
+                    yield (r, *self._run_round(drive, r))
+                return
+            owner = getattr(ctx, "task_id", None)
+            pending = []
+            try:
+                for r in range(plan.rounds):
+                    pending.append((r, lane.submit(owner, _on_device(
+                        dev, lambda rr=r: self._run_round(drive, rr)))))
+                    if len(pending) == 2:
+                        rr, fut = pending.pop(0)
+                        overlapped[0] += 1
+                        yield (rr, *fut.result())
+                while pending:
+                    rr, fut = pending.pop(0)
+                    yield (rr, *fut.result())
+            finally:
+                # the consumer bailed: drop the queued rounds, and let a
+                # running one finish before the map output closes (its
+                # error, if any, yields to the consumer's own)
+                for _, fut in pending:
+                    if not fut.cancel():
+                        fut.exception()
+
         chunks = []
+        drained = rounds()
         try:
             received = torch.zeros((1,), dtype=torch.int64, device=dev)
-            for r in range(plan.rounds):
-                out, occ_t = self._run_round(drive, r)
+            for r, out, occ_t in drained:
                 name = _shard_name(mesh, f"{round_tag}-{r}")
                 if store is not None:
                     store.put(store_key, name, (out, occ_t))
@@ -621,6 +693,7 @@ class ShuffleService:
             final_batch = rebatch(like, merged[:-1])
             final_occ = merged[-1]
         finally:
+            drained.close()  # drops rounds still queued on the lane
             map_buf.close()
             for c in chunks:
                 c.close()
@@ -644,6 +717,7 @@ class ShuffleService:
             bytes_moved=bytes_moved, skew_ratio=plan.skew_ratio,
             oob_rows=oob_total, spilled_bytes=spilled,
             recovered_partitions=recovered[0],
+            rounds_overlapped=overlapped[0],
             compressed_bytes_saved=compressed_saved)
 
     def exchange_stream(self, morsels,

@@ -7,6 +7,8 @@ runs on the CPU, where the one-hot group-by and slot-table wrappers run
 their plain versions.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,7 @@ from spark_rapids_jni_tpu_torch.relational import aggregate as TAgg
 
 from torch_parity import (MAX38, assert_col_equal, jdecimal, to_port,
                           unscaled)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-5  # the reference's f32x3 float-sum tolerance
 
@@ -558,23 +561,67 @@ def _assert_decimal_results(jr, jng, tr, tng):
         assert_col_equal(jr[name], tr[name], rows=g, msg=name)
 
 
+@functools.lru_cache(maxsize=None)
+def _general_inputs():
+    rng = np.random.default_rng(51)
+    jb = _decimal_batch(rng, 1500, 9)
+    return jb, rng.random(1500) > 0.1
+
+
+_GENERAL_AGGS = DEC_AGGS + DEC_MINMAX
+
+
+@functools.lru_cache(maxsize=None)
+def _general_reference(jengine):
+    """The reference's group-by on one engine, shared by every port
+    engine it is held against."""
+    jb, live = _general_inputs()
+    return jax.jit(lambda b, lv: JAgg.group_by(
+        b, ["k"], [JAgg.AggSpec(*a) for a in _GENERAL_AGGS], row_valid=lv,
+        engine=jengine))(jb, jnp.asarray(live))
+
+
+@functools.lru_cache(maxsize=None)
+def _general_port(engine):
+    jb, live = _general_inputs()
+    return TAgg.group_by(to_port(jb), ["k"],
+                         [TAgg.AggSpec(*a) for a in _GENERAL_AGGS],
+                         row_valid=torch.from_numpy(live), engine=engine)
+
+
+@functools.lru_cache(maxsize=None)
+def _keys_inputs():
+    rng = np.random.default_rng(52)
+    jb = _decimal_batch(rng, 1200, 5, overflow=False)
+    # few distinct prices so groups repeat
+    pv = rng.integers(-40, 40, 1200)
+    pn = rng.random(1200) < 0.05
+    return jb.with_column("p", jdecimal(
+        [None if z else int(x) * 25 for x, z in zip(pv, pn)], 7, 2))
+
+
+_KEYS_AGGS = [("sum", "d", "sd"), ("count", None, "c"), ("min", "d", "nd"),
+              ("max", "d", "xd"), ("sum", "v", "sv")]
+
+
+@functools.lru_cache(maxsize=None)
+def _keys_reference(key):
+    """The reference's sort-engine group-by on ``key``, shared by every
+    port engine it is held against."""
+    keys = key.split("+")
+    return jax.jit(lambda b: JAgg.group_by(
+        b, keys, [JAgg.AggSpec(*a) for a in _KEYS_AGGS],
+        engine="sort"))(_keys_inputs())
+
+
 class TestDecimalAggregates:
     @pytest.mark.parametrize("engine", ["sort", "kernel"])
     @pytest.mark.parametrize("jengine", ["sort", "scatter"])
     def test_general_engines(self, engine, jengine):
         """Exact 256-bit sums (overflowing groups null), Spark's bounded
         average, signed-128 min/max and counts, bit for bit."""
-        rng = np.random.default_rng(51)
-        jb = _decimal_batch(rng, 1500, 9)
-        live = rng.random(1500) > 0.1
-        aggs = DEC_AGGS + DEC_MINMAX
-        jr, jng = jax.jit(lambda b, lv: JAgg.group_by(
-            b, ["k"], [JAgg.AggSpec(*a) for a in aggs], row_valid=lv,
-            engine=jengine))(jb, jnp.asarray(live))
-        tr, tng = TAgg.group_by(to_port(jb), ["k"],
-                                [TAgg.AggSpec(*a) for a in aggs],
-                                row_valid=torch.from_numpy(live),
-                                engine=engine)
+        jr, jng = _general_reference(jengine)
+        tr, tng = _general_port(engine)
         _assert_decimal_results(jr, jng, tr, tng)
         sd = tr["sd"]
         keys = tr["k"].data[:int(tng)].tolist()
@@ -594,20 +641,9 @@ class TestDecimalAggregates:
     def test_decimal_keys(self, engine, key):
         """Group by decimal(7,2) (2 key words), decimal(38,2) (4) and a
         decimal-int composite, nulls first."""
-        rng = np.random.default_rng(52)
-        jb = _decimal_batch(rng, 1200, 5, overflow=False)
-        # few distinct prices so groups repeat
-        pv = rng.integers(-40, 40, 1200)
-        pn = rng.random(1200) < 0.05
-        jb = jb.with_column("p", jdecimal(
-            [None if z else int(x) * 25 for x, z in zip(pv, pn)], 7, 2))
-        keys = key.split("+")
-        aggs = [("sum", "d", "sd"), ("count", None, "c"),
-                ("min", "d", "nd"), ("max", "d", "xd"), ("sum", "v", "sv")]
-        jr, jng = jax.jit(lambda b: JAgg.group_by(
-            b, keys, [JAgg.AggSpec(*a) for a in aggs], engine="sort"))(jb)
-        tr, tng = TAgg.group_by(to_port(jb), keys,
-                                [TAgg.AggSpec(*a) for a in aggs],
+        jr, jng = _keys_reference(key)
+        tr, tng = TAgg.group_by(to_port(_keys_inputs()), key.split("+"),
+                                [TAgg.AggSpec(*a) for a in _KEYS_AGGS],
                                 engine=engine)
         _assert_decimal_results(jr, jng, tr, tng)
 

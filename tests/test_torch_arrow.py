@@ -18,6 +18,7 @@ from spark_rapids_jni_tpu_torch.columnar import encoded as E  # noqa: E402
 
 from torch_parity import assert_col_equal, assert_encoded_equal, \
     to_port  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

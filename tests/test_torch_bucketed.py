@@ -14,6 +14,7 @@ from spark_rapids_jni_tpu_torch.columnar.bucketed import (
 from spark_rapids_jni_tpu_torch.columnar.column import StringColumn
 
 from torch_parity import port_col
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 
 def same_buckets(jb, tb):

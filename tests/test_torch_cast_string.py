@@ -22,6 +22,8 @@ from spark_rapids_jni_tpu_torch.columnar import types as TT
 from spark_rapids_jni_tpu_torch.columnar.column import StringColumn
 from spark_rapids_jni_tpu_torch.ops import cast_string as TC
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
 EDGE = ["12", " -34 ", "20.5", "7.8.3", ".", "9223372036854775807",
         "-9223372036854775808", "9223372036854775808",
         "-9223372036854775809", "1 2", "+5", "-", "", "   ", "127", "128",

@@ -27,6 +27,8 @@ from spark_rapids_jni_tpu_torch.relational import filter as TF
 from spark_rapids_jni_tpu_torch.relational import gather as TG
 from spark_rapids_jni_tpu_torch.relational import keys as TK
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
 
 def to_port(jb):
     """A reference ColumnBatch carried across as host arrays."""

@@ -37,6 +37,7 @@ from spark_rapids_jni_tpu_torch.relational import AggSpec, group_by, \
     hash_join
 
 from torch_parity import assert_encoded_equal, port_col, to_port, u32
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 P8 = 8
 _CMP_OPS = ("<", "<=", "==", "!=", ">=", ">")

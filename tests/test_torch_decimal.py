@@ -41,6 +41,7 @@ from spark_rapids_jni_tpu_torch.relational import sort as TS
 
 from torch_parity import (MAX38, assert_col_equal, host_form, jdecimal,
                           port_col, to_port, unscaled)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

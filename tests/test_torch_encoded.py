@@ -13,6 +13,7 @@ arrays and accounting shard for shard.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +40,7 @@ from spark_rapids_jni_tpu_torch.relational.filter import (apply_mask,
                                                           predicate_mask)
 
 from torch_parity import assert_encoded_equal, port_col, to_port, u32
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 FLOAT_RTOL = 1e-5
 
@@ -629,7 +631,7 @@ class TestEncodedFlagships:
             for c in ("v", "price"):
                 np.testing.assert_array_equal(tb[c].data.numpy(),
                                               np.asarray(jb[c].data))
-            jr, jn = ge._q6str_step(jb)
+            jr, jn = jax.jit(ge._q6str_step)(jb)
             tr, tn = TP.q6str_step(tb)
             assert isinstance(tr["k"], E.DictionaryColumn)
             assert_results_equal("q6str_enc", jr, jn, tr, tn,
@@ -653,7 +655,7 @@ class TestEncodedFlagships:
         tf, td1, td2 = TP.q95_encoded_batches(n, device="cpu")
         for c in ("wh", "seg"):
             assert_encoded_equal(jf[c], tf[c], c)
-        jr, jn = ge._q95_encoded_step(jf, jd1, jd2)
+        jr, jn = jax.jit(ge._q95_encoded_step)(jf, jd1, jd2)
         tr, tn = TP.q95_encoded_step(tf, td1, td2)
         assert isinstance(tr["seg"], E.DictionaryColumn)
         assert_results_equal("q95_enc", jr, jn, tr, tn)
@@ -675,10 +677,11 @@ class TestEncodedFlagships:
         jv = ge._q95_encoded_variants(n, (19, 20))
         tv = TP.q95_encoded_variants(n, (19, 20), device="cpu")
         assert tv[0][0]["wh"].dict_token == tv[1][0]["wh"].dict_token
+        jstep = jax.jit(ge._q95_encoded_step)  # as bench.py runs it
         for (jf, jd1, jd2), (tf, td1, td2) in zip(jv, tv):
             for c in ("wh", "seg"):
                 assert_encoded_equal(jf[c], tf[c], c)
-            jr, jn = ge._q95_encoded_step(jf, jd1, jd2)
+            jr, jn = jstep(jf, jd1, jd2)
             tr, tn = TP.q95_encoded_step(tf, td1, td2)
             assert_results_equal("q95_enc_variant", jr, jn, tr, tn)
             pr, pn = plan.execute(Q.q95_plan(),

@@ -18,6 +18,7 @@ from spark_rapids_jni_tpu_torch.columnar.column import Column
 from spark_rapids_jni_tpu_torch.ops import float_to_string as TF
 
 import json_oracle
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 EDGES64 = [0.0, -0.0, np.nan, np.inf, -np.inf, 5e-324, -5e-324,
            2.2250738585072014e-308, 2.225073858507201e-308,

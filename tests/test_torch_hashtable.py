@@ -30,6 +30,8 @@ from spark_rapids_jni_tpu_torch.plan import adaptive as TA
 from spark_rapids_jni_tpu_torch.relational import hashtable as TH
 from spark_rapids_jni_tpu_torch.relational import keys as TK
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
 SKEWS = ("zipf", "allequal", "alldistinct")
 
 

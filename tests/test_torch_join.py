@@ -21,6 +21,7 @@ from spark_rapids_jni_tpu_torch.columnar.column import (Decimal128Column,
 from spark_rapids_jni_tpu_torch.relational import join as TJ
 
 from torch_parity import jdecimal, to_port, unscaled
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -12,6 +12,8 @@ and through every engine of the port: the serial scan machine
 must be bit-identical.  A seeded fuzz holds the port's engines against
 the oracle."""
 
+from concurrent import futures
+
 import numpy as np
 import pytest
 
@@ -26,6 +28,7 @@ from spark_rapids_jni_tpu_torch.ops import get_json_object as TG
 from spark_rapids_jni_tpu_torch.ops import json_fast as TF
 
 import json_oracle
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 WIDTH = 64
 
@@ -85,16 +88,23 @@ def reference():
     """Every (batch, path) through the JAX package's scan machine.  The
     three batches share one shape, so each path compiles once; at
     ``json_scan_unroll`` 1 the compile takes about half the default's
-    (2) time, and the machine's output is the same bytes."""
+    (2) time, and the machine's output is the same bytes.  The paths
+    compile on threads at once (XLA compiles outside the GIL)."""
+    def one_path(path):
+        out = {}
+        for name, docs in BATCHES.items():
+            r = jget(_jcol(docs), path)
+            out[name, path] = tuple(np.asarray(x) for x in
+                                    (r.chars, r.lengths, r.validity))
+        return out
+
     jconfig.set("json_fast_path", False)
     jconfig.set("json_scan_unroll", 1)
     try:
-        out = {}
-        for path in PATHS:
-            for name, docs in BATCHES.items():
-                r = jget(_jcol(docs), path)
-                out[name, path] = tuple(np.asarray(x) for x in
-                                        (r.chars, r.lengths, r.validity))
+        with futures.ThreadPoolExecutor(len(PATHS)) as pool:
+            out = {}
+            for part in pool.map(one_path, PATHS):
+                out.update(part)
         return out
     finally:
         jconfig.reset("json_fast_path")

@@ -41,6 +41,7 @@ from spark_rapids_jni_tpu_torch.relational.aggregate import AggSpec
 import torch
 
 from torch_parity import host_form, jdecimal, to_port, unscaled
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 P8 = 8
 RTOL = 1e-5

@@ -31,6 +31,8 @@ from spark_rapids_jni_tpu_torch.parallel.drive import (MESH, Hier, Op,
 from spark_rapids_jni_tpu_torch.parallel.mesh import ProcessMesh, ShardMesh
 from spark_rapids_jni_tpu_torch.relational.aggregate import AggSpec
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
 WORLD = 4
 BODY = "spark_rapids_jni_tpu_torch.parallel.drive:run_ops"
 

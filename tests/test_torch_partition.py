@@ -18,6 +18,8 @@ from spark_rapids_jni_tpu_torch.ops import hashing as THash
 from spark_rapids_jni_tpu_torch.parallel import partition as TP
 from spark_rapids_jni_tpu_torch.relational import keys as TK
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _pair(vals, valid, jt, tt):
     return (JColumn(jnp.asarray(vals), jnp.asarray(valid), jt),

@@ -19,6 +19,8 @@ from spark_rapids_jni_tpu.ops import pallas_kernels as PK
 
 from spark_rapids_jni_tpu_torch.ops import kernels as KER
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _lax_ref(chunk, occv, morsel, cnts, base, r, P, C):
     M = morsel[0].shape[0]

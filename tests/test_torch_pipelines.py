@@ -23,6 +23,8 @@ from spark_rapids_jni_tpu_torch import pipelines as TP
 from spark_rapids_jni_tpu_torch.columnar.column import batch_from_numpy
 from spark_rapids_jni_tpu_torch.ops import kernels as TKer
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5
 

@@ -5,6 +5,7 @@ and hit count bit for bit, clean and with dirty documents; and
 ``qstr_groupby_step`` against the same composition built from the JAX
 package's ``group_by``."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -23,6 +24,7 @@ from spark_rapids_jni_tpu_torch import pipelines as TP
 from spark_rapids_jni_tpu_torch.columnar.column import ColumnBatch
 
 import json_oracle
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 N = 256
 
@@ -41,14 +43,16 @@ def _jbatch(docs):
 @pytest.fixture(scope="module")
 def reference():
     """The JAX package's qstr step on the clean and the dirty batch (one
-    shape: one compile), at ``json_scan_unroll`` 1, whose compile is
-    shorter than the default's and whose output is the same bytes."""
+    shape: one compile), jitted as the reference's bench runs it, at
+    ``json_scan_unroll`` 1, whose compile is shorter than the default's
+    and whose output is the same bytes."""
     jconfig.set("json_scan_unroll", 1)
     try:
+        step = jax.jit(ge._qstr_step)
         jb = ge._qstr_batch(N)
-        tails, hits = ge._qstr_step(jb)
+        tails, hits = step(jb)
         dirty = TP.qstr_docs(N, dirty_every=7)
-        dtails, dhits = ge._qstr_step(_jbatch(dirty))
+        dtails, dhits = step(_jbatch(dirty))
     finally:
         jconfig.reset("json_scan_unroll")
     return jb, (tails, int(hits)), dirty, (dtails, int(dhits))

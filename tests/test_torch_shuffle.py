@@ -46,6 +46,7 @@ from spark_rapids_jni_tpu_torch.shuffle.buffers import (batch_leaves,
                                                         tree_nbytes)
 
 from torch_parity import jdecimal, to_port, unscaled
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 P8 = 8
 

@@ -27,6 +27,8 @@ from spark_rapids_jni_tpu_torch.columnar.column import (StringColumn,
                                                         batch_from_numpy)
 from spark_rapids_jni_tpu_torch.relational import sort as TS
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
 # the packages export a function ``window`` beside the module of that name
 JW = importlib.import_module("spark_rapids_jni_tpu.relational.window")
 TW = importlib.import_module("spark_rapids_jni_tpu_torch.relational.window")

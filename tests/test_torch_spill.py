@@ -72,6 +72,8 @@ from spark_rapids_jni_tpu_torch.relational import (hash_join,
 from spark_rapids_jni_tpu_torch.shuffle import (MorselSource,
                                                 ShuffleService, get_registry)
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
 MB = 1 << 20
 KB = 1 << 10
 P8 = 8
@@ -570,9 +572,9 @@ class TestSpillIOFault:
         faultinj._Rule({"match": "spill_io_*", "fault": "spill_io"})
         with pytest.raises(ValueError):
             faultinj._Rule({"fault": "bogus"})  # graftlint: disable=GL006
-        for kind in faultinj.UNPORTED_KINDS:
+        for kind, item in faultinj.UNPORTED_KINDS.items():
             assert kind in jfault.FAULT_KINDS
-            with pytest.raises(NotImplementedError, match="item 17"):
+            with pytest.raises(NotImplementedError, match=f"item {item}"):
                 faultinj._Rule({"fault": kind})
         # the exchange's and the shuffle store's kinds fire their own
         # errors, each an OSError as in the reference

@@ -37,6 +37,7 @@ from spark_rapids_jni_tpu_torch.shuffle.buffers import store_recompute
 from spark_rapids_jni_tpu_torch.shuffle.store import ShuffleStore
 
 from torch_parity import assert_col_equal, jdecimal, to_port, unscaled
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 

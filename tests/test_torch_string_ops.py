@@ -17,6 +17,8 @@ from spark_rapids_jni_tpu_torch.columnar.column import StringColumn
 from spark_rapids_jni_tpu_torch.ops import regex_rewrite as TR
 from spark_rapids_jni_tpu_torch.ops import strings as TS
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
 POOL = ["", "a", "abc", "amya123", "été", "a9b8", "ß-utf8-ä", "xa0ya",
         "日本語テキスト", "a" * 40, "0123456789", "𝄞a1", "aa11aa", "Z"]
 
