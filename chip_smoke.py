@@ -250,7 +250,21 @@ Phases, each printing one JSON line:
    tenants' at once; the wall of each); ``serve_transports`` (q6's
    column bytes over the shm plane and the frames plane, CRC-verified
    and byte-equal, the wire's small-frame round trip over unix and tcp,
-   10^4 fsync'd journal appends and their replay; ms and GB/s).
+   10^4 fsync'd journal appends and their replay; ms and GB/s);
+   ``serve_fleet`` (the serving fleet: a ``FrontDoor`` of 2 worker
+   processes on the card, unix transport, shm plane, and a 1-worker
+   fleet on the frames plane, started together; 4 tenants x 2 queries
+   of ``q6_result`` at 2^24 rows a step, 2 steps, each answer's groups
+   against this process's ``q6_step`` on the same seeds, ints exact and
+   floats rel 1e-5; the workers' K1 launches read from the workers;
+   ``arrow_batch`` at 2^20 rows over each plane, every buffer equal to
+   this process's ``make_result_batch`` through the codec; a
+   ``worker_crash`` in one worker during a q6 query: the replayable
+   session answered on the other worker and right, the non-replayable
+   one failed with ``WorkerLost``, the slot respawned; a clean
+   shutdown, no worker pid alive, the fleet directories gone; spawn to
+   hello s, query p50/p99, the wave's Mrows/s, each plane's GB/s end to
+   end and the crash-to-answer ms).
 
 It then prints one ``kernels`` line and, last, ``{"ok": true, "device":
 ...}``.  Any mismatch or exception exits nonzero without that line, as
@@ -263,6 +277,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -6566,6 +6581,318 @@ def phase_serve_transports(q6b):
     emit({"phase": "serve_transports", **out, "card": nvidia_smi_line()})
 
 
+FLEET_WORKERS = 2           # the fleet's worker processes
+FLEET_TENANTS = 4           # the wave: tenants,
+FLEET_QUERIES = 2           # ... q6_result queries a tenant
+FLEET_STEPS = 2             # ... and steps a query
+FLEET_PLANE_ROWS = 1 << 20  # arrow_batch rows over each plane
+FLEET_SETUP = "spark_rapids_jni_tpu_torch.serve.smoke_kinds"
+FLEET_LOSS_PROBE = "fleet_loss"  # the crash's probe (smoke_kinds)
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _fleet_healthy(fd, n, timeout):
+    def count():
+        with fd._lock:
+            return sum(1 for w in fd._workers.values()
+                       if w.state == "healthy")
+    return _poll(lambda: count() >= n, timeout, 0.05)
+
+
+def _raw_equal(a, b) -> bool:
+    a, b = a.detach().contiguous(), b.detach().contiguous()
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8).cpu(),
+        b.reshape(-1).view(torch.uint8).cpu())
+
+
+def _string_rows(col):
+    chars, lens = col.chars.cpu().numpy(), col.lengths.cpu().numpy()
+    return [chars[i, :lens[i]].tobytes() for i in range(len(lens))]
+
+
+def same_buffers(got, want, label, repadded=False):
+    """Every buffer of two port batches equal bit for bit (dictionary
+    strings and run-length runs compared as stored); ``repadded``: a
+    string dictionary's rows compared by their bytes, since Arrow ingest
+    pads its char matrix to 8 where encoding planned another width."""
+    from spark_rapids_jni_tpu_torch.columnar.encoded import (
+        DictionaryColumn, RunLengthColumn)
+
+    check(list(got.names) == list(want.names), f"{label}: columns differ")
+    for n in want.names:
+        g, w = got[n], want[n]
+        if isinstance(w, DictionaryColumn):
+            pairs = [(g.codes, w.codes),
+                     (g.dictionary.lengths, w.dictionary.lengths),
+                     (g.dictionary.validity, w.dictionary.validity)]
+            if repadded:
+                check(_string_rows(g.dictionary) == _string_rows(
+                    w.dictionary), f"{label}: dictionary of {n} differs")
+            else:
+                pairs.append((g.dictionary.chars, w.dictionary.chars))
+        elif isinstance(w, RunLengthColumn):
+            pairs = [(g.run_values, w.run_values),
+                     (g.run_lengths, w.run_lengths)]
+        else:
+            pairs = [(g.data, w.data)]
+        pairs.append((g.validity, w.validity))
+        check(type(g) is type(w) and all(_raw_equal(x, y)
+                                         for x, y in pairs),
+              f"{label}: column {n} differs")
+
+
+def phase_serve_fleet(n=None, device=None):
+    """The serving fleet (``serve/frontdoor.py``, ``serve/worker.py``) on
+    the card.  A ``FrontDoor`` of 2 workers (unix transport, shm plane,
+    ``smoke_kinds`` loaded) and a 1-worker fleet on the frames plane
+    start together.  The wave: 4 tenants x 2 queries of ``q6_result``,
+    2 steps of 2^24 rows each (K1 in the workers), every answer held
+    group by group against the numpy oracle on the same seeded arrays
+    (ints exact, floats rel 1e-5: K1's atomics move the last bits); the
+    workers' K1 launches read from the workers (``kernel_counts``).
+    ``arrow_batch`` at 2^20 rows over each plane, every buffer equal to
+    this process's ``make_result_batch`` through the codec.  Loss: a
+    ``worker_crash`` rule at ``fleet_loss``, which only a flagged
+    ``q6_result`` crosses, kills the worker running a replayable q6
+    query: that session is answered on the other worker and right, the
+    flagged non-replayable one fails with ``WorkerLost``, the slot
+    respawns.  Both fleets shut down clean, no worker pid alive, their
+    directories gone.  Returns the workers' launch counts."""
+    from spark_rapids_jni_tpu_torch import faultinj
+    from spark_rapids_jni_tpu_torch import pipelines as PL
+    from spark_rapids_jni_tpu_torch.columnar import arrow_ipc
+    from spark_rapids_jni_tpu_torch.mem import batch_nbytes
+    from spark_rapids_jni_tpu_torch.serve import (FrontDoor, WorkerLost,
+                                                  smoke_kinds)
+    from spark_rapids_jni_tpu_torch.serve import worker as W
+
+    n = n or N_FACT
+    dev = device or "cuda"
+    est = batch_nbytes(PL.example_batch(8, device=dev)) // 8 * n
+    # the crash rule reaches every worker at its spawn; only a flagged
+    # query crosses its probe, and a respawn inherits it spent
+    faultinj.configure({"faults": [{"match": FLEET_LOSS_PROBE,
+                                    "fault": "worker_crash", "count": 1}]})
+    pids, fleets, out, counts = set(), [], {}, no_kernels()
+    t0 = time.perf_counter()
+    try:
+        fd = FrontDoor(workers=FLEET_WORKERS, device=dev, setup=FLEET_SETUP,
+                       pool_bytes=est * 6, host_pool_bytes=est,
+                       transport="unix", data_plane_mode="shm")
+        fleets.append(fd)
+        ff = FrontDoor(workers=1, device=dev, pool_bytes=est,
+                       host_pool_bytes=est, transport="unix",
+                       data_plane_mode="frames")
+        fleets.append(ff)
+        if not (_fleet_healthy(fd, FLEET_WORKERS, SERVE_WAIT_S)
+                and _fleet_healthy(ff, 1, SERVE_WAIT_S)):
+            raise RuntimeError("serve_fleet: the workers did not all say "
+                               "hello")
+        out["start_s"] = time.perf_counter() - t0
+        out["spawn_to_hello_s"] = fd.hello_seconds + ff.hello_seconds
+        for f in fleets:
+            pids |= set(f.worker_pids().values())
+
+        # -- the wave: 4 tenants x 2 queries, all submitted at once
+        done_at = {}
+
+        def waiter(key, sess):
+            sess._done.wait(SERVE_WAIT_S)
+            done_at[key] = time.perf_counter()
+
+        sessions, submit_at, threads = {}, {}, []
+        t_wave = time.perf_counter()
+        for k in range(FLEET_QUERIES):
+            for i in range(FLEET_TENANTS):
+                submit_at[(i, k)] = time.perf_counter()
+                s = fd.submit("q6_result", {"rows": n, "stream": i,
+                                            "query": k,
+                                            "steps": FLEET_STEPS},
+                              tenant=f"tenant-{i}", est_bytes=est)
+                sessions[(i, k)] = s
+                th = threading.Thread(target=waiter, args=((i, k), s))
+                th.start()
+                threads.append(th)
+        for th in threads:
+            th.join(SERVE_WAIT_S)
+        wall = max(done_at.values()) - t_wave
+        lat = [done_at[key] - submit_at[key] for key in sessions]
+        answers = {key: smoke_kinds.step_groups(s.result(timeout=1.0))
+                   for key, s in sessions.items()}
+        worst = 0.0
+        for (i, k), groups in answers.items():
+            for st in range(FLEET_STEPS):
+                worst = max(worst, check_q6_groups(
+                    groups.get(st, {}),
+                    PL.example_arrays(n, W.q6_seed(i, k, st)),
+                    f"serve_fleet tenant {i} query {k} step {st}"))
+        rows = n * FLEET_STEPS * len(sessions)
+        out["wave"] = {
+            "queries": len(sessions), "rows": rows, "wall_ms": wall * 1e3,
+            "p50_ms": _pct(lat, 0.5) * 1e3, "p99_ms": _pct(lat, 0.99) * 1e3,
+            "mrows_per_s": rows / wall / 1e6,
+            "float_max_rel_err": worst,
+            "workers": sorted({s.worker_id for s in sessions.values()}),
+            "against_serve_tenants_mrows_per_s": {"solo": 56.2,
+                                                  "concurrent": 128.3}}
+
+        # -- the workers' launches, one answer per worker process
+        per_pid = {}
+        for i in range(FLEET_TENANTS):
+            got = fd.submit("kernel_counts", {},
+                            tenant=f"tenant-{i}").result(SERVE_WAIT_S)
+            per_pid[got["pid"]] = got["launches"]
+        for launches in per_pid.values():
+            for key in counts:
+                counts[key] += launches.get(key, 0)
+        # one K1 launch a step on the card; on the CPU the plain version
+        want_k1 = len(sessions) * FLEET_STEPS \
+            if torch.device(dev).type == "cuda" else 0
+        check(counts["onehot_groupby"] == want_k1,
+              f"serve_fleet: {counts['onehot_groupby']} K1 launches in the "
+              f"workers, expected {want_k1}")
+        out["worker_launches"] = {"per_worker": per_pid, "total": counts}
+
+        # -- the planes: arrow_batch over shm, then over frames; first the
+        # pieces in this process (the batch, its encode, the shm segment's
+        # write and its copy out + verify, the decode onto the card)
+        from spark_rapids_jni_tpu_torch.serve import data_plane as DP
+
+        t1 = time.perf_counter()
+        want = W.make_result_batch(FLEET_PLANE_ROWS, 7, dev)
+        _sync(dev)
+        t2 = time.perf_counter()
+        buf, fp = arrow_ipc.batch_to_ipc(want)
+        t3 = time.perf_counter()
+        desc = DP.build_descriptor("shm", "fleet-pieces", len(buf), fp,
+                                   SERVE_SEGMENT,
+                                   DP.chunk_crcs(buf, SERVE_SEGMENT), 0)
+        t4 = time.perf_counter()
+        seg = DP.make_segment("fleet-pieces", buf)
+        DP.seal_segment(seg)
+        t5 = time.perf_counter()
+        try:
+            payload = DP.read_segment(seg, desc)
+        finally:
+            os.close(seg)
+        t6 = time.perf_counter()
+        round_trip = arrow_ipc.ipc_to_batch(payload, fp, device=dev)
+        _sync(dev)
+        t7 = time.perf_counter()
+        check(payload == bytes(buf), "serve_fleet: the segment's bytes "
+              "differ")
+        out["planes"] = {"rows": FLEET_PLANE_ROWS, "payload_bytes": len(buf),
+                         "in_process_ms": {
+                             "make_result_batch": (t2 - t1) * 1e3,
+                             "encode": (t3 - t2) * 1e3,
+                             "stamp": (t4 - t3) * 1e3,
+                             "segment_write": (t5 - t4) * 1e3,
+                             "copy_out_and_verify": (t6 - t5) * 1e3,
+                             "decode_to_card": (t7 - t6) * 1e3},
+                         "against_serve_transports_gb_per_s": {"shm": 0.268,
+                                                   "frames": 0.274}}
+        for plane, f in (("shm", fd), ("frames", ff)):
+            before = f.metrics.snapshot()["data_payload_bytes"]
+            t1 = time.perf_counter()
+            got = f.submit("arrow_batch", {"rows": FLEET_PLANE_ROWS,
+                                           "seed": 7},
+                           tenant="plane").result(SERVE_WAIT_S)
+            _sync(dev)
+            dt = time.perf_counter() - t1
+            size = f.metrics.snapshot()["data_payload_bytes"] - before
+            check(size == len(buf), f"serve_fleet {plane}: {size} payload "
+                  f"bytes, the codec makes {len(buf)}")
+            same_buffers(got, round_trip, f"serve_fleet {plane}")
+            same_buffers(got, want, f"serve_fleet {plane} vs the original",
+                         repadded=True)
+            out["planes"][plane] = {"ms": dt * 1e3,
+                                    "gb_per_s": size / dt / 1e9}
+
+        # -- loss: a crash in the worker running a replayable q6 query
+        slot = sessions[(0, 0)].worker_id
+        with fd._lock:
+            victim = fd._workers[slot].proc.pid
+        # the replayable query pauses first, so it is in flight when the
+        # flagged one crosses the crash's probe
+        keep = fd.submit("q6_result", {"rows": n, "stream": 0, "query": 9,
+                                       "steps": FLEET_STEPS, "pause_s": 1.0},
+                         tenant="tenant-0", est_bytes=est, replayable=True)
+        check(_poll(lambda: keep.status == "running", SERVE_WAIT_S, 0.002),
+              "serve_fleet loss: the replayable query never ran")
+        t1 = time.perf_counter()
+        doomed = fd.submit("q6_result", {"rows": n, "stream": 0, "query": 8,
+                                         "steps": 1, "pause_s": 0.2,
+                                         "probe": FLEET_LOSS_PROBE},
+                           tenant="tenant-0", est_bytes=est,
+                           replayable=False)
+        lost = False
+        try:
+            doomed.result(SERVE_WAIT_S)
+        except WorkerLost:
+            lost = True
+        t_lost = time.perf_counter()
+        check(lost, "serve_fleet loss: the non-replayable query did not "
+              "fail with WorkerLost")
+        answer = smoke_kinds.step_groups(keep.result(SERVE_WAIT_S))
+        t_answer = time.perf_counter()
+        check(keep.replacements >= 1 and keep.worker_id != slot,
+              f"serve_fleet loss: the replayable query was not answered "
+              f"by the other worker ({keep.worker_id}, {keep.replacements} "
+              f"replacements)")
+        for st in range(FLEET_STEPS):
+            check_q6_groups(answer.get(st, {}),
+                            PL.example_arrays(n, W.q6_seed(0, 9, st)),
+                            f"serve_fleet loss step {st}")
+        check(fd.metrics.snapshot()["crashes"] == 1
+              and victim not in fd.worker_pids().values(),
+              "serve_fleet loss: the crash was not the one loss")
+        respawned = _poll(lambda: fd.metrics.snapshot()["respawns"] >= 1
+                          and _fleet_healthy(fd, FLEET_WORKERS, 0.0),
+                          SERVE_WAIT_S, 0.05)
+        check(respawned, "serve_fleet loss: the slot did not respawn")
+        pids |= set(fd.worker_pids().values())
+        out["loss"] = {"slot": slot, "detect_ms": (t_lost - t1) * 1e3,
+                       "crash_to_answer_ms": (t_answer - t_lost) * 1e3,
+                       "replacements": keep.replacements,
+                       "answered_by": keep.worker_id,
+                       "respawn_to_healthy_s": time.perf_counter() - t_answer}
+    finally:
+        reports = []
+        for f in fleets:
+            pids |= set(f.worker_pids().values())
+            reports.append(f.shutdown())
+        faultinj.configure({})
+    for f, rep in zip(fleets, reports):
+        pids |= {e["pid"] for e in rep["workers"].values()}
+        check(rep["clean"], f"serve_fleet: shutdown not clean: "
+              f"{rep['workers']}")
+        check(not os.path.exists(f.fleet_dir),
+              f"serve_fleet: {f.fleet_dir} left behind")
+    gone = _poll(lambda: not [p for p in pids if _pid_alive(p)], 30.0, 0.05)
+    check(gone, f"serve_fleet: worker pids alive after shutdown: "
+          f"{[p for p in pids if _pid_alive(p)]}")
+    out["fleet"] = {k: reports[0]["fleet"][k] for k in (
+        "workers_spawned", "respawns", "crashes", "replacements",
+        "worker_lost", "data_batches", "data_payload_bytes")}
+    out["phase_s"] = time.perf_counter() - t0
+    emit({"phase": "serve_fleet", "rows_per_step": n, "device": str(dev),
+          "workers": FLEET_WORKERS, **out, "card": nvidia_smi_line()})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an "
@@ -6832,6 +7159,9 @@ def main() -> int:
     breadth("serve_cancel", phase_serve_cancel, q6_arrays)
     breadth("serve_drain", phase_serve_drain, fact)
     guarded("serve_transports", phase_serve_transports, q6b)
+    # the serving fleet: worker processes on the card; its K1 launches
+    # are the workers'
+    breadth("serve_fleet", phase_serve_fleet)
 
     kernels = []
     for name, lst in cases.items():

@@ -6,6 +6,8 @@ from typing import Union
 
 _ITEMS = {
     16: "serving fleet",
+    "16d": "the serving fleet's autoscaling, quotas, result cache and "
+           "crash adoption",
     17: "tooling edges",
 }
 

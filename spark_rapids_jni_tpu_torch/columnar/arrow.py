@@ -7,9 +7,10 @@ buffers pad into the char matrix (:class:`~.column.StringColumn`); an
 Arrow dictionary array becomes a :class:`~.encoded.DictionaryColumn`
 (codes stay codes) when the ``encoded_execution`` knob resolves on for
 the target device.  :func:`batch_to_ipc` / :func:`ipc_to_batch` are a
-bit-exact round trip: every column ships all-valid beside a ``<name>;v``
-validity field, a dictionary column crosses as a ``DictionaryArray`` and
-a run-length column as a ``RunEndEncodedArray``, never decoded.
+bit-exact round trip (every column ships all-valid beside a ``<name>;v``
+validity field, a dictionary column crosses as a dictionary and a
+run-length column run-end encoded, never decoded); they are
+:mod:`.arrow_ipc`'s, which needs no pyarrow.
 
 This module imports pyarrow; nothing on the GPU path imports it
 (``columnar`` loads it on first use of ``from_arrow`` / ``to_arrow`` /
@@ -19,7 +20,6 @@ This module imports pyarrow; nothing on the GPU path imports it
 from __future__ import annotations
 
 import decimal as _d
-import hashlib
 from typing import Optional
 
 import numpy as np
@@ -28,6 +28,8 @@ import torch
 
 from ..device import resolve_device
 from . import types as T
+# the data plane's IPC codec, which needs no pyarrow
+from .arrow_ipc import batch_to_ipc, ipc_to_batch  # noqa: F401
 from .column import (Column, ColumnBatch, Decimal128Column, ListColumn,
                      StringColumn, StructColumn)
 
@@ -238,162 +240,3 @@ def to_arrow(batch: ColumnBatch) -> pa.Table:
     """A batch -> an Arrow table (encoded columns materialize)."""
     return pa.table({name: _column_to_array(batch[name])
                      for name in batch.names})
-
-
-# ---------------------------------------------------------------------------
-# the data plane's IPC codec: bit-exact, encodings kept
-# ---------------------------------------------------------------------------
-
-_ENC_META = b"sptpu.enc"
-_VKIND_META = b"sptpu.vkind"
-_VALIDITY_SUFFIX = ";v"
-
-
-def schema_fingerprint(schema: pa.Schema) -> str:
-    """Stable hex fingerprint of an IPC schema (fields + metadata)."""
-    return hashlib.sha256(schema.serialize().to_pybytes()).hexdigest()[:16]
-
-
-def _plain_values_array(data: np.ndarray, dtype: T.SparkType) -> pa.Array:
-    if dtype.kind is T.Kind.DATE:
-        return pa.array(data, type=pa.date32())
-    if dtype.kind is T.Kind.TIMESTAMP:
-        return pa.array(data, type=pa.timestamp("us", tz=dtype.tz or None))
-    return pa.array(data)
-
-
-def _binary_rows(col: StringColumn) -> pa.Array:
-    chars, lens = _np(col.chars), _np(col.lengths)
-    return pa.array([bytes(chars[i, :lens[i]]) for i in range(len(lens))],
-                    type=pa.binary())
-
-
-def _export_column(name: str, col):
-    """One column -> ``[(field, array), ...]`` (value, then validity)."""
-    from .encoded import PACKED_COLUMNS, DictionaryColumn, RunLengthColumn
-
-    if isinstance(col, PACKED_COLUMNS):
-        col = col.decode()  # lanes have no Arrow form
-
-    def companion(valid: np.ndarray):
-        f = pa.field(f"{name}{_VALIDITY_SUFFIX}", pa.bool_(),
-                     metadata={_ENC_META: b"validity"})
-        return f, pa.array(valid.astype(np.bool_))
-
-    if isinstance(col, DictionaryColumn):
-        d = col.dictionary
-        if isinstance(d, StringColumn):
-            values, vkind = _binary_rows(d), "string"
-        elif isinstance(d, Decimal128Column):
-            values, vkind = _column_to_array(d), "decimal"
-        else:
-            values, vkind = _plain_values_array(_np(d.data), d.dtype), "plain"
-        arr = pa.DictionaryArray.from_arrays(
-            pa.array(_np(col.codes).astype(np.int32), type=pa.int32()),
-            values)
-        f = pa.field(name, arr.type, metadata={
-            _ENC_META: b"dict", _VKIND_META: vkind.encode()})
-        return [(f, arr), companion(_np(col.validity))]
-    if isinstance(col, RunLengthColumn):
-        lengths = _np(col.run_lengths).astype(np.int64)
-        if lengths.size == 0 and col.num_rows:
-            return _export_column(name, col.decode())
-        arr = pa.RunEndEncodedArray.from_arrays(
-            pa.array(np.cumsum(lengths), type=pa.int64()),
-            _plain_values_array(_np(col.run_values), col.dtype))
-        f = pa.field(name, arr.type, metadata={_ENC_META: b"rle"})
-        return [(f, arr), companion(_np(col.validity))]
-    if isinstance(col, StringColumn):
-        arr = _binary_rows(col)
-        f = pa.field(name, arr.type, metadata={_ENC_META: b"string"})
-        return [(f, arr), companion(_np(col.validity))]
-    if isinstance(col, Decimal128Column):
-        # null rows ship 0; the companion restores their flags
-        arr = _decimal_values(col, [0 if v is None else v
-                                    for v in col.to_pylist()])
-        f = pa.field(name, arr.type, metadata={_ENC_META: b"decimal"})
-        return [(f, arr), companion(_np(col.validity))]
-    if isinstance(col, Column):
-        arr = _plain_values_array(_np(col.data), col.dtype)
-        f = pa.field(name, arr.type, metadata={_ENC_META: b"plain"})
-        return [(f, arr), companion(_np(col.validity))]
-    if isinstance(col, (ListColumn, StructColumn)):
-        arr = _column_to_array(col)
-        return [(pa.field(name, arr.type, metadata={_ENC_META: b"arrow"}),
-                 arr)]
-    raise TypeError(f"cannot export {type(col).__name__} on the data plane")
-
-
-def batch_to_ipc(batch: ColumnBatch):
-    """A batch -> ``(one IPC stream buffer, schema fingerprint)``;
-    encoded columns cross as codes and dictionary, or runs."""
-    fields, arrays = [], []
-    for name in batch.names:
-        if name.endswith(_VALIDITY_SUFFIX):
-            raise ValueError(
-                f"column name {name!r} collides with the data plane's "
-                f"validity-companion suffix {_VALIDITY_SUFFIX!r}")
-        for f, a in _export_column(name, batch[name]):
-            fields.append(f)
-            arrays.append(a)
-    table = pa.Table.from_arrays(arrays, schema=pa.schema(fields))
-    sink = pa.BufferOutputStream()
-    with pa.ipc.new_stream(sink, table.schema) as writer:
-        writer.write_table(table)
-    return sink.getvalue(), schema_fingerprint(table.schema)
-
-
-def ipc_to_batch(buf, expect_fingerprint: Optional[str] = None,
-                 device=None) -> ColumnBatch:
-    """The bit-exact inverse of :func:`batch_to_ipc`, on ``device``;
-    ``expect_fingerprint`` checks the schema first."""
-    from .encoded import RunLengthColumn, dictionary_from_arrays
-
-    dev = resolve_device(device)
-    with pa.ipc.open_stream(pa.py_buffer(buf)) as reader:
-        table = reader.read_all()
-    schema = table.schema
-    if (expect_fingerprint is not None
-            and schema_fingerprint(schema) != expect_fingerprint):
-        raise ValueError(
-            f"IPC schema fingerprint {schema_fingerprint(schema)} does not "
-            f"match descriptor {expect_fingerprint}")
-    arrays = {}
-    for i, f in enumerate(schema):
-        chunked = table.column(i)
-        arrays[f.name] = (f, chunked.chunk(0) if chunked.num_chunks == 1
-                          else chunked.combine_chunks())
-    out = {}
-    for name, (f, arr) in arrays.items():
-        meta = f.metadata or {}
-        enc = (meta.get(_ENC_META) or b"arrow").decode()
-        if enc == "validity":
-            continue
-        comp = arrays.get(f"{name}{_VALIDITY_SUFFIX}")
-        valid = (_t(np.asarray(comp[1]).astype(np.bool_), dev)
-                 if comp is not None else None)
-        if enc == "dict":
-            vkind = (meta.get(_VKIND_META) or b"plain").decode()
-            values = (_string_array_to_column(arr.dictionary, dev)
-                      if vkind == "string"
-                      else array_to_column(arr.dictionary, dev))
-            out[name] = dictionary_from_arrays(
-                np.asarray(arr.indices).astype(np.int64), valid, values)
-        elif enc == "rle":
-            run_ends = np.asarray(arr.run_ends).astype(np.int64)
-            vals = array_to_column(arr.values, dev)
-            out[name] = RunLengthColumn(
-                vals.data, _t(np.diff(np.concatenate([[0], run_ends]))
-                              .astype(np.int32), dev), valid, vals.dtype)
-        elif enc == "string":
-            s = _string_array_to_column(arr, dev)
-            out[name] = StringColumn(s.chars, s.lengths, valid)
-        elif enc == "decimal":
-            d = _decimal_array_to_column(arr, dev)
-            out[name] = Decimal128Column(d.limbs, valid, d.dtype)
-        elif enc == "plain":
-            c = array_to_column(arr, dev)
-            out[name] = Column(c.data, valid, c.dtype)
-        else:  # lists and structs: validity rides Arrow nulls
-            out[name] = array_to_column(arr, dev)
-    return ColumnBatch(out)

@@ -92,17 +92,33 @@ def _bitview_rows(col) -> np.ndarray:
 
 def _unique_rows(rows: np.ndarray):
     """``np.unique(rows, axis=0, return_index=True, return_inverse=True)``
-    (lexicographic byte order, first occurrences), fast for rows of 1,
-    2, 4 or 8 bytes: read big-endian, each row is one unsigned integer
-    whose numeric order is the rows' byte order."""
+    (lexicographic byte order, first occurrences).  Read big-endian, a
+    row of 1, 2, 4 or 8 bytes is one unsigned integer, and a wider row
+    (zero-padded to whole words) a sequence of them, whose numeric order
+    is the rows' byte order: a stable ``lexsort`` over the words finds the
+    same groups and first rows.  Unlike ``np.unique(axis=0)``, which sorts
+    the rows as opaque records holding the GIL (seconds at 2^20 rows,
+    long enough to starve a serving worker's heartbeat), it releases the
+    GIL and is an order of magnitude faster."""
     n, k = rows.shape
     if k in (1, 2, 4, 8) and n:
         key = np.ascontiguousarray(rows).view(f">u{k}").reshape(n)
         _, uidx, inv = np.unique(key, return_index=True, return_inverse=True)
         return uidx, inv.reshape(n)
-    _, uidx, inv = np.unique(rows, axis=0, return_index=True,
-                             return_inverse=True)
-    return uidx, inv.reshape(n)
+    if n == 0:
+        return np.zeros(0, np.intp), np.zeros(0, np.intp)
+    w = -(-k // 8) * 8
+    padded = np.zeros((n, w), np.uint8)
+    padded[:, :k] = rows
+    words = padded.view(">u8").astype(np.uint64)
+    order = np.lexsort(words.T[::-1])  # the first word is the primary key
+    ordered = words[order]
+    new = np.empty(n, np.bool_)
+    new[0] = True
+    np.any(ordered[1:] != ordered[:-1], axis=1, out=new[1:])
+    inv = np.empty(n, np.intp)
+    inv[order] = np.cumsum(new) - 1
+    return order[new], inv
 
 
 def _build_canon(dictionary) -> torch.Tensor:

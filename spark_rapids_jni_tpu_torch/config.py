@@ -241,7 +241,9 @@ _register("serve_max_readmissions", 2, int,
           "cancels never re-admit).")
 _register("serve_backoff_ms", 50.0, float,
           "Base backoff between a query's timeout kill and its "
-          "re-admission, doubled per attempt (serve/runtime.py).")
+          "re-admission, doubled per attempt (serve/runtime.py); the "
+          "front door reuses it as the base delay of its session "
+          "re-placement and worker-respawn ladders.")
 _register("serve_data_plane", "auto", str,
           "How result payloads cross a process boundary "
           "(serve/data_plane.py): 'shm' (a sealed memfd passed by "
@@ -249,6 +251,101 @@ _register("serve_data_plane", "auto", str,
           "binary frames on the socket), 'json' (base64 in the message, "
           "refused past the control-frame cap) or 'auto' (shm on unix, "
           "frames on tcp).")
+_register("serve_workers", 2, int,
+          "Executor worker processes the multi-process front door "
+          "(serve/frontdoor.py) spawns; each hosts its own ServeRuntime, "
+          "arena, spill store, and plan cache, with tenant sessions "
+          "pinned to one worker over the local-socket protocol — one "
+          "wedged interpreter can't take the fleet down.")
+_register("serve_heartbeat_ms", 100.0, float,
+          "Front-door heartbeat period: the supervisor pings every "
+          "worker this often; a worker silent for ~3.5 periods (or "
+          "whose native stall-breaker epoch keeps climbing with no "
+          "completions) is declared wedged and SIGKILLed.")
+_register("serve_respawn_max", 3, int,
+          "Circuit breaker on worker respawns: how many times one "
+          "worker slot may be respawned (with exponential backoff) "
+          "before the front door stops replacing it and serves "
+          "degraded on the surviving workers.")
+_register("serve_shed_threshold", 0.5, float,
+          "Degradation threshold: when the healthy fraction of "
+          "configured workers drops below this, the front door sheds "
+          "lowest-priority pending admissions beyond the surviving "
+          "capacity (AdmissionShed) instead of queueing unboundedly.")
+_register("serve_transport", "unix", str,
+          "Fleet transport the front door serves workers over: 'unix' "
+          "(one Unix-domain socket under the private fleet dir — the "
+          "single-box default) or 'tcp' (workers dial the supervisor's "
+          "127.0.0.1 listener; the multi-host placement path).  Both "
+          "ride the same framed protocol with CRC32 trailers and "
+          "frame deadlines (serve/wire.py).")
+_register("serve_hosts", "", str,
+          "Comma-separated logical host names for worker placement "
+          "(e.g. 'hostA,hostB'): worker slots are distributed "
+          "round-robin across hosts and the shutdown report records "
+          "each worker's host.  More than one host forces the tcp "
+          "transport (a Unix socket cannot span boxes).  Empty = one "
+          "implicit local host.")
+_register("serve_partition_grace_ms", 1500.0, float,
+          "Split-brain budget: a worker that cannot reach the "
+          "supervisor for this long SELF-FENCES — it revokes its own "
+          "store epoch (shuffle/store.py revoke()) so a "
+          "partitioned-but-alive worker can never zombie-commit, then "
+          "drains and exits.  The supervisor mirrors the same window "
+          "before declaring a silent connection a partition and "
+          "re-placing the worker's sessions.")
+_register("serve_reconnect_max", 4, int,
+          "Bounded reconnect ladder: how many times a worker retries "
+          "dialing the supervisor (exponential backoff, capped by "
+          "serve_partition_grace_ms) after losing its CONNECTION "
+          "before treating the link as a partition.  A successful "
+          "re-dial re-attaches the same incarnation via its resume "
+          "token — live sessions survive, nothing is re-run.")
+_register("serve_orphan_grace_ms", 0.0, float,
+          "Orphaned-worker self-fence grace: a worker that has heard "
+          "NOTHING from its supervisor (no pings, no frames) for this "
+          "long — even over a socket that still looks up — assumes the "
+          "supervisor died without closing the link, and runs the "
+          "self-fence ladder (revoke own epoch, sentinel, drain, exit "
+          "rc=3) so a never-restarted supervisor leaks no processes "
+          "and no unfenced generations.  0 disables (the reconnect "
+          "ladder + serve_partition_grace_ms still cover dead-socket "
+          "orphans).")
+_register("serve_segment_bytes", 1 << 20, int,
+          "Chunk granularity of the zero-copy data plane: payloads are "
+          "CRC32-stamped per chunk of this many bytes (torn-segment "
+          "detection resolution) and the frames plane caps each binary "
+          "data frame at this size so control messages interleave "
+          "instead of queueing behind a monolithic payload frame.")
+_register("serve_launcher", "local", str,
+          "How worker processes come to exist (serve/launcher.py): "
+          "'local' execs the worker argv on this box (a fresh "
+          "interpreter, never a fork of this one); any other value is an agent/ssh-style command "
+          "template (shlex-split, worker argv spliced at '{argv}' or "
+          "appended) run per launch — the argv, resume token, and fence "
+          "epoch are identical either way, so fencing and reattach work "
+          "unmodified for remote workers.")
+_register("serve_placement", "load", str,
+          "Dispatch/placement policy of the front door (serve/"
+          "elastic.py): 'load' scores workers by effective depth "
+          "(placed sessions + pong queue depth), arena pressure, and "
+          "stall suspicion, and spreads new incarnations across hosts "
+          "fewest-live-slots-first; 'round_robin' keeps the legacy "
+          "rotation — the comparison arm.")
+_register("serve_journal", True, _parse_bool,
+          "Write-ahead session journal of the front door (serve/"
+          "journal.py): every session lifecycle transition and fleet "
+          "fact is appended O_APPEND+fsync with a per-record CRC32 "
+          "trailer to <fleet_dir>/journal.wal BEFORE the in-memory "
+          "state mutates, so a supervisor crash loses no committed "
+          "fact.  Off = no journal (a supervisor's death loses "
+          "the fleet).")
+_register("shuffle_store_retain", False, _parse_bool,
+          "Whether FrontDoor.shutdown() leaves the shuffle store's "
+          "committed entries on disk (for a later fleet to adopt) "
+          "instead of reaping them with the fleet dir.  The zero-orphan "
+          "shutdown report excludes the store subtree either way — "
+          "retained entries are intentional, not leaks.")
 
 
 def knob_fingerprint() -> tuple:

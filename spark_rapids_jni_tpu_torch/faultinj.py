@@ -37,7 +37,12 @@ at them, with a probability, a count and a skip.
   transport's ``net_send_<role>``/``net_recv_<role>`` probes (the
   transport turns each into real wire damage); ``"shm_torn"`` and
   ``"shm_stale"`` for the data plane; ``"supervisor_crash"`` and
-  ``"journal_torn"`` at the session journal's probes.  The reference's
+  ``"journal_torn"`` at the session journal's probes; ``"worker_crash"``
+  and ``"worker_stall"`` are process-level kinds for the serving fleet:
+  inside an executor worker they kill -9 the interpreter or wedge it so
+  it stops answering heartbeats (hooks installed by
+  :func:`set_worker_fault_hooks`), and in a process with no hooks they
+  raise :class:`WorkerCrash` / :class:`WorkerStalled`.  The reference's
   other kinds belong to paths the port does not carry yet: a rule
   naming one raises ``not_ported`` with the ROADMAP item that brings
   it (:data:`UNPORTED_KINDS`), an unknown kind ``ValueError``.
@@ -50,7 +55,9 @@ name, :func:`fired_log` the ordered trace ``{"seq", "name", "fault",
 "match", "occurrence"}``.  :func:`scope` applies a config for a ``with``
 block and restores the previous rules on exit.  :func:`current_config`
 returns the live schedule; ``SPARK_RAPIDS_TPU_FAULT_MIRROR`` names a
-file every firing is appended to (one JSON line) before its raiser runs.
+file every firing is appended to (one JSON line) before its raiser runs,
+so a worker's trace survives its own SIGKILL; :func:`record_external`
+merges such a trace back into this process's :func:`fired_log`.
 """
 
 from __future__ import annotations
@@ -243,6 +250,54 @@ def _raise_journal_torn(name: str):
     raise JournalTornError(f"injected torn journal record at {name}")
 
 
+class WorkerCrash(RuntimeError):
+    """An executor worker process was killed -9 (kind ``"worker_crash"``).
+
+    Inside a worker the registered hook never returns: it SIGKILLs the
+    interpreter, so there is no unwind, no atexit, no spill cleanup, and
+    the front door's reaper is the only recovery path.  In a process with
+    no hook installed (pytest, the supervisor itself) this exception is
+    raised instead."""
+
+
+class WorkerStalled(RuntimeError):
+    """An executor worker wedged mid-query (kind ``"worker_stall"``).
+
+    Inside a worker the registered hook blocks the calling thread forever
+    and flips a flag that stops the heartbeat loop answering pings: the
+    supervisor must detect the missed heartbeats and SIGKILL the worker.
+    With no hook installed this exception is raised instead."""
+
+
+# Process-level fault hooks: only an executor worker installs these (see
+# serve/worker.py); everywhere else the worker kinds raise loudly.
+_worker_hooks: Dict[str, Optional[object]] = {"crash": None, "stall": None}
+
+
+def set_worker_fault_hooks(crash=None, stall=None):
+    """Install process-level handlers for the worker fault kinds.
+
+    ``crash``/``stall`` are called with the instrumented name and are
+    expected NOT to return (SIGKILL / block forever); if one does return,
+    the corresponding exception is raised as a fallback."""
+    _worker_hooks["crash"] = crash
+    _worker_hooks["stall"] = stall
+
+
+def _raise_worker_crash(name: str):
+    hook = _worker_hooks["crash"]
+    if hook is not None:
+        hook(name)
+    raise WorkerCrash(f"injected worker crash at {name} (no hook installed)")
+
+
+def _raise_worker_stall(name: str):
+    hook = _worker_hooks["stall"]
+    if hook is not None:
+        hook(name)
+    raise WorkerStalled(f"injected worker stall at {name} (no hook installed)")
+
+
 FAULT_KINDS = {
     "exception": _raise_exception,
     "oom": _raise_oom,
@@ -254,6 +309,8 @@ FAULT_KINDS = {
     "store_commit": _raise_store_commit,
     "store_corrupt": _raise_store_corrupt,
     "task_cancel": _raise_task_cancel,
+    "worker_crash": _raise_worker_crash,
+    "worker_stall": _raise_worker_stall,
     "net_drop": _raise_net_drop,
     "net_stall": _raise_net_stall,
     "net_torn": _raise_net_torn,
@@ -266,9 +323,8 @@ FAULT_KINDS = {
 # the reference's kinds whose paths the port does not carry yet, each
 # with the ROADMAP item that brings its path
 UNPORTED_KINDS = {
-    "worker_crash": 16, "worker_stall": 16, "cache_stale": 16,
-    "cache_corrupt": 16, "scale_up_fail": 16, "drain_stuck": 16,
-    "zone_map_corrupt": 17,
+    "cache_stale": "16d", "cache_corrupt": "16d", "scale_up_fail": "16d",
+    "drain_stuck": "16d", "zone_map_corrupt": 17,
 }
 
 
@@ -411,8 +467,29 @@ class _Injector:
             # observability must never take the workload down with it
             self._mirror_fd = None
 
+    def record_external(self, entries: List[dict],
+                        source: Optional[str] = None):
+        """Merge another process's fired entries into this log: the front
+        door calls it with a dead or drained worker's mirror file (or its
+        last pong's trace), so :func:`fired_log` covers the whole fleet.
+        Entries are re-sequenced here; ``source`` tags their origin."""
+        with self._lock:
+            for e in entries:
+                self._seq += 1
+                rec = {"seq": self._seq, "name": e.get("name", "?"),
+                       "fault": e.get("fault", "?"),
+                       "match": e.get("match", "*"),
+                       "occurrence": e.get("occurrence", 0)}
+                if source is not None:
+                    rec["source"] = source
+                elif "source" in e:
+                    rec["source"] = e["source"]
+                self._fired[rec["name"]] = self._fired.get(rec["name"], 0) + 1
+                self._log.append(rec)
+
     def current_config(self) -> dict:
-        """The live schedule as a config dict (the original rule specs)."""
+        """The live schedule as a config dict (the original rule specs):
+        what a supervisor exports to a spawned worker."""
         with self._lock:
             return {"seed": self._seed,
                     "faults": [dict(r.spec) for r in self._rules]}
@@ -457,6 +534,7 @@ fire_counts = _injector.fire_counts
 fired_log = _injector.fired_log
 reset_stats = _injector.reset_stats
 current_config = _injector.current_config
+record_external = _injector.record_external
 
 
 def instrument(fn, name: Optional[str] = None):

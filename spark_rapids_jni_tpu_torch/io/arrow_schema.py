@@ -54,14 +54,16 @@ class ArrowField:
 
 
 class _Flat:
-    """Bounds-checked reads of one flatbuffer."""
+    """Bounds-checked reads of one flatbuffer; ``what`` names it in the
+    errors."""
 
-    def __init__(self, buf: bytes):
+    def __init__(self, buf: bytes, what: str = "ARROW:schema"):
         self.buf = buf
+        self.what = what
 
     def _unpack(self, fmt: str, pos: int):
         if pos < 0 or pos + struct.calcsize(fmt) > len(self.buf):
-            raise ValueError("corrupt ARROW:schema: a read past its "
+            raise ValueError(f"corrupt {self.what}: a read past its "
                              "flatbuffer")
         return struct.unpack_from(fmt, self.buf, pos)[0]
 
@@ -88,25 +90,34 @@ class _Flat:
         pos = self.field(table, slot)
         return None if pos is None else self.deref(pos)
 
-    def string(self, table: int, slot: int) -> str:
+    def raw_string(self, table: int, slot: int) -> bytes:
         pos = self.table(table, slot)
         if pos is None:
-            return ""
+            return b""
         n = self._unpack("<I", pos)
         if pos + 4 + n > len(self.buf):
-            raise ValueError("corrupt ARROW:schema: a string runs past its "
+            raise ValueError(f"corrupt {self.what}: a string runs past its "
                              "flatbuffer")
-        return self.buf[pos + 4:pos + 4 + n].decode("utf-8", "replace")
+        return bytes(self.buf[pos + 4:pos + 4 + n])
 
-    def tables(self, table: int, slot: int) -> List[int]:
+    def string(self, table: int, slot: int) -> str:
+        return self.raw_string(table, slot).decode("utf-8", "replace")
+
+    def vector(self, table: int, slot: int, elem: int):
+        """``(position of the first element, count)`` of a vector of
+        ``elem``-byte elements, ``(0, 0)`` where the field is absent."""
         pos = self.table(table, slot)
         if pos is None:
-            return []
+            return 0, 0
         n = self._unpack("<I", pos)
-        if pos + 4 + 4 * n > len(self.buf):
-            raise ValueError("corrupt ARROW:schema: a vector runs past its "
+        if pos + 4 + elem * n > len(self.buf):
+            raise ValueError(f"corrupt {self.what}: a vector runs past its "
                              "flatbuffer")
-        return [self.deref(pos + 4 + 4 * i) for i in range(n)]
+        return pos + 4, n
+
+    def tables(self, table: int, slot: int) -> List[int]:
+        pos, n = self.vector(table, slot, 4)
+        return [self.deref(pos + 4 * i) for i in range(n)]
 
 
 def _field(fb: _Flat, t: int, depth: int) -> ArrowField:

@@ -36,7 +36,6 @@ from typing import Optional, Sequence
 
 import torch
 
-from .._roadmap import not_ported
 
 LIB_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "native", "resource_adaptor.cpp")
@@ -690,9 +689,13 @@ class RmmSpark:
     # fleet metrics (recorded by the multi-process front door) ----------
     @classmethod
     def fleet_metrics(cls) -> dict:
-        """Front-door fleet counters: the serving fleet is not ported
-        yet."""
-        raise not_ported("RmmSpark.fleet_metrics (the front door)", 16)
+        """Front-door fleet counters (per-worker liveness, re-placements,
+        sheds, respawns, crashes/stalls, circuit-breaker opens) beside
+        the other telemetry scrapes (zeros-safe: a process that never ran
+        a front door reports all-zero counters and no workers)."""
+        from ..serve.frontdoor import fleet_metrics
+
+        return fleet_metrics()
 
     # injection ---------------------------------------------------------
     @classmethod

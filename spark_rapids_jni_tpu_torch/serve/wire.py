@@ -56,8 +56,8 @@ worker   ``pong``     ``t``, ``stall_breaks`` (native stall-breaker
                       epoch), ``live_sessions``, ``queue_depth`` /
                       ``arena_bytes`` / ``pool_bytes`` (load signals for
                       the elastic placement scorer),
-                      ``warmed``, ``fence_epoch``, ``fired`` (injection
-                      trace so far)
+                      ``fence_epoch``, ``fired`` (injection trace so
+                      far)
 super    ``submit``   ``sid``, ``kind``, ``params``, ``tenant``,
                       ``priority``, ``est_bytes``, ``timeout_s``
 worker   ``running``  ``sid`` — the session left the admission queue
@@ -70,7 +70,7 @@ super    ``drain``    — retirement order: finish placed sessions,
 super    ``shutdown`` —
 worker   ``bye``      ``clean``, ``residue``, ``store_len``,
                       ``leftovers``, ``retired``, ``fenced_commits``,
-                      ``warmed``, ``fired``
+                      ``fired``
 ======== ============ ====================================================
 
 ``send_msg`` takes an optional lock so a worker's result watchers and

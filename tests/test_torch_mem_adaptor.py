@@ -947,8 +947,13 @@ def test_metrics_scrapes(arena):
                    lambda: arena.get_and_reset_task_spill_metrics(1)):
         got = scrape()
         assert got and not any(got.values())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        arena.fleet_metrics()
+    # the fleet scrape is the front door's counters (zeros before any
+    # front door ran in this process)
+    from spark_rapids_jni_tpu_torch.serve import frontdoor
+
+    fleet = arena.fleet_metrics()
+    assert set(fleet) == set(frontdoor.FleetMetrics.FIELDS) | {"liveness"}
+    assert fleet == frontdoor.fleet_metrics()
 
 
 # ---------------------------------------------------------------------------

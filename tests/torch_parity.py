@@ -22,7 +22,9 @@ from spark_rapids_jni_tpu.columnar.encoded import \
 from spark_rapids_jni_tpu.columnar.encoded import RunLengthColumn as JRle
 
 from spark_rapids_jni_tpu_torch.columnar.column import (Decimal128Column,
+                                                        ListColumn,
                                                         StringColumn,
+                                                        StructColumn,
                                                         batch_from_numpy)
 
 MAX38 = 10 ** 38 - 1
@@ -73,6 +75,53 @@ def to_port(jb):
     return batch_from_numpy({n: host_form(c)
                              for n, c in zip(jb.names, jb.columns)},
                             device="cpu")
+
+
+def port_host_form(c):
+    """A port column in ``host_form``'s shape, tensors for arrays."""
+    from spark_rapids_jni_tpu_torch.columnar import encoded as E
+
+    if isinstance(c, E.DictionaryColumn):
+        data = {"encoding": "dictionary", "codes": c.codes,
+                "canon": c.canon, "dictionary": port_host_form(c.dictionary)}
+    elif isinstance(c, E.RunLengthColumn):
+        data = {"encoding": "rle", "run_values": c.run_values,
+                "run_lengths": c.run_lengths}
+    elif isinstance(c, StringColumn):
+        data = (c.chars, c.lengths)
+    elif isinstance(c, Decimal128Column):
+        data = c.limbs
+    elif isinstance(c, ListColumn):
+        data = (c.offsets, port_host_form(c.child))
+    elif isinstance(c, StructColumn):
+        data = {f: port_host_form(ch) for f, ch in zip(c.field_names,
+                                                     c.children)}
+    else:
+        data = c.data
+    return data, c.validity, repr(c.dtype)
+
+
+def raw_form(x):
+    """A host form with every array as ``(shape, raw bytes)`` and
+    dictionary tokens left out: equal forms are equal bit for bit."""
+    if isinstance(x, dict):
+        return {k: raw_form(v) for k, v in x.items() if k != "token"}
+    if isinstance(x, tuple):
+        return tuple(raw_form(v) for v in x)
+    if x is None or isinstance(x, (str, int, float)):
+        return x
+    a = np.asarray(x.cpu().numpy() if hasattr(x, "numpy") else x)
+    return (a.shape, a.view(np.uint8).tobytes() if a.size else b"")
+
+
+def port_form(c):
+    """A port column's buffers as raw bytes (see :func:`raw_form`)."""
+    return raw_form(port_host_form(c))
+
+
+def ref_form(c):
+    """A reference column's buffers as raw bytes (see :func:`raw_form`)."""
+    return raw_form(host_form(c))
 
 
 def port_col(jc):
